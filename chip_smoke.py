@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``slam_eds_tpu_torch``) on one GPU.
 
-Builds the hand-written ``sm_90a`` pattern-sampler kernel from
-``slam_eds_tpu_torch/csrc``, holds it against its plain PyTorch version, runs
-the keyframe BA at the reference operating point and then the port's main
-path, ``FrameOnlyPipeline``, at 640x480 with the default ``EDSConfig``.
-Phases, one output line each:
+Builds the hand-written ``sm_90a`` kernels (the pattern sampler and the
+event raster) from ``slam_eds_tpu_torch/csrc``, one ``nvcc`` each, started
+together; holds each against its plain PyTorch version; runs the keyframe BA
+at the reference operating point, the frame-only path
+(``FrameOnlyPipeline``) and the event path (``EDSPipeline``), both at 640x480
+with the default ``EDSConfig``. Phases, one output line each:
 
 1. device   -- card name and power limit, torch/CUDA versions, f32 numerics
 2. build    -- nvcc build of csrc/pattern_sample.cu
@@ -23,18 +24,36 @@ Phases, one output line each:
 5. pipeline -- ``FrameOnlyPipeline`` over a ``SyntheticSequence``: bootstrap,
                at least one marginalized frame, no full reset, kernel
                launches, every window tensor on the card, ATE bound
+6. build-raster  -- the nvcc build of csrc/rasterize.cu (ptxas registers and
+               spills)
+7. kernel-raster -- raster kernel vs ``rasterize_bilinear_reference`` on the
+               largest packet of phase 8's sequence (65,536 capacity, time
+               weights and mask applied), 65,536 random fractional events at
+               640x480, a ragged case (E=700, 77x131, border taps, +-1e10,
+               -1e6, NaN and inf) and a case at the fixed-point range bound
+               (reference in float64): max |d| <= 1e-5 max(1, max|ref|),
+               finite, two launches bitwise equal; time per call of both on
+               the packet (CUDA events, and device time from the profiler)
+8. eds      -- ``EDSPipeline`` over 32 frames of the bench_e2e sequence
+               (65,536-event packets): bootstrap, BA run, no reset, event
+               keyframes, usable solves, both kernels launched, every event
+               and window tensor on the card, frame and event ATE bounds;
+               frames/s, ms per packet, host reads per packet
 
-Then the kernels JSON line, the ``nvidia-smi`` name/power-limit line and, as
-the last line, ``{"ok": true, "device": {...}}``. Every failure raises, so the
-exit code is not 0; without a CUDA device the script exits 1 before any
-result. Imports no JAX.
+Phase 3 also reads the sampler's device time from the profiler. Then the
+kernels JSON line, the ``nvidia-smi`` name/power-limit line and, as the last
+line, ``{"ok": true, "device": {...}}``. Every failure raises, so the exit
+code is not 0; without a CUDA device the script exits 1 before any result.
+Imports no JAX.
 
     python3 chip_smoke.py
 """
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -48,6 +67,15 @@ PIPE_FRAMES = 32
 JAX_CPU_ATE = 0.050325214862823486
 PIPE_WARMUP = 4            # frames left out of frames/s (bootstrap, warm-up)
 KERNEL_TOL = 1e-4
+# Phase 8's reference: the JAX package's EDSPipeline on the CPU over the same
+# 32 frames with 65,536-event packets (bench.py's bench_e2e operating
+# point): bootstrap at frame 1, 30 packets fed and 30 usable solves, 19
+# event keyframes, 11 keyframes, 9 BA runs, 4 marginalizations, no reset.
+EVENT_CAP = 65536
+JAX_CPU_EDS = {"ate": 0.050906877964735031, "event_ate": 0.045590642839670181,
+               "event_solves": 30, "event_kfs": 19, "keyframes": 11,
+               "ba_runs": 9, "marginalized": 4, "resets": 0}
+RASTER_TOL = 1e-5          # max |d| <= RASTER_TOL * max(1, max|ref|)
 
 
 def fail(msg):
@@ -80,6 +108,21 @@ def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_us(fn, reps: int = 50):
+    """Device time per call of ``fn()`` in microseconds: every device
+    activity (kernels, memsets) the profiler records over ``reps`` calls,
+    summed, over ``reps``; None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    return total / reps if total > 0 else None
+
+
 # ---------------------------------------------------------------------------
 def phase_device():
     if not torch.cuda.is_available():
@@ -94,12 +137,20 @@ def phase_device():
     return torch.device("cuda:0")
 
 
-def phase_build():
+def build_kernels():
+    """Both kernel libraries, one nvcc each, started together."""
     from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
-    built = ps.load()
+    from slam_eds_tpu_torch.ops.kernels import rasterize as rz
+    with ThreadPoolExecutor(2) as ex:
+        jobs = {"pattern_sample": ex.submit(ps.load),
+                "rasterize": ex.submit(rz.load)}
+        return {name: job.result() for name, job in jobs.items()}
+
+
+def phase_build(label, built):
     ptxas = [l.strip() for l in built.log.splitlines()
              if "registers" in l or "spill" in l]
-    phase("build", library=built.path.name,
+    phase(label, library=built.path.name,
           seconds=round(built.build_seconds, 3), ptxas=ptxas)
 
 
@@ -169,6 +220,9 @@ def phase_kernel(dev):
     ms = cuda_time_ms(lambda: ps.pattern_sample_cuda(path_planes, pu, pv), 200)
     plain_ms = cuda_time_ms(
         lambda: ps.pattern_sample_reference(path_planes, pu, pv), 50)
+    dev_us = device_us(lambda: ps.pattern_sample_cuda(path_planes, pu, pv))
+    plain_dev_us = device_us(
+        lambda: ps.pattern_sample_reference(path_planes, pu, pv))
     err = max(err_op, err_rag, err_path)
     phase("kernel", name="pattern_sample", max_abs_err=err,
           err_operating_point=err_op, err_ragged=err_rag,
@@ -176,8 +230,10 @@ def phase_kernel(dev):
           us_per_call_path_taps=ms * 1e3,
           plain_us_per_call_path_taps=plain_ms * 1e3,
           us_per_call_random_taps=ms_rand * 1e3,
-          plain_us_per_call_random_taps=plain_rand * 1e3)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          plain_us_per_call_random_taps=plain_rand * 1e3,
+          device_us_path_taps=dev_us, plain_device_us_path_taps=plain_dev_us)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "device_us": dev_us, "plain_device_us": plain_dev_us}
 
 
 def linearize_taps(dev):
@@ -349,18 +405,236 @@ def phase_pipeline(dev):
     return launches
 
 
+def eds_inputs(dev):
+    """Phase 8's camera, sequence, frames and packets: bench.py's bench_e2e
+    operating point (640x480, seed 7, motion_scale 0.22, micro_steps 2,
+    65,536-event packets)."""
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.utils.cameras import Pinhole
+    cam = Pinhole(400.0, 400.0, 319.5, 239.5, 640, 480)
+    seq = SyntheticSequence(cam, num_frames=PIPE_FRAMES, motion_scale=0.22,
+                            micro_steps=2, events_per_packet=EVENT_CAP,
+                            device=dev)
+    frames = [seq.frame(k)[:2] for k in range(PIPE_FRAMES)]
+    packets = [seq.events_between(k, k + 1) for k in range(PIPE_FRAMES - 1)]
+    return cam, seq, frames, packets
+
+
+def raster_cases(dev, packets):
+    """name -> (xs, ys, values, H, W, reference in float64)."""
+    from slam_eds_tpu_torch.utils.events import event_time_weights
+    rng = np.random.default_rng(1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa
+
+    # (a) the largest packet, its time weights and mask applied as in
+    # build_event_frame (the padded lanes are zero-value events at (0, 0))
+    big = max(packets, key=lambda p: int(p.n_valid))
+    n = int(big.n_valid)
+    live = torch.arange(EVENT_CAP, device=dev) < n
+    vals = t(big.polarity) * event_time_weights(n, EVENT_CAP, device=dev)
+    cases = {"packet": (t(big.xs), t(big.ys),
+                        torch.where(live, vals, torch.zeros_like(vals)),
+                        480, 640, False)}
+    # (b) random fractional events over [-2, W+2] x [-2, H+2], +-1 values
+    cases["random"] = (t(rng.uniform(-2, 642, EVENT_CAP)),
+                       t(rng.uniform(-2, 482, EVENT_CAP)),
+                       t(rng.choice([-1.0, 1.0], EVENT_CAP)), 480, 640, False)
+    # (c) ragged: border taps, huge and pad coordinates, NaN and inf
+    Hr, Wr, E = 77, 131, 700
+    xs = rng.uniform(-2, Wr + 2, E)
+    ys = rng.uniform(-2, Hr + 2, E)
+    xs[:15] = [Wr - 1 + 0.75, -0.25, 0.0, Wr - 1.0, -1.0, Wr - 0.5, 1e10,
+               -1e10, -1e6, 5.5, np.nan, np.inf, -np.inf, 3.0, 7.25]
+    ys[:15] = [3.5, 3.5, 0.0, Hr - 1.0, 2.0, Hr - 1.25, 2.0, 3.0, -1e6,
+               1e10, 4.0, 5.0, 6.0, np.nan, np.inf]
+    cases["ragged"] = (t(xs), t(ys), t(rng.choice([-1.0, 1.0], E)), Hr, Wr,
+                       False)
+    # (d) at the fixed-point range bound E * max|v| < 2^30: every event on
+    # one of two pixels, |v| = 2^14 - 1/4, so E * |v| = 2^30 - 2^14; the
+    # float32 plain version would round its running sum, so the reference
+    # is the plain version in float64
+    v = np.full(EVENT_CAP, 2.0 ** 14 - 0.25)
+    v[3 * EVENT_CAP // 4:] *= -1
+    xs = np.where(v > 0, 100.0, 200.0)
+    cases["bound"] = (t(xs), t(np.full(EVENT_CAP, 50.0)), t(v), 480, 640,
+                      True)
+    return cases
+
+
+def _compare_raster(rz, xs, ys, vals, H, W, f64):
+    """Kernel vs plain version on one input; returns (max |d|, bound)."""
+    before = rz.rasterize_bilinear.launches
+    got = rz.rasterize_bilinear(xs, ys, vals, H, W)
+    again = rz.rasterize_bilinear_cuda(xs, ys, vals, H, W)
+    if rz.rasterize_bilinear.launches != before + 2:
+        fail("the raster wrapper did not count its launches")
+    if f64:
+        ref = rz.rasterize_bilinear_reference(
+            xs.double(), ys.double(), vals.double(), H, W).float()
+    else:
+        ref = rz.rasterize_bilinear_reference(xs, ys, vals, H, W)
+    torch.cuda.synchronize()
+    if got.shape != (H, W) or got.dtype != torch.float32:
+        fail(f"raster output {tuple(got.shape)} {got.dtype}")
+    if not torch.isfinite(got).all():
+        fail("raster output is not finite")
+    if not torch.equal(got, again):
+        fail("two raster launches on one input differ")
+    err = float((got - ref).abs().max())
+    bound = RASTER_TOL * max(1.0, float(ref.abs().max()))
+    if not err <= bound:
+        fail(f"raster kernel differs from the plain version by {err} "
+             f"(bound {bound})")
+    return err, bound
+
+
+def phase_kernel_raster(dev, packets):
+    from slam_eds_tpu_torch.ops.kernels import rasterize as rz
+    cases = raster_cases(dev, packets)
+    errs = {name: _compare_raster(rz, *case)
+            for name, case in cases.items()}
+    xs, ys, vals, H, W, _ = cases["packet"]
+    ms = cuda_time_ms(lambda: rz.rasterize_bilinear_cuda(xs, ys, vals, H, W),
+                      200)
+    plain_ms = cuda_time_ms(
+        lambda: rz.rasterize_bilinear_reference(xs, ys, vals, H, W), 50)
+    dev_us = device_us(lambda: rz.rasterize_bilinear_cuda(xs, ys, vals, H, W))
+    plain_dev_us = device_us(
+        lambda: rz.rasterize_bilinear_reference(xs, ys, vals, H, W))
+    err = max(e for e, _ in errs.values())
+    phase("kernel-raster", name="rasterize_bilinear", max_abs_err=err,
+          errors={k: {"max_abs_err": e, "bound": b}
+                  for k, (e, b) in errs.items()},
+          packet_n_valid=int((vals != 0).sum()), events=xs.numel(),
+          us_per_call_packet=ms * 1e3, plain_us_per_call_packet=plain_ms * 1e3,
+          device_us_packet=dev_us, plain_device_us_packet=plain_dev_us)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "device_us": dev_us, "plain_device_us": plain_dev_us}
+
+
+def _event_tensors(pipe):
+    for tup in (pipe.kf, pipe.depth, pipe.tracker_state, pipe.pose_filter):
+        yield from tup
+    yield from _window_tensors(pipe.frame_pipe.window)
+
+
+def eds_config():
+    """The default EDSConfig with 65,536-event packets."""
+    from slam_eds_tpu_torch.config import EDSConfig
+    cfg = EDSConfig()
+    return dataclasses.replace(
+        cfg, caps=dataclasses.replace(cfg.caps, max_events=EVENT_CAP),
+        event_frame=dataclasses.replace(cfg.event_frame,
+                                        events_per_frame=EVENT_CAP))
+
+
+def phase_eds(dev, cam, seq, frames, packets):
+    from slam_eds_tpu_torch.models.pipeline import EDSPipeline
+    from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
+    from slam_eds_tpu_torch.ops.kernels.rasterize import rasterize_bilinear
+    from slam_eds_tpu_torch.utils.alignment import ate_rmse
+
+    pipe = EDSPipeline(cam, eds_config(), device=dev)
+    torch.cuda.synchronize()
+
+    pattern_sample.launches = 0
+    rasterize_bilinear.launches = 0
+    frame_s, packet_s = [], []
+    ev_pos, ev_gt, usable = [], [], []
+    for k, (t, img) in enumerate(frames):
+        t0 = time.perf_counter()
+        pipe.process_frame(img, t)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        if k + 1 < len(frames) and pipe.kf is not None:
+            t0 = time.perf_counter()
+            T = pipe.process_events(packets[k])
+            torch.cuda.synchronize()
+            packet_s.append((k, time.perf_counter() - t0))
+            usable.append(T is not None)
+            if T is not None:
+                ev_pos.append(T.inverse().t.cpu().numpy())
+                ev_gt.append(seq.pose_at(k + 0.5).inverse().t.cpu().numpy())
+    launches = {"pattern_sample": pattern_sample.launches,
+                "rasterize_bilinear": rasterize_bilinear.launches}
+
+    fp = pipe.frame_pipe
+    est = fp.positions()
+    ate = float(ate_rmse(est, seq.gt_positions()[:len(est)]))
+    ev_ate = (float(ate_rmse(np.stack(ev_pos), np.stack(ev_gt)))
+              if len(ev_pos) >= 3 else float("inf"))
+    c, fc = pipe.telemetry.counters, fp.telemetry.counters
+    ate_bound = max(0.05, 1.5 * JAX_CPU_EDS["ate"])
+    ev_bound = max(0.12, 1.5 * JAX_CPU_EDS["event_ate"])
+    min_solves = 0.8 * JAX_CPU_EDS["event_solves"]
+    steady_pk = [s for k, s in packet_s if k >= PIPE_WARMUP]
+    steady_s = sum(frame_s[PIPE_WARMUP:]) + sum(steady_pk)
+    n_pk = max(c["event_packets"], 1)
+    reads = {name: c[f"event_{name}_host_reads"] / n_pk
+             for name in ("lm", "gate", "scalar")}
+    phase("eds", frames=len(frames), packets_fed=len(usable),
+          usable_solves=int(sum(usable)),
+          usable_fraction=sum(usable) / max(len(usable), 1),
+          usable_by_packet="".join("u" if u else "x" for u in usable),
+          event_kfs=pipe.num_event_kfs, keyframes=fp.window.next_id,
+          marginalized=fp.window.marg_count, kernel_launches=launches,
+          ate=ate, ate_bound=ate_bound, event_ate=ev_ate,
+          event_ate_bound=ev_bound, jax_cpu=JAX_CPU_EDS,
+          frames_per_s=(len(frames) - PIPE_WARMUP) / steady_s,
+          packet_ms_median=1e3 * float(np.median(steady_pk)),
+          packet_ms_max=1e3 * max(steady_pk),
+          frame_ms_median=1e3 * float(np.median(frame_s[PIPE_WARMUP:])),
+          host_reads_per_packet=sum(reads.values()),
+          host_reads_per_packet_by_kind=reads,
+          event_counters=dict(c), frame_counters=dict(fc),
+          n_valid=[int(p.n_valid) for p in packets])
+    if not fp._initialized or fp.window.next_id < 2:
+        fail("the event pipeline's frame backend did not bootstrap")
+    if fc.get("ba_runs", 0) < 1:
+        fail("no BA run on the event path")
+    if fc.get("full_resets", 0) != 0:
+        fail("the event path's frame backend fell back to a full reset")
+    if pipe.num_event_kfs < 2:
+        fail(f"{pipe.num_event_kfs} event keyframes")
+    if sum(usable) < min_solves:
+        fail(f"{sum(usable)} usable event solves, fewer than {min_solves}")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel was not launched on the event path: {launches}")
+    if len(est) != len(frames) or not np.isfinite(est).all():
+        fail(f"trajectory has {len(est)} entries or is not finite")
+    off = [tuple(x.shape) for x in _event_tensors(pipe)
+           if x.device.type != "cuda"]
+    if off:
+        fail(f"event or window tensors off the card: {off}")
+    if not ate <= ate_bound:
+        fail(f"event path frame ATE {ate} above the bound {ate_bound}")
+    if not ev_ate <= ev_bound:
+        fail(f"event ATE {ev_ate} above the bound {ev_bound}")
+    return launches
+
+
 @torch.inference_mode()
 def main():
     dev = phase_device()
-    phase_build()
+    built = build_kernels()
+    phase_build("build", built["pattern_sample"])
     kern = phase_kernel(dev)
     phase_ba(dev)
     launches = phase_pipeline(dev)
-    print(json.dumps({"kernels": [{
-        "name": "pattern_sample", "route": "cuda",
-        "source": "slam_eds_tpu_torch/csrc/pattern_sample.cu",
-        "replaces": "slam_eds_tpu/ops/pallas/sample.py:84",
-        "launches": launches, **kern}]}))
+    phase_build("build-raster", built["rasterize"])
+    eds = eds_inputs(dev)
+    raster = phase_kernel_raster(dev, eds[3])
+    eds_launches = phase_eds(dev, *eds)
+    print(json.dumps({"kernels": [
+        {"name": "pattern_sample", "route": "cuda",
+         "source": "slam_eds_tpu_torch/csrc/pattern_sample.cu",
+         "replaces": "slam_eds_tpu/ops/pallas/sample.py:84",
+         "launches": launches,
+         "launches_eds": eds_launches["pattern_sample"], **kern},
+        {"name": "rasterize_bilinear", "route": "cuda",
+         "source": "slam_eds_tpu_torch/csrc/rasterize.cu",
+         "replaces": "slam_eds_tpu/ops/pallas/raster.py:71",
+         "launches": eds_launches["rasterize_bilinear"], **raster}]}))
     print(gpu_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,18 @@
-"""Synthetic frame sequence with ground truth — the frame part of
-``SyntheticSequence`` from ``slam_eds_tpu.io.dataset``.
+"""Synthetic event + frame sequence with ground truth — port of
+``SyntheticSequence``, ``EventPacket`` and ``pack_events`` from
+``slam_eds_tpu.io.dataset``.
 
 The texture and trajectory come from the same numpy seed as the JAX class,
 so the same arguments give the same scene and poses; frames are rendered in
 torch on ``device`` (they agree with the JAX renders to float rounding).
-Event generation waits for the event path.
+Events are the contrast-threshold crossings of the log intensity between
+micro-stepped renders, counted in numpy with the JAX class's ordering and
+uniform subsampling; since a render differs from JAX's by float rounding, a
+pixel near a threshold may give one event more or fewer.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -15,6 +21,25 @@ from ..device import resolve_device
 from ..utils.cameras import Pinhole
 from ..utils.interp import bilinear
 from ..utils.lie import SE3
+
+
+class EventPacket(NamedTuple):
+    xs: np.ndarray      # [cap] float32
+    ys: np.ndarray
+    ts: np.ndarray
+    polarity: np.ndarray
+    n_valid: int
+
+
+def pack_events(xs, ys, ts, pol, capacity: int) -> EventPacket:
+    """Pad (with zeros) or truncate to a fixed-capacity packet."""
+    n = min(len(xs), capacity)
+    out = []
+    for a in (xs, ys, ts, pol):
+        buf = np.zeros(capacity, np.float32)
+        buf[:n] = a[:n]
+        out.append(buf)
+    return EventPacket(*out, n_valid=n)
 
 
 class SyntheticSequence:
@@ -60,6 +85,15 @@ class SyntheticSequence:
         """Ground-truth worldToCam pose of frame k."""
         return SE3.exp(self._tau(k))
 
+    def pose_at(self, alpha: float) -> SE3:
+        """Interpolated pose at a fractional frame index."""
+        k0 = int(np.clip(np.floor(alpha), 0, self.num_frames - 1))
+        k1 = min(k0 + 1, self.num_frames - 1)
+        w = alpha - k0
+        tau = (1 - w) * self.taus[k0] + w * self.taus[k1]
+        return SE3.exp(torch.as_tensor(tau.astype(np.float32),
+                                       device=self.device))
+
     def _surface_z(self, X, Y):
         return 2.0 + 0.3 * torch.sin(1.1 * X) * torch.cos(0.9 * Y) + 0.15 * X
 
@@ -91,6 +125,45 @@ class SyntheticSequence:
         """(time, image [H, W] float32 0..255 on the device, gt depth)."""
         img, depth = self._render(self._tau(k))
         return float(self.times[k]), img, depth
+
+    def events_between(self, k0: int, k1: int) -> EventPacket:
+        """Contrast-threshold events between frames k0 -> k1 (micro-stepped
+        log-intensity crossings, timestamps at the micro-step midpoints),
+        time-ordered and uniformly subsampled to the packet capacity."""
+        t0, t1 = self.times[k0], self.times[k1]
+        n_steps = self.micro_steps
+        xs_all, ys_all, ts_all, ps_all = [], [], [], []
+        prev_log = None
+        for s in range(n_steps + 1):
+            tau = ((1 - s / n_steps) * self.taus[k0]
+                   + (s / n_steps) * self.taus[k1])
+            img, _ = self._render(torch.as_tensor(tau.astype(np.float32),
+                                                  device=self.device))
+            log_img = np.log(img.cpu().numpy() + 20.0)
+            if prev_log is not None:
+                d = log_img - prev_log
+                n_events = np.floor(np.abs(d) / self.ct).astype(np.int32)
+                ys_i, xs_i = np.nonzero(n_events)
+                reps = n_events[ys_i, xs_i]
+                xs_all.append(np.repeat(xs_i, reps).astype(np.float32))
+                ys_all.append(np.repeat(ys_i, reps).astype(np.float32))
+                ps_all.append(np.repeat(np.sign(d[ys_i, xs_i]),
+                                        reps).astype(np.float32))
+                ts_all.append(np.full(
+                    xs_all[-1].shape,
+                    t0 + (t1 - t0) * (s - 0.5) / n_steps, np.float32))
+            prev_log = log_img
+        if not xs_all:
+            empty = np.zeros(0, np.float32)
+            return pack_events(empty, empty, empty, empty, self.capacity)
+        xs_c, ys_c, ts_c, ps_c = (np.concatenate(a) for a in
+                                  (xs_all, ys_all, ts_all, ps_all))
+        order = np.argsort(ts_c, kind="stable")
+        if len(order) > self.capacity:
+            sel = np.linspace(0, len(order) - 1, self.capacity).astype(int)
+            order = order[sel]
+        return pack_events(xs_c[order], ys_c[order], ts_c[order],
+                           ps_c[order], self.capacity)
 
     def gt_positions(self):
         """[N, 3] ground-truth camera positions (camToWorld translations)."""

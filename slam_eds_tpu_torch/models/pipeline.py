@@ -1,19 +1,24 @@
-"""The frame-only DSO pipeline — port of ``FrameOnlyPipeline`` from
-``slam_eds_tpu.models.pipeline`` (BASELINE config 1): eight-point
-bootstrap -> coarse tracking of every frame against the newest keyframe
-with the motion-hypothesis try-list -> keyframe promotion -> immature
-tracing -> point activation -> window BA with point/frame marginalization,
-and the full reset after a persistent loss.
+"""End-to-end pipelines — port of ``slam_eds_tpu.models.pipeline``:
+
+* ``FrameOnlyPipeline`` (BASELINE config 1): eight-point bootstrap ->
+  coarse tracking of every frame against the newest keyframe with the
+  motion-hypothesis try-list -> keyframe promotion -> immature tracing ->
+  point activation -> window BA with point/frame marginalization, and the
+  full reset after a persistent loss.
+* ``EDSPipeline`` (config 3): the event front-end (event frame ->
+  event-to-model alignment -> depth filter -> keyframe promotion) at packet
+  rate against keyframes that the frame backend produces.
 
 Host Python owns sequencing, as in the JAX module; every numeric step runs
 in torch on the pipeline's device under ``torch.inference_mode``. Not
-ported yet: the ``dso`` and ``midas`` bootstraps, photometric calibration
-and ``EDSPipeline`` (the event path).
+ported yet: the ``dso`` and ``midas`` bootstraps, photometric calibration,
+event track refinement, undistortion maps for ``process_events`` and the
+recorder.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -21,13 +26,16 @@ import torch
 from ..config import EDSConfig
 from ..device import resolve_device, set_numerics
 from ..utils.cameras import Pinhole
+from ..utils import lie
 from ..utils.lie import SE3
 from ..utils import klt
 from ..utils import image as image_ops
 from ..utils.stats import masked_median
-from ..ops import initializer
+from ..ops import initializer, event_tracker as et, depth_filter as df
 from ..ops.pixel_selector import candidate_points_grid
 from . import ba_state as bs
+from . import keyframe as kfm
+from .event_frame import create_event_frame
 from .window import WindowManager
 from ..telemetry import Telemetry
 
@@ -306,3 +314,344 @@ class FrameOnlyPipeline:
     # ------------------------------------------------------------------
     def positions(self):
         return np.stack(self.trajectory)
+
+
+def _event_packet_fused(tracker_state, pose_filter, depth, cam,
+                        kf_pose_R, kf_pose_t, frame_pred_R, frame_pred_t,
+                        kf_uv, kf_nc, kf_grad, kf_idp, kf_weight, kf_mask,
+                        xs, ys, ts, ps, n_valid: int, fwd_maps,
+                        iters_per_level, loss_scale, lim, *,
+                        height, width, num_levels, use_time_weights,
+                        blur_ksize, interpolation, loss_kind, refinement,
+                        patch_radius, refine_levels, do_points_refinement,
+                        counters=None):
+    """The per-packet event step: event-frame rasterization -> coarse-to-fine
+    event-to-model solve -> solution-usability gate with the retry ladder ->
+    pose-filter push -> warp -> Vogiatzis depth update -> keyframe-need
+    statistics.
+
+    The gate (Tracker.cpp:217-240) bounds the pose step since the previous
+    packet: translation relative to the keyframe's median depth, rotation
+    absolute. A failed solve is retried from the frame tracker's pose
+    prediction, then from the keyframe pose; the two retry decisions are host
+    reads (``counters["event_gate_host_reads"]``), as are the LM's
+    iterations (``counters["event_lm_host_reads"]``). Every state update is
+    selected back to its input when no solve passes (``torch.where``).
+
+    lim: {mu_range, min_depth, max_depth, px_noise, max_step_t, max_step_r,
+    activity_th} as floats. Returns (state, pose_filter, depth, mask,
+    tracks, residuals, scalars [usable, energy, loss_scale, n_iter, flow,
+    alive_count, ef_time, med_depth], T_w_ef_R, T_w_ef_t, vx)."""
+    if refinement != "none":
+        raise NotImplementedError(f"later PR: track_refinement={refinement!r}")
+    ef = create_event_frame(
+        xs, ys, ts, ps, n_valid, height, width, num_levels=num_levels,
+        fwd_maps=fwd_maps, use_time_weights=use_time_weights,
+        blur_ksize=blur_ksize, interpolation=interpolation)
+    prev = tracker_state
+    # median scene depth, clamped to the configured range: exploding depth
+    # estimates must not void the translation gate
+    med_depth = torch.clamp(
+        masked_median(1.0 / torch.clamp(kf_idp, min=1e-6), kf_mask),
+        lim["min_depth"], lim["max_depth"])
+
+    def solve_from(st0):
+        return et._pyramid_fused(st0, ef.frames, cam, kf_nc, kf_grad, kf_idp,
+                                 kf_weight, kf_mask, iters_per_level,
+                                 loss_kind, loss_scale, False, counters)
+
+    def gate(res):
+        d_tau = et.pose_kf_ef(res.state).compose(
+            et.pose_kf_ef(prev).inverse()).log()
+        return (torch.isfinite(res.energy) & torch.isfinite(d_tau).all()
+                & (torch.linalg.vector_norm(d_tau[:3])
+                   < lim["max_step_t"] * med_depth)
+                & (torch.linalg.vector_norm(d_tau[3:]) < lim["max_step_r"]))
+
+    def passed(usable):
+        if counters is not None:
+            counters["event_gate_host_reads"] += 1
+        return bool(usable)
+
+    res = solve_from(prev)
+    usable = gate(res)
+    # retry ladder: from the frame tracker's prediction
+    # (T_ef_kf = T_cw_frame o T_w_kf), then from the keyframe pose
+    if not passed(usable):
+        pred_R = frame_pred_R @ kf_pose_R
+        pred_t = frame_pred_R @ kf_pose_t + frame_pred_t
+        res = solve_from(prev._replace(px=pred_t, qx=lie.mat_to_quat(pred_R)))
+        usable = gate(res)
+        if not passed(usable):
+            res = solve_from(prev._replace(
+                px=torch.zeros_like(prev.px),
+                qx=lie.quat_identity(prev.qx.dtype, prev.qx.device)))
+            usable = gate(res)
+
+    new_state = et._tree_where(usable, res.state, prev)
+    pf_pushed = et.pose_filter_push(pose_filter, et.pose_kf_ef(res.state))
+    new_pf = et._tree_where(usable, pf_pushed, pose_filter)
+    T_w_ef = SE3(kf_pose_R, kf_pose_t).compose(et.pose_filter_mean(new_pf))
+
+    uv_ef, alive = et.warp_coords(res.state, cam, kf_nc, kf_idp, kf_mask)
+    tracks = uv_ef - kf_uv
+    depth_new = df.update(depth, et.pose_kf_ef(res.state), kf_uv, tracks,
+                          cam, mu_range=lim["mu_range"],
+                          px_noise=lim["px_noise"], mask=alive)
+    mask_new = alive
+    if do_points_refinement:
+        # drop points without nearby event activity (pointsRefinement)
+        mask_new = mask_new & (kfm.event_activity(ef.frames[0], kf_uv)
+                               > lim["activity_th"])
+    depth_out = et._tree_where(usable, depth_new, depth)
+    mask_out = torch.where(usable, mask_new, kf_mask)
+    f32 = torch.float32
+    scalars = torch.stack([
+        usable.to(f32), res.energy, res.loss_scale.to(f32),
+        res.n_iter.to(f32), et.mean_flow_magnitude(uv_ef, kf_uv, alive),
+        mask_out.sum().to(f32), ef.time.to(f32), med_depth])
+    return (new_state, new_pf, depth_out, mask_out, tracks, res.residuals,
+            scalars, T_w_ef.R, T_w_ef.t, res.state.vx)
+
+
+@dataclass
+class EDSPipeline:
+    """Full event-aided loop: the event front-end tracks the pose against the
+    newest keyframe's generative model at packet rate; frames keep the DSO
+    backend (window BA) alive and provide the keyframe images."""
+    cam: Pinhole
+    cfg: EDSConfig = field(default_factory=EDSConfig)
+    device: str = "cpu"
+    photometric: object = None
+
+    def __post_init__(self):
+        if self.cfg.recorder.enabled:
+            raise NotImplementedError("later PR: the recorder")
+        if self.cfg.tracker.track_refinement != "none":
+            raise NotImplementedError(
+                f"later PR: track_refinement="
+                f"{self.cfg.tracker.track_refinement!r}")
+        self.frame_pipe = FrameOnlyPipeline(self.cam, self.cfg,
+                                            device=self.device,
+                                            photometric=self.photometric)
+        self.device = self.frame_pipe.device
+        self.kf: Optional[kfm.KeyFrame] = None
+        self.depth: Optional[df.DepthFilterState] = None
+        self.tracker_state = et.initial_tracker_state(self.device)
+        self.loss_scale = self.cfg.tracker.loss.param
+        self.pose_filter = et.pose_filter_init(
+            self.cfg.tracker.pose_filter_window, self.device)
+        self.event_poses: List[np.ndarray] = []   # camToWorld t per solve
+        self.event_pose_list: List[SE3] = []
+        self.telemetry = Telemetry()
+        self._pending_kf = False
+        self._seen_resets = 0
+        self._kf_n_initial = 0
+        self.num_event_kfs = 0
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def process_frame(self, img, time: float, depth_map=None):
+        T_wc = self.frame_pipe.process_frame(img, time, depth_map=depth_map)
+        if self.frame_pipe._resets != self._seen_resets:
+            # the backend discarded its map: the event keyframe and its
+            # depth filter refer to it
+            self._seen_resets = self.frame_pipe._resets
+            self.kf = None
+            self.depth = None
+            self.tracker_state = et.initial_tracker_state(self.device)
+            self.pose_filter = et.pose_filter_init(
+                self.cfg.tracker.pose_filter_window, self.device)
+        if self.frame_pipe._initialized and (self.kf is None
+                                             or self._pending_kf):
+            self._make_event_keyframe(img, time, T_wc)
+            self._pending_kf = False
+        return T_wc
+
+    def _ba_seed_points(self, T_wc: SE3):
+        """The BA window's active points projected into the new keyframe.
+        Returns (uv [P, 2], idp [P], mask [P]) or None."""
+        st = self.frame_pipe.window.state
+        active = st.p_status == bs.PT_ACTIVE
+        if int(active.sum()) <= 16:
+            return None
+        T = st.current_poses()
+        host = st.p_host.long()
+        cam = self.cam
+        x = (st.p_uv[:, 0] - cam.cx) / cam.fx
+        y = (st.p_uv[:, 1] - cam.cy) / cam.fy
+        z = 1.0 / torch.clamp(st.p_idepth, min=1e-6)
+        Xw = SE3(T.R[host], T.t[host]).inverse().apply(
+            torch.stack([x * z, y * z, z], -1))
+        return self._project_seed(Xw, active, T_wc)
+
+    def _project_seed(self, Xw, ok, T_wc: SE3):
+        """World points -> (uv, idepth, mask) in the camera at T_wc; seeds
+        outside the depth range (2x slack) are dropped."""
+        cam = self.cam
+        Xk = T_wc.apply(Xw)
+        z = torch.clamp(Xk[:, 2], min=1e-6)
+        u = cam.fx * Xk[:, 0] / z + cam.cx
+        v = cam.fy * Xk[:, 1] / z + cam.cy
+        ok = ok & (Xk[:, 2] > 1e-6) & (u >= 0) & (v >= 0) \
+            & (u <= cam.width - 1) & (v <= cam.height - 1) \
+            & (Xk[:, 2] > 0.5 * self.cfg.mapping.min_depth) \
+            & (Xk[:, 2] < 2.0 * self.cfg.mapping.max_depth)
+        return torch.stack([u, v], -1), 1.0 / z, ok
+
+    def _filter_seed_points(self, T_wc: SE3):
+        """Converged depth-filter points of the outgoing event keyframe,
+        transported into the new keyframe."""
+        if self.kf is None or self.depth is None:
+            return None
+        kf = self.kf
+        mp = self.cfg.mapping
+        conv = df.converged(self.depth, mp.max_depth - mp.min_depth,
+                            mp.convergence_sigma2_thresh)
+        ok = kf.mask & conv
+        if int(ok.sum()) <= 16:
+            return None
+        z = 1.0 / torch.clamp(self.depth.mu, min=1e-6)
+        X = torch.stack([kf.norm_coord[:, 0] * z,
+                         kf.norm_coord[:, 1] * z, z], -1)
+        return self._project_seed(kf.pose.apply(X), ok, T_wc)
+
+    def _make_event_keyframe(self, img, time: float, T_wc: SE3):
+        """New EDS keyframe (KeyFrame::create + Tracker::reset), its depth
+        seeded from the BA map and the previous keyframe's converged
+        depth-filter points."""
+        cfg = self.cfg
+        seeds = [s for s in (self._ba_seed_points(T_wc),
+                             self._filter_seed_points(T_wc)) if s is not None]
+        depth_map = None
+        if seeds:
+            depth_map = tuple(torch.cat([s[i] for s in seeds], 0)
+                              for i in range(3))
+        self.kf = kfm.create_keyframe(
+            img, self.cam, capacity=cfg.caps.max_points_per_kf,
+            percent_points=cfg.keyframe.percent_points,
+            selection_mode=cfg.keyframe.selection_mode,
+            log_eps=cfg.keyframe.log_eps,
+            sobel_ksize=cfg.keyframe.sobel_ksize, depth_map=depth_map,
+            init_depth=0.5 * (cfg.mapping.min_depth + cfg.mapping.max_depth),
+            T_w_kf=T_wc.inverse(), time=time, device=self.device)
+        if depth_map is not None:
+            # drop points whose nearest map point is distant (cleanPoints)
+            self.kf = kfm.clean_points(self.kf, cfg.keyframe.min_weight_clean)
+        self._kf_n_initial = int(self.kf.n_initial)
+        self.num_event_kfs += 1
+        self.depth = df.init_from_prior(self.kf.idepth, cfg.mapping.min_depth,
+                                        cfg.mapping.max_depth,
+                                        cfg.mapping.init_a, cfg.mapping.init_b,
+                                        device=self.device)
+        # keep the velocity across keyframes; restart the pose and the pose
+        # filter, whose tangents are relative to the old keyframe
+        st = self.tracker_state
+        self.tracker_state = st._replace(
+            px=torch.zeros_like(st.px),
+            qx=lie.quat_identity(st.qx.dtype, self.device))
+        self.pose_filter = et.pose_filter_init(
+            cfg.tracker.pose_filter_window, self.device)
+
+    # ------------------------------------------------------------------
+    def _packet_step_args(self):
+        """The packet step's limits, per-level iteration caps and static
+        options, built once."""
+        if getattr(self, "_psa", None) is not None:
+            return self._psa
+        cfg = self.cfg
+        lim = {
+            "mu_range": cfg.mapping.max_depth - cfg.mapping.min_depth,
+            "min_depth": cfg.mapping.min_depth,
+            "max_depth": cfg.mapping.max_depth,
+            "px_noise": cfg.mapping.px_noise,
+            "max_step_t": cfg.tracker.max_step_translation,
+            "max_step_r": cfg.tracker.max_step_rotation,
+            "activity_th": cfg.keyframe.refinement_activity_th,
+        }
+        its = cfg.tracker.max_iterations
+        iters = [its[min(lvl, len(its) - 1)]
+                 for lvl in range(cfg.event_frame.num_levels)]
+        statics = dict(
+            height=self.cam.height, width=self.cam.width,
+            num_levels=cfg.event_frame.num_levels,
+            use_time_weights=cfg.event_frame.time_weighted,
+            blur_ksize=cfg.event_frame.gaussian_blur_ksize,
+            interpolation=cfg.event_frame.interpolation,
+            loss_kind=cfg.tracker.loss.kind,
+            refinement=cfg.tracker.track_refinement,
+            patch_radius=cfg.tracker.refinement_patch_radius,
+            refine_levels=cfg.tracker.refinement_pyr_levels,
+            do_points_refinement=cfg.keyframe.points_refinement)
+        self._psa = (lim, iters, statics)
+        return self._psa
+
+    def _upload(self, packet):
+        """The packet's (x, y, t, polarity) arrays as one [4, cap] float32
+        tensor on the device; on a card through pinned memory without a
+        synchronizing copy."""
+        host = torch.from_numpy(np.stack([packet.xs, packet.ys, packet.ts,
+                                          packet.polarity]).astype(np.float32))
+        if self.device.type == "cuda":
+            return host.pin_memory().to(self.device, non_blocking=True)
+        return host.to(self.device)
+
+    @torch.inference_mode()
+    def process_events(self, packet, fwd_maps=None):
+        """Feed one EventPacket. Returns the worldToCam pose of the event
+        frame, or None before initialization and for a rejected solve.
+
+        One host read of the 8-entry scalar vector per packet, besides the
+        LM's and the retry ladder's reads inside the step (all counted in
+        ``telemetry.counters``)."""
+        if fwd_maps is not None:
+            raise NotImplementedError("later PR: undistortion maps")
+        if self.kf is None:
+            return None
+        kf = self.kf
+        c = self.telemetry.counters
+        lim, iters, statics = self._packet_step_args()
+        pred = self.frame_pipe._last_pose
+        xs, ys, ts, ps = self._upload(packet).unbind(0)
+        (state, pf, depth, mask, tracks, residuals, scalars,
+         R_wef, t_wef, vx) = _event_packet_fused(
+            self.tracker_state, self.pose_filter, self.depth, self.cam,
+            kf.T_w_kf_R, kf.T_w_kf_t, pred.R, pred.t,
+            kf.uv, kf.norm_coord, kf.grad, kf.idepth, kf.weight, kf.mask,
+            xs, ys, ts, ps, int(packet.n_valid), None, iters,
+            self.loss_scale, lim, counters=c, **statics)
+        # the packet's one host read: the scalars and the event-frame
+        # position in a single copy
+        host = torch.cat([scalars, t_wef]).cpu().numpy()
+        sc = host[:8]
+        c["event_packets"] += 1
+        c["event_scalar_host_reads"] += 1
+        if not sc[0] > 0.5:
+            # rejected solve: the step already selected every state back
+            c["event_solve_rejected"] += 1
+            self._pending_kf = True
+            return None
+        self.tracker_state = state
+        self.pose_filter = pf
+        self.depth = depth
+        if self.cfg.tracker.loss.scale_estimator == "mad":
+            self.loss_scale = float(sc[2])
+        self.telemetry.event_solve(n_iter=int(sc[3]), energy=float(sc[1]))
+
+        T_w_ef = SE3(R_wef, t_wef)
+        self.event_poses.append(host[8:].copy())
+        self.event_pose_list.append(T_w_ef.inverse())
+        self.kf = kf._replace(mask=mask, track=tracks, residual=residuals,
+                              idepth=depth.mu)
+        # the event tracker seeds the frame front-end's next coarse track,
+        # but not while the frame tracker is lost
+        if self.cfg.tracker.seed_frame_tracker and not self.frame_pipe._lost:
+            self.frame_pipe._last_pose = T_w_ef.inverse()
+        # keyframe need from flow magnitude / point loss, consumed at the
+        # next frame
+        flow, alive_count = float(sc[4]), float(sc[5])
+        if flow > self.cfg.tracker.kf_flow_threshold ** 2 or \
+                alive_count < (1.0 - self.cfg.keyframe.kf_point_loss_percent) \
+                * self._kf_n_initial:
+            self._pending_kf = True
+        return T_w_ef.inverse()

@@ -12,6 +12,12 @@ class Telemetry:
     counters: dict = field(default_factory=lambda: defaultdict(int))
     sums: dict = field(default_factory=lambda: defaultdict(float))
 
+    def event_solve(self, n_iter: int, energy: float):
+        """TrackerInfo equivalent: one usable event solve."""
+        self.counters["event_solves"] += 1
+        self.counters["event_iters"] += n_iter
+        self.sums["event_energy"] = energy
+
     def ba(self, energy: float):
         """PBAInfo equivalent."""
         self.counters["ba_runs"] += 1

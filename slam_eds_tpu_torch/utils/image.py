@@ -95,11 +95,46 @@ def gradient_magnitude(gx, gy):
     return torch.sqrt(gx * gx + gy * gy)
 
 
-def dilate3(img, iters: int = 1):
-    """3x3 morphological dilation (edge-replicated borders)."""
+def gaussian_kernel_1d(ksize: int, sigma: float = -1.0):
+    """cv::getGaussianKernel semantics: sigma <= 0 derives it from ksize."""
+    if sigma <= 0:
+        sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    xs = np.arange(ksize) - (ksize - 1) * 0.5
+    k = np.exp(-(xs ** 2) / (2.0 * sigma ** 2))
+    return k / k.sum()
+
+
+def gaussian_blur(img, ksize: int = 3, sigma: float = -1.0):
+    """Gaussian smoothing of event frames (cv::GaussianBlur)."""
+    k = np.asarray(gaussian_kernel_1d(ksize, sigma), np.float32)
+    return sep_filter2d(img, k, k)
+
+
+def minmax_normalize(img, eps: float = 1e-12):
+    """Min-max normalize to [0, 1]."""
+    lo = torch.min(img)
+    hi = torch.max(img)
+    return (img - lo) / (hi - lo + eps)
+
+
+def log_image(img, log_eps: float = 0.2):
+    return torch.log(img + log_eps)
+
+
+def _morph3(img, iters: int, reduce):
     H, W = img.shape
     for _ in range(iters):
         p = F.pad(img[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
-        img = torch.stack([p[dy:dy + H, dx:dx + W]
-                           for dy in range(3) for dx in range(3)]).amax(0)
+        img = reduce(torch.stack([p[dy:dy + H, dx:dx + W]
+                                  for dy in range(3) for dx in range(3)]), 0)
     return img
+
+
+def dilate3(img, iters: int = 1):
+    """3x3 morphological dilation (edge-replicated borders)."""
+    return _morph3(img, iters, torch.amax)
+
+
+def erode3(img, iters: int = 1):
+    """3x3 morphological erosion (edge-replicated borders)."""
+    return _morph3(img, iters, torch.amin)

@@ -1,4 +1,5 @@
-"""Bilinear image sampling — port of ``slam_eds_tpu.utils.interp``.
+"""Bilinear and bicubic image sampling — port of
+``slam_eds_tpu.utils.interp``.
 
 The JAX module routes every sampler through 2x2/4x4 patch block-gathers or
 one-hot matmuls to avoid TPU element gathers (``_fetch_patches``,
@@ -65,3 +66,64 @@ def bilinear(img, x, y, frame=None):
 def bilinear_3(img3, x, y, frame=None):
     """Bilinear sample of a [H, W, 3] ([I, gx, gy]) stack."""
     return bilinear(img3, x, y, frame)
+
+
+def _cubic_weights(t):
+    """Keys cubic-convolution weights, a = -0.5 (Catmull-Rom, as
+    ceres::BiCubicInterpolator), for taps at offsets -1, 0, 1, 2."""
+    t2 = t * t
+    t3 = t2 * t
+    w0 = -0.5 * t3 + t2 - 0.5 * t
+    w1 = 1.5 * t3 - 2.5 * t2 + 1.0
+    w2 = -1.5 * t3 + 2.0 * t2 + 0.5 * t
+    w3 = 0.5 * t3 - 0.5 * t2
+    return w0, w1, w2, w3
+
+
+def _cubic_weights_d(t):
+    """d/dt of the Keys weights."""
+    t2 = t * t
+    d0 = -1.5 * t2 + 2.0 * t - 0.5
+    d1 = 4.5 * t2 - 5.0 * t
+    d2 = -4.5 * t2 + 4.0 * t + 0.5
+    d3 = 1.5 * t2 - t
+    return d0, d1, d2, d3
+
+
+def bicubic(img, x, y):
+    """Bicubic (Catmull-Rom) sample of img [H, W] at (x=col, y=row)."""
+    return bicubic_with_grad(img, x, y)[0]
+
+
+def bicubic_with_grad(img, x, y):
+    """Bicubic sample of img [H, W] plus its analytic spatial gradient
+    (d/dx, d/dy): separable Keys kernel over the 4x4 taps, each tap index
+    clamped to the image on its own (``clip(ix - 1 + t, 0, W - 1)``), as 16
+    plain gathers per query. Non-finite queries give NaN in all three."""
+    x, y = torch.broadcast_tensors(torch.as_tensor(x), torch.as_tensor(y))
+    H, W = img.shape
+    xc = _clean_coords(x, W)
+    yc = _clean_coords(y, H)
+    x0 = torch.floor(xc)
+    y0 = torch.floor(yc)
+    wx = _cubic_weights(xc - x0)
+    dwx = _cubic_weights_d(xc - x0)
+    wy = _cubic_weights(yc - y0)
+    dwy = _cubic_weights_d(yc - y0)
+    ix = x0.long() - 1
+    iy = y0.long() - 1
+    cols = [torch.clamp(ix + t, 0, W - 1) for t in range(4)]
+    flat = img.reshape(-1)
+    rows_v, rows_dx = [], []
+    for r in range(4):
+        base = torch.clamp(iy + r, 0, H - 1) * W
+        taps = [flat[base + c] for c in cols]
+        rows_v.append(sum(w * p for w, p in zip(wx, taps)))
+        rows_dx.append(sum(w * p for w, p in zip(dwx, taps)))
+    f = sum(w * v for w, v in zip(wy, rows_v))
+    dfdx = sum(w * v for w, v in zip(wy, rows_dx))
+    dfdy = sum(w * v for w, v in zip(dwy, rows_v))
+    bad = ~(torch.isfinite(x) & torch.isfinite(y))
+    nan = torch.full_like(f, float("nan"))
+    return (torch.where(bad, nan, f), torch.where(bad, nan, dfdx),
+            torch.where(bad, nan, dfdy))

@@ -129,6 +129,40 @@ class SE3(NamedTuple):
         return torch.cat([top, bot], -2)
 
 
+# ---------------------------------------------------------------------------
+# Quaternions [w, x, y, z] — the event tracker's pose state.
+# ---------------------------------------------------------------------------
+
+def quat_identity(dtype=torch.float32, device="cpu"):
+    q = torch.zeros(4, dtype=dtype, device=device)
+    q[0] = 1.0           # a fill, not a host-to-device copy
+    return q
+
+
+def quat_mul(q1, q2):
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], -1)
+
+
+def quat_conj(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], -1)
+
+
+def quat_exp(w):
+    """so(3) axis-angle [..., 3] -> unit quaternion [..., 4]."""
+    theta2 = _dot(w, w)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < _EPS
+    half = 0.5 * theta
+    k = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(half) / theta)
+    return torch.cat([torch.cos(half)[..., None], k[..., None] * w], -1)
+
 
 def quat_normalize(q):
     return q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + _EPS)

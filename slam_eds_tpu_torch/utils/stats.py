@@ -32,8 +32,9 @@ def masked_quantile_index(x, mask, k):
     n = torch.sum(mask.to(torch.int64))
     k = torch.minimum(torch.clamp(torch.as_tensor(k, device=x.device), min=0),
                       torch.clamp(n - 1, min=0))
-    return torch.where(n > 0, xs[k], torch.zeros((), dtype=x.dtype,
-                                                  device=x.device))
+    # gather with the device index: no host read of k
+    return torch.where(n > 0, xs.gather(0, k.reshape(1))[0],
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def masked_median(x, mask):

@@ -7,6 +7,13 @@ runs on a machine that has only PyTorch (the BA window is
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
+The raster kernel is held to its plain version on the four cases of
+``chip_smoke.py``'s phase 7 (a 640x480 packet of 65,536-event capacity, random
+fractional events, a ragged case with border, huge, NaN and inf coordinates,
+and a case at the fixed-point range bound, there against the plain version
+in float64): max |d| <= 1e-5 max(1, max|ref|), finite, and two launches
+bitwise equal (the kernel accumulates in 64-bit fixed point).
+
 Tolerances: the sampler kernel is built without multiply-add contraction and
 follows the plain version term by term, so ``ok`` is identical and values
 agree within 1e-4 (0-255 planes); linearize/ba_iterate on the card against
@@ -16,13 +23,21 @@ on linearization entries; after 6 GN iterations the state agrees within
 the BA reductions in another order, and the reduced system is about
 1e8-conditioned).
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from slam_eds_tpu_torch.ops import energy
 from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
+from slam_eds_tpu_torch.ops.kernels import rasterize as rz
+from slam_eds_tpu_torch.utils import events as ev
 from torch_world import H, W, port_world
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -120,3 +135,63 @@ def test_ba_iterate_on_card_matches_cpu(card):
     for name in ("delta", "p_idepth"):
         a, b = getattr(sg, name).cpu().numpy(), getattr(sc, name).numpy()
         assert np.abs(a - b).max() <= 1e-2 * np.abs(b).max(), name
+
+
+@pytest.fixture(scope="module")
+def raster_cases():
+    """chip_smoke's raster cases; the packet is the first one phase 8's
+    event path is fed, the largest of its sequence (57,508 events in 65,536
+    lanes in the JAX package's rendering)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.utils.cameras import Pinhole
+    dev = torch.device("cuda")
+    seq = SyntheticSequence(Pinhole(400.0, 400.0, 319.5, 239.5, 640, 480),
+                            num_frames=chip_smoke.PIPE_FRAMES,
+                            motion_scale=0.22, micro_steps=2,
+                            events_per_packet=chip_smoke.EVENT_CAP,
+                            device=dev)
+    return chip_smoke.raster_cases(dev, [seq.events_between(1, 2)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["packet", "random", "ragged", "bound"])
+def test_raster_kernel_matches_plain_and_is_deterministic(card, raster_cases,
+                                                          case):
+    err, bound = chip_smoke._compare_raster(rz, *raster_cases[case])
+    assert err <= bound
+
+
+@pytest.mark.cuda
+def test_scatter_accumulate_launches_the_raster_kernel(card):
+    rng = np.random.default_rng(6)
+    n, h, w = 5000, 48, 64
+    xs, ys = (torch.as_tensor(rng.uniform(-2, m + 2, n).astype(np.float32),
+                              device=card) for m in (w, h))
+    vals = torch.as_tensor(rng.choice([-1.0, 1.0], n).astype(np.float32),
+                           device=card)
+    mask = torch.as_tensor(rng.uniform(size=n) < 0.7, device=card)
+    before = rz.rasterize_bilinear.launches
+    got = ev.scatter_accumulate(xs, ys, vals, h, w, mask=mask)
+    assert rz.rasterize_bilinear.launches == before + 1
+    want = rz.rasterize_bilinear_reference(
+        xs, ys, torch.where(mask, vals, torch.zeros_like(vals)), h, w)
+    assert got.device.type == "cuda"
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_raster_wrapper_rejects_what_the_kernel_does_not_take(card):
+    x = torch.zeros(16, device=card)
+    with pytest.raises(TypeError):
+        rz.rasterize_bilinear(x.double(), x.double(), x.double(), 8, 8)
+    with pytest.raises(ValueError):
+        rz.rasterize_bilinear(x, x[:8], x, 8, 8)
+    with pytest.raises(ValueError):
+        rz.rasterize_bilinear(x.reshape(4, 4), x.reshape(4, 4),
+                              x.reshape(4, 4), 8, 8)
+    with pytest.raises(ValueError):
+        rz.rasterize_bilinear(torch.zeros(32, device=card)[::2], x, x, 8, 8)
+    with pytest.raises(ValueError):
+        rz.rasterize_bilinear_cuda(x.cpu(), x.cpu(), x.cpu(), 8, 8)
