@@ -6,45 +6,52 @@ event raster) from ``slam_eds_tpu_torch/csrc``, one ``nvcc`` each, started
 together; holds each against its plain PyTorch version; runs the keyframe BA
 at the reference operating point, the frame-only path
 (``FrameOnlyPipeline``) and the event path (``EDSPipeline``), both at 640x480
-with the default ``EDSConfig``. Phases, one output line each:
+with the default ``EDSConfig``. The event cell runs first and again last, and
+the two runs must agree packet for packet. Phases, one output line each:
 
 1. device   -- card name and power limit, torch/CUDA versions, f32 numerics
-2. build    -- nvcc build of csrc/pattern_sample.cu
-3. kernel   -- kernel vs ``pattern_sample_reference`` at the BA operating
+2. build, build-raster -- the nvcc builds of csrc/pattern_sample.cu and
+               csrc/rasterize.cu (ptxas registers and spills)
+3. eds-first -- the event cell (phase 8) first in the process
+4. kernel   -- kernel vs ``pattern_sample_reference`` at the BA operating
                point (F=8, P=2048, K=8, 640x480, 0-255 planes) on random
-               taps, on the taps one ``linearize`` call of phase 4's BA
+               taps, on the taps one ``linearize`` call of phase 5's BA
                world samples (the path's clustered patterns), and on a
                ragged case (odd sizes, edge, out-of-image, NaN and inf taps):
-               ``ok`` identical, max |d| <= 1e-4 on ok taps, all finite;
-               time per call of both on the random and the path taps (CUDA
-               events; the kernels line carries the path-tap times)
-4. ba       -- 6-iteration ``ba_iterate`` on the ``bench.py`` BA world
+               ``ok`` identical, bitwise equal on ok taps, all finite; time
+               per call of both on the random and the path taps (CUDA
+               events, and device time from the profiler), the bound of the
+               path taps (their bytes: u, v, the outputs and the distinct
+               texels they need) and ``F.grid_sample`` on the [F, 3, H, W]
+               stack as the library yardstick
+5. ba       -- 6-iteration ``ba_iterate`` on the ``bench.py`` BA world
                (6 kernel launches per call), then point and frame
                marginalization (finite, symmetric HM)
-5. pipeline -- ``FrameOnlyPipeline`` over a ``SyntheticSequence``: bootstrap,
+6. pipeline -- ``FrameOnlyPipeline`` over a ``SyntheticSequence``: bootstrap,
                at least one marginalized frame, no full reset, kernel
                launches, every window tensor on the card, ATE bound
-6. build-raster  -- the nvcc build of csrc/rasterize.cu (ptxas registers and
-               spills)
 7. kernel-raster -- raster kernel vs ``rasterize_bilinear_reference`` on the
                largest packet of phase 8's sequence (65,536 capacity, time
                weights and mask applied), 65,536 random fractional events at
                640x480, a ragged case (E=700, 77x131, border taps, +-1e10,
                -1e6, NaN and inf) and a case at the fixed-point range bound
                (reference in float64): max |d| <= 1e-5 max(1, max|ref|),
-               finite, two launches bitwise equal; time per call of both on
-               the packet (CUDA events, and device time from the profiler)
+               finite, bitwise equal to the 64-bit fixed-point sum formed
+               with torch int64 ops, two launches bitwise equal; time per
+               call of both on the packet (CUDA events, device time from the
+               profiler, device activities per call) and its bound
 8. eds      -- ``EDSPipeline`` over 32 frames of the bench_e2e sequence
                (65,536-event packets): bootstrap, BA run, no reset, event
                keyframes, usable solves, both kernels launched, every event
                and window tensor on the card, frame and event ATE bounds;
                frames/s, ms per packet, host reads per packet
+9. history  -- phases 3 and 8 agree: the same usable string and counts, and
+               every usable packet's pose within 1e-6
 
-Phase 3 also reads the sampler's device time from the profiler. Then the
-kernels JSON line, the ``nvidia-smi`` name/power-limit line and, as the last
-line, ``{"ok": true, "device": {...}}``. Every failure raises, so the exit
-code is not 0; without a CUDA device the script exits 1 before any result.
-Imports no JAX.
+Then the kernels JSON line, the ``nvidia-smi`` name/power-limit line and, as
+the last line, ``{"ok": true, "device": {...}}``. Every failure raises, so
+the exit code is not 0; without a CUDA device the script exits 1 before any
+result. Imports no JAX.
 
     python3 chip_smoke.py
 """
@@ -76,6 +83,16 @@ JAX_CPU_EDS = {"ate": 0.050906877964735031, "event_ate": 0.045590642839670181,
                "event_solves": 30, "event_kfs": 19, "keyframes": 11,
                "ba_runs": 9, "marginalized": 4, "resets": 0}
 RASTER_TOL = 1e-5          # max |d| <= RASTER_TOL * max(1, max|ref|)
+POSE_TOL = 1e-6            # the two event-cell runs, per usable packet
+# the card's peaks for the bounds: NVIDIA's H100 SXM data sheet (dense,
+# 700 W): HBM bytes/s and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# float32 operations per tap / per event, counted from the kernels' sources:
+# the sampler's weights, value and two gradients (39) and the raster's
+# fractions, weights and four quantizations (22)
+SAMPLER_OPS_PER_TAP = 39
+RASTER_OPS_PER_EVENT = 22
 
 
 def fail(msg):
@@ -108,10 +125,13 @@ def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_us(fn, reps: int = 50):
-    """Device time per call of ``fn()`` in microseconds: every device
-    activity (kernels, memsets) the profiler records over ``reps`` calls,
-    summed, over ``reps``; None when the profiler records no device time."""
+def device_profile(fn, reps: int = 50):
+    """(device us per call, device activities per call) of ``fn()`` over
+    ``reps`` calls under the profiler (kernels, memsets, copies): per kind
+    of activity, its mean duration times its count per call (at least one),
+    summed. The profiler may drop some records of a run (it does for
+    cluster launches), so the mean is taken over the records it kept; (None,
+    0) when it records no device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -119,8 +139,17 @@ def device_us(fn, reps: int = 50):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages())
-    return total / reps if total > 0 else None
+    total, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0 and e.count > 0:
+            per_call = max(1, round(e.count / reps))
+            total += e.self_device_time_total / e.count * per_call
+            n += per_call
+    return (total if total > 0 else None), n
+
+
+def device_us(fn, reps: int = 50):
+    return device_profile(fn, reps)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -154,8 +183,67 @@ def phase_build(label, built):
           seconds=round(built.build_seconds, 3), ptxas=ptxas)
 
 
+def bound(nbytes, ops):
+    """(bound in us, "bytes" or "operations"): the larger of the bytes over
+    the card's HBM rate and the float32 operations over its peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e6
+    t_ops = ops / F32_OPS_PER_S * 1e6
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def roofline(nbytes, ops, device_us_):
+    b_us, by = bound(nbytes, ops)
+    return {"bytes": nbytes, "ops": ops, "bound_us": b_us,
+            "bound_ms": b_us * 1e-3, "bound_by": by,
+            "share_of_bound": b_us / device_us_ if device_us_ else None}
+
+
+def sampler_texels(planes, u, v):
+    """Distinct in-image (f, y, x) texels of channel 0 that the taps' 4x4
+    neighbourhoods (without corners) read, computed as the kernel does."""
+    F, H, W = planes.shape[:3]
+    uc = torch.clamp(torch.nan_to_num(u, nan=-8.0), -8.0, W + 8.0)
+    vc = torch.clamp(torch.nan_to_num(v, nan=-8.0), -8.0, H + 8.0)
+    x0 = torch.floor(uc).long()
+    y0 = torch.floor(vc).long()
+    f = torch.arange(F, device=u.device)[None, :, None].expand_as(x0)
+    offs = [(-1, 0), (-1, 1), (0, -1), (0, 0), (0, 1), (0, 2), (1, -1),
+            (1, 0), (1, 1), (1, 2), (2, 0), (2, 1)]
+    ys = torch.stack([y0 + dy for dy, _ in offs], -1).reshape(-1)
+    xs = torch.stack([x0 + dx for _, dx in offs], -1).reshape(-1)
+    fs = f[..., None].expand(*f.shape, len(offs)).reshape(-1)
+    inb = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+    flat = (fs * H + ys) * W + xs
+    return int(torch.unique(flat[inb]).numel())
+
+
+def grid_sample_yardstick(planes, u, v):
+    """One PyTorch call computing the sampler's (I, gx, gy) on ok taps:
+    ``F.grid_sample`` of the [F, 3, H, W] stack at the taps (align_corners,
+    zero padding), with its stack and grid built beforehand. Returns
+    (call, max |d| against the kernel on ok taps)."""
+    import torch.nn.functional as Fn
+    from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
+    F, H, W = planes.shape[:3]
+    stack = planes.permute(0, 3, 1, 2).contiguous()
+    gx = 2.0 * u.permute(1, 0, 2) / (W - 1) - 1.0
+    gy = 2.0 * v.permute(1, 0, 2) / (H - 1) - 1.0
+    grid = torch.stack([gx, gy], -1).contiguous()        # [F, P, K, 2]
+
+    def call():
+        return Fn.grid_sample(stack, grid, mode="bilinear",
+                              padding_mode="zeros", align_corners=True)
+    lib = call().permute(2, 0, 3, 1)                     # [P, F, K, 3]
+    ref = ps.pattern_sample_reference(planes, u, v)
+    ok = ref[3]
+    err = max(float((lib[..., c] - ref[c]).abs()[ok].max())
+              for c in range(3))
+    return call, err
+
+
 def _compare(ps, planes, u, v):
-    """Kernel vs plain version on one input; returns max |d| on ok taps."""
+    """Kernel vs plain version on one input: ``ok`` identical and the values
+    bitwise equal on ok taps; returns max |d| on ok taps."""
     before = ps.pattern_sample.launches
     got = ps.pattern_sample_cuda(planes, u, v)
     if ps.pattern_sample.launches != before + 1:
@@ -170,10 +258,10 @@ def _compare(ps, planes, u, v):
             fail(f"kernel output {name} is not finite")
         if a.shape != u.shape:
             fail(f"kernel output {name} has shape {tuple(a.shape)}")
-        d = float((a - b).abs()[ref[3]].max()) if ref[3].any() else 0.0
-        if d > KERNEL_TOL:
-            fail(f"kernel {name} differs from the plain version by {d}")
-        err = max(err, d)
+        if not torch.equal(a[ref[3]], b[ref[3]]):
+            d = float((a - b).abs()[ref[3]].max())
+            fail(f"kernel {name} differs from the plain version on ok taps "
+                 f"(max |d| {d})")
     return err
 
 
@@ -209,8 +297,8 @@ def phase_kernel(dev):
                   _compare(ps, t(rng.uniform(0, 255, (Fr, Hr, Wr, 3))),
                            t(ur), t(vr)))
 
-    # the path's own taps: the clustered 8-tap patterns of one linearize
-    # call on the BA world of phase 4
+    # the path's own taps and planes: the clustered 8-tap patterns of one
+    # linearize call on the BA world of phase 5, on its planar intensity
     path_planes, pu, pv = linearize_taps(dev)
     err_path = _compare(ps, path_planes, pu, pv)
 
@@ -223,24 +311,56 @@ def phase_kernel(dev):
     dev_us = device_us(lambda: ps.pattern_sample_cuda(path_planes, pu, pv))
     plain_dev_us = device_us(
         lambda: ps.pattern_sample_reference(path_planes, pu, pv))
+
+    # the bound of the path taps: u, v read, (I, gx, gy, ok) written, and
+    # each distinct texel of channel 0 they need read once
+    stack = build_ba_problem(dev)[1]            # the [F, H, W, 3] stack
+    n = pu.numel()
+    texels = sampler_texels(stack, pu, pv)
+    roof = roofline(n * 8 + n * 13 + texels * 4, n * SAMPLER_OPS_PER_TAP,
+                    dev_us)
+    lib_call, lib_err = grid_sample_yardstick(stack, pu, pv)
+    library_ms = cuda_time_ms(lib_call, 200)
+    library_us = device_us(lib_call)
     err = max(err_op, err_rag, err_path)
     phase("kernel", name="pattern_sample", max_abs_err=err,
           err_operating_point=err_op, err_ragged=err_rag,
-          err_path_taps=err_path, taps=P * F * K,
+          err_path_taps=err_path, taps=n, distinct_texels=texels,
           us_per_call_path_taps=ms * 1e3,
           plain_us_per_call_path_taps=plain_ms * 1e3,
           us_per_call_random_taps=ms_rand * 1e3,
           plain_us_per_call_random_taps=plain_rand * 1e3,
-          device_us_path_taps=dev_us, plain_device_us_path_taps=plain_dev_us)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "device_us": dev_us, "plain_device_us": plain_dev_us}
+          device_us_path_taps=dev_us, plain_device_us_path_taps=plain_dev_us,
+          library="F.grid_sample([F,3,H,W] stack)",
+          library_us=library_us, library_loop_us=library_ms * 1e3,
+          library_max_abs_err_ok_taps=lib_err, **roof)
+    return kernel_entry(err, dev_us, plain_dev_us, ms, plain_ms, roof,
+                        library_us, library_ms)
+
+
+def kernel_entry(err, dev_us, plain_dev_us, loop_ms, plain_loop_ms, roof,
+                 library_us=None, library_loop_ms=None):
+    """One kernel's numbers for the kernels line: ``ms``, ``plain_ms`` and
+    ``library_ms`` are device times per call from the profiler (the
+    CUDA-event loop times, which host issue bounds, beside them)."""
+    dev_ms = lambda us: None if us is None else us * 1e-3  # noqa: E731
+    return {"max_abs_err": err, "ms": dev_ms(dev_us),
+            "plain_ms": dev_ms(plain_dev_us), "bound_ms": roof["bound_ms"],
+            "bound_by": roof["bound_by"], "library_ms": dev_ms(library_us),
+            "device_us": dev_us, "bound_us": roof["bound_us"],
+            "share_of_bound": roof["share_of_bound"],
+            "library_us": library_us, "loop_ms": loop_ms,
+            "plain_loop_ms": plain_loop_ms,
+            "library_loop_ms": library_loop_ms}
 
 
 def linearize_taps(dev):
-    """(image stack, Ku, Kv) that ``energy.linearize`` hands the sampler
-    on the BA world, recorded from one call."""
+    """(planes, Ku, Kv) that ``energy.linearize`` hands the sampler on the
+    BA world, recorded from one call; the planes are the planar [F, H, W]
+    intensity, as the window hands them."""
     from slam_eds_tpu_torch.ops import energy
     state, imgs, H, W = build_ba_problem(dev)
+    imgs = imgs[..., 0].contiguous()
     seen = []
     sampler = energy.pattern_sample
 
@@ -260,7 +380,8 @@ def linearize_taps(dev):
 
 def build_ba_problem(dev):
     """bench.py's build_ba_problem with the port's types: F=8, P=2048,
-    640x480, the same numpy draws in the same order."""
+    640x480, the same numpy draws in the same order. Returns (state,
+    [F, H, W, 3] image stack, H, W)."""
     from slam_eds_tpu_torch.models import ba_state as bs
     from slam_eds_tpu_torch.utils.lie import SE3
     F, P, H, W = 8, 2048, 480, 640
@@ -299,6 +420,7 @@ def phase_ba(dev):
     from slam_eds_tpu_torch.ops import energy
     from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
     state, imgs, H, W = build_ba_problem(dev)
+    imgs = imgs[..., 0].contiguous()     # the window's planar intensity
 
     def call(st):
         return energy.ba_iterate(st, imgs, H, W, iterations=6,
@@ -340,6 +462,7 @@ def _window_tensors(window):
     yield from (st.T_eval.R, st.T_eval.t)
     yield from (x for name, x in st._asdict().items() if name != "T_eval")
     yield window.images
+    yield window.intensity
     for pyr in window.pyramids or []:
         yield from pyr or []
     for pts in window.immatures:
@@ -353,6 +476,7 @@ def phase_pipeline(dev):
     from slam_eds_tpu_torch.io.dataset import SyntheticSequence
     from slam_eds_tpu_torch.models.pipeline import FrameOnlyPipeline
     from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
+    from slam_eds_tpu_torch.ops.kernels.rasterize import rasterize_bilinear
     from slam_eds_tpu_torch.utils.alignment import ate_rmse
     from slam_eds_tpu_torch.utils.cameras import Pinhole
 
@@ -364,13 +488,15 @@ def phase_pipeline(dev):
     torch.cuda.synchronize()
 
     pattern_sample.launches = 0
+    rasterize_bilinear.launches = 0
     walls = []
     for t, img in frames:
         t0 = time.perf_counter()
         pipe.process_frame(img, t)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = pattern_sample.launches
+    launches = {"pattern_sample": pattern_sample.launches,
+                "rasterize_bilinear": rasterize_bilinear.launches}
 
     est = pipe.positions()
     ate = float(ate_rmse(est, seq.gt_positions()[:len(est)]))
@@ -392,7 +518,7 @@ def phase_pipeline(dev):
         fail("no BA run or no frame marginalized")
     if counters.get("full_resets", 0) != 0:
         fail("the pipeline fell back to a full reset")
-    if launches <= 0:
+    if launches["pattern_sample"] <= 0:
         fail("the main path never launched the pattern_sample kernel")
     if len(est) != PIPE_FRAMES or not np.isfinite(est).all():
         fail(f"trajectory has {len(est)} entries or is not finite")
@@ -461,8 +587,34 @@ def raster_cases(dev, packets):
     return cases
 
 
+def raster_fixed_point(xs, ys, vals, H, W):
+    """The kernel's sum formed with torch int64 ops: each in-frame tap
+    ``w * v`` (float32, as the kernel rounds it) quantized to
+    round(tap * 2^32) and summed with an integer ``index_add_``, times
+    2^-32. Integer sums do not depend on their order, so the kernel must
+    equal this bitwise."""
+    finite = torch.isfinite(xs) & torch.isfinite(ys)
+    x0 = torch.floor(xs)
+    y0 = torch.floor(ys)
+    fx = xs - x0
+    fy = ys - y0
+    acc = torch.zeros(H * W, dtype=torch.int64, device=xs.device)
+    for dx, dy, w in ((0, 0, (1 - fx) * (1 - fy)), (0, 1, (1 - fx) * fy),
+                      (1, 0, fx * (1 - fy)), (1, 1, fx * fy)):
+        xi = x0 + dx
+        yi = y0 + dy
+        ok = finite & (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        zero = torch.zeros_like(xi)
+        flat = (torch.where(ok, yi, zero).long() * W
+                + torch.where(ok, xi, zero).long())
+        q = torch.round((w * vals).double() * 2.0 ** 32).long()
+        acc.index_add_(0, flat, torch.where(ok, q, torch.zeros_like(q)))
+    return (acc.double() * 2.0 ** -32).float().reshape(H, W)
+
+
 def _compare_raster(rz, xs, ys, vals, H, W, f64):
-    """Kernel vs plain version on one input; returns (max |d|, bound)."""
+    """Kernel vs plain version and vs the fixed-point sum on one input;
+    returns (max |d| against the plain version, its bound)."""
     before = rz.rasterize_bilinear.launches
     got = rz.rasterize_bilinear(xs, ys, vals, H, W)
     again = rz.rasterize_bilinear_cuda(xs, ys, vals, H, W)
@@ -473,6 +625,7 @@ def _compare_raster(rz, xs, ys, vals, H, W, f64):
             xs.double(), ys.double(), vals.double(), H, W).float()
     else:
         ref = rz.rasterize_bilinear_reference(xs, ys, vals, H, W)
+    fixed = raster_fixed_point(xs, ys, vals, H, W)
     torch.cuda.synchronize()
     if got.shape != (H, W) or got.dtype != torch.float32:
         fail(f"raster output {tuple(got.shape)} {got.dtype}")
@@ -480,6 +633,9 @@ def _compare_raster(rz, xs, ys, vals, H, W, f64):
         fail("raster output is not finite")
     if not torch.equal(got, again):
         fail("two raster launches on one input differ")
+    if not torch.equal(got, fixed):
+        fail(f"raster kernel differs from the fixed-point sum by "
+             f"{float((got - fixed).abs().max())}")
     err = float((got - ref).abs().max())
     bound = RASTER_TOL * max(1.0, float(ref.abs().max()))
     if not err <= bound:
@@ -488,9 +644,9 @@ def _compare_raster(rz, xs, ys, vals, H, W, f64):
     return err, bound
 
 
-def phase_kernel_raster(dev, packets):
+def phase_kernel_raster(dev):
     from slam_eds_tpu_torch.ops.kernels import rasterize as rz
-    cases = raster_cases(dev, packets)
+    cases = raster_cases(dev, eds_inputs(dev)[3])
     errs = {name: _compare_raster(rz, *case)
             for name, case in cases.items()}
     xs, ys, vals, H, W, _ = cases["packet"]
@@ -498,18 +654,25 @@ def phase_kernel_raster(dev, packets):
                       200)
     plain_ms = cuda_time_ms(
         lambda: rz.rasterize_bilinear_reference(xs, ys, vals, H, W), 50)
-    dev_us = device_us(lambda: rz.rasterize_bilinear_cuda(xs, ys, vals, H, W))
+    dev_us, activities = device_profile(
+        lambda: rz.rasterize_bilinear_cuda(xs, ys, vals, H, W))
     plain_dev_us = device_us(
         lambda: rz.rasterize_bilinear_reference(xs, ys, vals, H, W))
+    # the bound: xs, ys, values read, the frame written
+    E = xs.numel()
+    roof = roofline(E * 12 + H * W * 4, E * RASTER_OPS_PER_EVENT, dev_us)
     err = max(e for e, _ in errs.values())
     phase("kernel-raster", name="rasterize_bilinear", max_abs_err=err,
           errors={k: {"max_abs_err": e, "bound": b}
                   for k, (e, b) in errs.items()},
-          packet_n_valid=int((vals != 0).sum()), events=xs.numel(),
+          geometry=rz.card_geometry(H, W)._asdict(),
+          packet_n_valid=int((vals != 0).sum()), events=E,
           us_per_call_packet=ms * 1e3, plain_us_per_call_packet=plain_ms * 1e3,
-          device_us_packet=dev_us, plain_device_us_packet=plain_dev_us)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "device_us": dev_us, "plain_device_us": plain_dev_us}
+          device_us_packet=dev_us, device_activities_per_call=activities,
+          plain_device_us_packet=plain_dev_us, **roof)
+    if activities != 1:
+        fail(f"{activities} device activities per raster call, not 1")
+    return kernel_entry(err, dev_us, plain_dev_us, ms, plain_ms, roof)
 
 
 def _event_tensors(pipe):
@@ -528,19 +691,22 @@ def eds_config():
                                         events_per_frame=EVENT_CAP))
 
 
-def phase_eds(dev, cam, seq, frames, packets):
+def phase_eds(dev, label="eds"):
+    """The event cell on inputs made for this run; returns its launches,
+    its counts and every packet's pose (None where rejected)."""
     from slam_eds_tpu_torch.models.pipeline import EDSPipeline
     from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
     from slam_eds_tpu_torch.ops.kernels.rasterize import rasterize_bilinear
     from slam_eds_tpu_torch.utils.alignment import ate_rmse
 
+    cam, seq, frames, packets = eds_inputs(dev)
     pipe = EDSPipeline(cam, eds_config(), device=dev)
     torch.cuda.synchronize()
 
     pattern_sample.launches = 0
     rasterize_bilinear.launches = 0
     frame_s, packet_s = [], []
-    ev_pos, ev_gt, usable = [], [], []
+    ev_pos, ev_gt, usable, poses = [], [], [], []
     for k, (t, img) in enumerate(frames):
         t0 = time.perf_counter()
         pipe.process_frame(img, t)
@@ -552,6 +718,8 @@ def phase_eds(dev, cam, seq, frames, packets):
             torch.cuda.synchronize()
             packet_s.append((k, time.perf_counter() - t0))
             usable.append(T is not None)
+            poses.append(None if T is None else torch.cat(
+                [T.R.reshape(-1), T.t]).cpu().numpy())
             if T is not None:
                 ev_pos.append(T.inverse().t.cpu().numpy())
                 ev_gt.append(seq.pose_at(k + 0.5).inverse().t.cpu().numpy())
@@ -572,7 +740,7 @@ def phase_eds(dev, cam, seq, frames, packets):
     n_pk = max(c["event_packets"], 1)
     reads = {name: c[f"event_{name}_host_reads"] / n_pk
              for name in ("lm", "gate", "scalar")}
-    phase("eds", frames=len(frames), packets_fed=len(usable),
+    phase(label, frames=len(frames), packets_fed=len(usable),
           usable_solves=int(sum(usable)),
           usable_fraction=sum(usable) / max(len(usable), 1),
           usable_by_packet="".join("u" if u else "x" for u in usable),
@@ -610,7 +778,32 @@ def phase_eds(dev, cam, seq, frames, packets):
         fail(f"event path frame ATE {ate} above the bound {ate_bound}")
     if not ev_ate <= ev_bound:
         fail(f"event ATE {ev_ate} above the bound {ev_bound}")
-    return launches
+    counts = {"event_kfs": pipe.num_event_kfs,
+              "keyframes": fp.window.next_id,
+              "marginalized": fp.window.marg_count,
+              "event_counters": dict(c), "frame_counters": dict(fc)}
+    return {"launches": launches, "usable": "".join(
+        "u" if u else "x" for u in usable), "counts": counts, "poses": poses}
+
+
+def phase_history(first, last):
+    """The event cell run first in the process and again after every other
+    phase: the same usable string and counts, and every usable packet's
+    pose (R and t) within POSE_TOL."""
+    if first["usable"] != last["usable"]:
+        fail(f"the event cell's usable packets depend on what ran before "
+             f"it: {first['usable']} then {last['usable']}")
+    if first["counts"] != last["counts"]:
+        fail(f"the event cell's counts depend on what ran before it: "
+             f"{first['counts']} then {last['counts']}")
+    diffs = [float(np.abs(a - b).max()) for a, b in
+             zip(first["poses"], last["poses"]) if a is not None]
+    d = max(diffs, default=0.0)
+    phase("history", usable=first["usable"], packets=len(first["poses"]),
+          max_pose_diff=d, pose_tol=POSE_TOL,
+          bitwise=all(x == 0.0 for x in diffs))
+    if not d <= POSE_TOL:
+        fail(f"the two event-cell runs' poses differ by {d}")
 
 
 @torch.inference_mode()
@@ -618,23 +811,29 @@ def main():
     dev = phase_device()
     built = build_kernels()
     phase_build("build", built["pattern_sample"])
+    phase_build("build-raster", built["rasterize"])
+    first = phase_eds(dev, label="eds-first")
     kern = phase_kernel(dev)
     phase_ba(dev)
-    launches = phase_pipeline(dev)
-    phase_build("build-raster", built["rasterize"])
-    eds = eds_inputs(dev)
-    raster = phase_kernel_raster(dev, eds[3])
-    eds_launches = phase_eds(dev, *eds)
+    frame_launches = phase_pipeline(dev)
+    raster = phase_kernel_raster(dev)
+    last = phase_eds(dev)
+    phase_history(first, last)
+    event_launches = last["launches"]
     print(json.dumps({"kernels": [
         {"name": "pattern_sample", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/pattern_sample.cu",
          "replaces": "slam_eds_tpu/ops/pallas/sample.py:84",
-         "launches": launches,
-         "launches_eds": eds_launches["pattern_sample"], **kern},
+         "launches": frame_launches["pattern_sample"],
+         "launches_frame_cell": frame_launches["pattern_sample"],
+         "launches_event_cell": event_launches["pattern_sample"], **kern},
         {"name": "rasterize_bilinear", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/rasterize.cu",
          "replaces": "slam_eds_tpu/ops/pallas/raster.py:71",
-         "launches": eds_launches["rasterize_bilinear"], **raster}]}))
+         "launches": event_launches["rasterize_bilinear"],
+         "launches_frame_cell": frame_launches["rasterize_bilinear"],
+         "launches_event_cell": event_launches["rasterize_bilinear"],
+         **raster}]}))
     print(gpu_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,16 +18,19 @@
 // multiplies gx^2 + gy^2 by the 0/1 mask, and a NaN there would poison the
 // outlier gate.
 //
-// What bounds it on the card: nothing but memory latency. At the operating
-// point the planes are F*H*W*4 = 8*480*640*4 = 9.8 MB (resident in the
-// 50 MB L2 across the ~7 calls per keyframe) and the tap I/O is
-// P*F*K*(2*4 in + 3*4 + 1 out) = 131072 * 21 B = 2.6 MB per call; there is
-// no reduction and ~40 FLOPs per tap. The design keeps it a pure
-// L2-resident gather: texels go through the read-only path (__ldg), the
-// planes may be strided (channel 0 of an [F, H, W, 3] stack is read in
-// place, no copy), and each run of K consecutive threads takes the K
+// What bounds it on the card: the bytes it must move. At the operating point
+// (P*F*K = 131,072 path taps) that is 1.05 MB of (u, v) in, 1.70 MB of
+// (I, gx, gy, ok) out and the 550,943 distinct channel-0 texels the taps
+// need (2.2 MB): 1.48 us at 3.35 TB/s; ~40 FLOPs per tap are nothing beside
+// it. The design keeps it a pure L2-resident gather: texels go through the
+// read-only path (__ldg), and each run of K consecutive threads takes the K
 // pattern taps of one (point, frame), which lie in a 5x5 window of one
-// plane, so a warp's texel reads share cache lines. The arithmetic follows
+// plane, so a warp's texel reads share cache lines. The planes may be
+// strided (channel 0 of an [F, H, W, 3] stack is read in place); the window
+// hands the kernel its planar, contiguous [F, H, W] intensity, where a
+// sector holds eight texels of a row instead of two or three. A design that
+// staged each (point, frame)'s texel box in shared memory, one warp per four
+// pairs, was slower on the card (PERF.md). The arithmetic follows
 // pattern_sample_reference term by term; built with --fmad=false it rounds
 // as that version does.
 #include <cuda_runtime.h>

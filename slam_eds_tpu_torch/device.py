@@ -1,7 +1,11 @@
 """Device selection and float32 numerics policy for the port.
 
-Every constructor takes an explicit ``device=``; ``resolve_device`` refuses a
-CUDA device when none is present, so nothing silently runs on the CPU.
+The port's entry points (the pipelines, ``SyntheticSequence``,
+``empty_state`` and the ``*from_numpy`` converters) default to ``"cuda"``;
+helpers take their device from an input tensor or require it. A caller asks
+for the CPU by name (``device="cpu"``), as the CPU tests do.
+``resolve_device`` refuses a CUDA device when none is present, so nothing
+runs on the CPU by omission.
 ``set_numerics`` pins full-precision float32: the reduced BA system is about
 1e8-conditioned, and cuDNN's default TF32 convolutions would shift the
 Sobel/pyramid gradients and with them the pixel selection.

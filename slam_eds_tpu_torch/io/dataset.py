@@ -47,7 +47,7 @@ class SyntheticSequence:
                  events_per_packet: int = 16384, seed: int = 7,
                  contrast_threshold: float = 0.08,
                  micro_steps: int = 4, motion_scale: float = 1.0,
-                 device="cpu"):
+                 device="cuda"):
         self.cam = cam
         self.num_frames = num_frames
         self.capacity = events_per_packet

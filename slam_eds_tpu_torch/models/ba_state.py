@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..utils.lie import SE3
 
 CPARS = 4
@@ -76,10 +77,11 @@ class BAState(NamedTuple):
         return self.c_zero + self.c_delta
 
 
-def empty_state(num_frames: int, num_points: int, calib, device="cpu",
+def empty_state(num_frames: int, num_points: int, calib, device="cuda",
                 dtype=torch.float32) -> BAState:
     F, P = num_frames, num_points
     D = CPARS + 8 * F
+    device = resolve_device(device)
     kw = dict(dtype=dtype, device=device)
     return BAState(
         T_eval=SE3(torch.eye(3, **kw).expand(F, 3, 3).clone(),
@@ -125,9 +127,10 @@ def tuple_to_numpy(tup) -> dict:
     return out
 
 
-def tuple_from_numpy(cls, d: dict, device="cpu", pose_fields=()):
+def tuple_from_numpy(cls, d: dict, device="cuda", pose_fields=()):
     """Inverse of ``tuple_to_numpy`` for NamedTuple class ``cls``. Accepts
     any array-likes (e.g. ``np.asarray`` of JAX arrays); dtypes are kept."""
+    device = resolve_device(device)
     kw = {}
     for name in cls._fields:
         if name in pose_fields:
@@ -144,7 +147,7 @@ def to_numpy(state: BAState) -> dict:
     return tuple_to_numpy(state)
 
 
-def from_numpy(d: dict, device="cpu") -> BAState:
+def from_numpy(d: dict, device="cuda") -> BAState:
     """BAState from a dict of arrays. ``d`` may also be a JAX ``BAState``
     converted with ``{k: np.asarray(v)}`` over its fields, with the pose
     given as 'T_eval.R'/'T_eval.t'."""

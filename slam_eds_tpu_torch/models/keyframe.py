@@ -52,7 +52,7 @@ def to_numpy(kf: KeyFrame) -> dict:
     return tuple_to_numpy(kf)
 
 
-def from_numpy(d: dict, device="cpu") -> KeyFrame:
+def from_numpy(d: dict, device="cuda") -> KeyFrame:
     """KeyFrame from a dict of arrays (e.g. a JAX KeyFrame converted field by
     field with ``np.asarray``)."""
     return tuple_from_numpy(KeyFrame, d, device)

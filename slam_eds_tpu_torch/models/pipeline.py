@@ -48,7 +48,7 @@ def _np(x):
 class FrameOnlyPipeline:
     cam: Pinhole
     cfg: EDSConfig = field(default_factory=EDSConfig)
-    device: str = "cpu"
+    device: str = "cuda"
     photometric: object = None
 
     def __post_init__(self):
@@ -421,7 +421,7 @@ class EDSPipeline:
     backend (window BA) alive and provide the keyframe images."""
     cam: Pinhole
     cfg: EDSConfig = field(default_factory=EDSConfig)
-    device: str = "cpu"
+    device: str = "cuda"
     photometric: object = None
 
     def __post_init__(self):

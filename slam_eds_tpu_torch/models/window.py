@@ -124,9 +124,11 @@ def project_active_to_newest(state, cam: Pinhole, newest_slot: int, *,
 class WindowManager:
     cam: Pinhole
     cfg: EDSConfig
-    device: torch.device = torch.device("cpu")
+    device: torch.device
     state: bs.BAState = None
     images: torch.Tensor = None          # [F, H, W, 3]
+    # channel 0 of images, planar and contiguous: the BA sampler's planes
+    intensity: torch.Tensor = None       # [F, H, W]
     pyramids: list = None
     immatures: list = None
     frame_times: list = field(default_factory=list)
@@ -146,6 +148,8 @@ class WindowManager:
         H, W = self.cam.height, self.cam.width
         self.images = torch.zeros((F, H, W, 3), dtype=torch.float32,
                                   device=dev)
+        self.intensity = torch.zeros((F, H, W), dtype=torch.float32,
+                                     device=dev)
         self.immatures = [None] * F
         self.frame_ids = [-1] * F
         self.frame_times = [0.0] * F
@@ -173,6 +177,7 @@ class WindowManager:
         self.pyramids = self.pyramids or [None] * self.state.num_frames
         self.pyramids[slot] = pyr
         self.images[slot] = pyr[0]
+        self.intensity[slot] = pyr[0][..., 0]
         self.frame_ids[slot] = self.next_id
         self.frame_times[slot] = time
         self.next_id += 1
@@ -392,7 +397,7 @@ class WindowManager:
         """Run the window BA (ba_iterate); returns (energy, lin)."""
         H, W = self.cam.height, self.cam.width
         self.state, e, lin = energy.ba_iterate(
-            self.state, self.images, H, W,
+            self.state, self.intensity, H, W,
             iterations=iterations or self.cfg.bundles.max_opt_iterations,
             lam=self.cfg.bundles.fix_lambda,
             huber_th=self.cfg.bundles.huber_th,
@@ -498,7 +503,7 @@ class WindowManager:
         if (new_status == bs.PT_MARGINALIZE).any():
             b = self.cfg.bundles
             self.state = marg_points(
-                self.state, self.images, b.marg_weight_fac,
+                self.state, self.intensity, b.marg_weight_fac,
                 b.idepth_fix_prior_marg_fac, b.huber_th, height=H, width=W)
 
         if marg_slot is not None:

@@ -16,6 +16,7 @@ from ..models.ba_state import tuple_from_numpy, tuple_to_numpy
 from ..utils.lie import SE3
 from ..utils.cameras import Pinhole
 from ..utils.interp import bilinear_3
+from ..utils.scatter import order_free_index_add
 from ..utils.stats import huber_weight
 
 
@@ -31,7 +32,7 @@ def template_to_numpy(tpl: LevelTemplate) -> dict:
     return tuple_to_numpy(tpl)
 
 
-def template_from_numpy(d: dict, device="cpu") -> LevelTemplate:
+def template_from_numpy(d: dict, device="cuda") -> LevelTemplate:
     """LevelTemplate from a dict of arrays (e.g. a JAX LevelTemplate
     converted field by field with ``np.asarray``)."""
     return tuple_from_numpy(LevelTemplate, d, device)
@@ -73,17 +74,17 @@ def _fill_holes(idepth, wsum, diagonal: bool):
 
 
 def splat_idepth(uv, idepth, weight, mask, height: int, width: int):
-    """Weighted scatter of idepths into an L0 grid (nearest pixel). On a
-    CUDA device ``index_add_`` sums with atomics, so the order of the few
-    same-pixel additions varies from run to run."""
+    """Weighted scatter of idepths into an L0 grid (nearest pixel). The
+    same-pixel sums do not depend on the order of the additions (64-bit
+    fixed point, ``utils.scatter``), so two runs give the same grid on the
+    card, as the JAX package's segment sum does."""
     ix = torch.clamp((uv[:, 0] + 0.5).to(torch.int64), 0, width - 1)
     iy = torch.clamp((uv[:, 1] + 0.5).to(torch.int64), 0, height - 1)
     flat = iy * width + ix
     w = torch.where(mask, weight, torch.zeros_like(weight))
-    idw = torch.zeros(height * width, dtype=idepth.dtype, device=uv.device)
-    ws = torch.zeros(height * width, dtype=idepth.dtype, device=uv.device)
-    idw.index_add_(0, flat, idepth * w)
-    ws.index_add_(0, flat, w)
+    n = height * width
+    idw = order_free_index_add(flat, idepth * w, n)
+    ws = order_free_index_add(flat, w, n)
     return idw.reshape(height, width), ws.reshape(height, width)
 
 

@@ -26,7 +26,7 @@ def to_numpy(state: DepthFilterState) -> dict:
     return tuple_to_numpy(state)
 
 
-def from_numpy(d: dict, device="cpu") -> DepthFilterState:
+def from_numpy(d: dict, device="cuda") -> DepthFilterState:
     return tuple_from_numpy(DepthFilterState, d, device)
 
 

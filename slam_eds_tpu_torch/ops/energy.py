@@ -90,7 +90,8 @@ def linearize(state: BAState, target_images, height: int, width: int,
               huber_th: float = 9.0, outlier_th: float = 144.0,
               outlier_th_sum: float = 2500.0) -> Linearization:
     """Batched PointFrameResidual::linearize over all (point, target) pairs.
-    target_images: [F, H, W, 3] stacks (I, gx, gy)."""
+    target_images: [F, H, W] intensities (the window's planar plane) or
+    [F, H, W, 3] stacks (I, gx, gy), of which channel 0 is read."""
     P = state.num_points
     F = state.num_frames
     K = PATTERN_DSO8.shape[0]

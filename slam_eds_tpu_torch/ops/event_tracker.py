@@ -39,7 +39,7 @@ def state_to_numpy(state: TrackerState) -> dict:
     return tuple_to_numpy(state)
 
 
-def state_from_numpy(d: dict, device="cpu") -> TrackerState:
+def state_from_numpy(d: dict, device="cuda") -> TrackerState:
     """TrackerState from a dict of arrays (e.g. a JAX TrackerState converted
     field by field with ``np.asarray``)."""
     return tuple_from_numpy(TrackerState, d, device)
@@ -346,7 +346,7 @@ def pose_filter_to_numpy(f: PoseFilter) -> dict:
     return tuple_to_numpy(f)
 
 
-def pose_filter_from_numpy(d: dict, device="cpu") -> PoseFilter:
+def pose_filter_from_numpy(d: dict, device="cuda") -> PoseFilter:
     return tuple_from_numpy(PoseFilter, d, device)
 
 

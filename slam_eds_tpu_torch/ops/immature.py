@@ -43,7 +43,7 @@ def to_numpy(pts: ImmaturePoints) -> dict:
     return tuple_to_numpy(pts)
 
 
-def from_numpy(d: dict, device="cpu") -> ImmaturePoints:
+def from_numpy(d: dict, device="cuda") -> ImmaturePoints:
     """ImmaturePoints from a dict of arrays (e.g. a JAX ImmaturePoints
     converted field by field with ``np.asarray``)."""
     return tuple_from_numpy(ImmaturePoints, d, device)

@@ -2,8 +2,9 @@
 
 Port of the Pallas TPU kernel ``slam_eds_tpu/ops/pallas/sample.py``
 (``pattern_pallas_sample``): the CUDA kernel ``csrc/pattern_sample.cu``
-(hand-written for ``sm_90a``, one thread per tap, an L2-resident gather —
-see the header of the .cu file for what bounds it) plus
+(hand-written for ``sm_90a``, one thread per tap, an L2-resident gather of
+the planar [F, H, W] intensity the window keeps — see the header of the .cu
+file for what bounds it) plus
 ``pattern_sample_reference``, the plain torch gather with the same
 semantics.
 

@@ -2,9 +2,11 @@
 
 Port of the Pallas TPU kernel ``slam_eds_tpu/ops/pallas/raster.py``
 (``rasterize_bilinear``): the CUDA kernel ``csrc/rasterize.cu`` (hand-written
-for ``sm_90a``, one thread per event, deterministic 64-bit fixed-point
+for ``sm_90a``: one launch, the frame held as 64-bit fixed-point integers in
+a thread-block cluster's distributed shared memory, deterministic integer
 atomics — see the header of the .cu file) plus
 ``rasterize_bilinear_reference``, the plain torch four-tap ``index_add_``.
+``launch_geometry`` is the kernel's launch geometry in plain Python.
 
 ``rasterize_bilinear`` dispatches on the tensors' device: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel (a build or launch
@@ -19,12 +21,58 @@ dropped.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .build import build_library
 
 _LIB = None
+_GEOMETRY = {}             # (H, W) -> RasterGeometry, chosen at first use
+
+# the most dynamic shared memory a block may use on the card (sm_90)
+MAX_SMEM_PER_BLOCK = 232448
+# a cluster of 16 needs the non-portable cluster size; 8 is portable
+CLUSTER_SIZES = (16, 8)
+# threads per block: of 256, 512 and 1024 at 640x480, 512 was fastest on
+# an H100 (PERF.md)
+THREADS = 512
+
+
+class RasterGeometry(NamedTuple):
+    cluster: int            # blocks per cluster, one cluster per band
+    bands: int              # row bands of the frame
+    rows_per_band: int      # the last band may hold fewer rows
+    slice_px: int           # frame pixels per block (a multiple of 4)
+    bytes_per_block: int    # dynamic shared memory: slice_px int64 sums
+    threads: int            # threads per block
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_geometry(height: int, width: int, cluster: int = 16,
+                    clusters: int = 1, threads: int = THREADS):
+    """Launch geometry of the raster kernel: the frame's rows cut into
+    ``clusters`` bands (the clusters the card holds at once), or into more
+    where a band's int64 sums would not fit a cluster's shared memory,
+    balanced; each band's pixels cut into ``cluster`` slices of a multiple of
+    4 pixels (block r owns band pixels [r * slice_px, (r + 1) * slice_px)).
+    640x480 with one cluster of 16: 19,200 pixels and 153,600 B per block;
+    with the 7 clusters of 16 an H100 holds at once, 69 rows per band and
+    22,080 B per block."""
+    max_slice = MAX_SMEM_PER_BLOCK // 8 // 4 * 4
+    max_rows = cluster * max_slice // width
+    if height <= 0 or width <= 0 or max_rows < 1 or clusters < 1:
+        raise ValueError(f"no raster geometry for {height}x{width} with "
+                         f"{clusters} clusters of {cluster}")
+    rows = _ceil_div(height, max(_ceil_div(height, max_rows),
+                                 min(clusters, height)))
+    bands = _ceil_div(height, rows)
+    slice_px = 4 * _ceil_div(_ceil_div(rows * width, cluster), 4)
+    return RasterGeometry(cluster, bands, rows, slice_px, slice_px * 8,
+                          threads)
 
 
 def rasterize_bilinear_reference(xs, ys, values, height: int, width: int):
@@ -56,13 +104,50 @@ def load():
         built = build_library("rasterize", ["rasterize.cu"])
         fn = built.lib.rasterize_launch
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int]
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
+        occ = built.lib.rasterize_max_active_clusters
+        occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
         err = built.lib.rasterize_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _LIB = built
     return _LIB
+
+
+def _check(lib, rc, what):
+    if rc != 0:
+        msg = lib.rasterize_error_string(rc).decode()
+        raise RuntimeError(f"rasterize kernel {what} failed: {msg}")
+
+
+def card_geometry(height: int, width: int):
+    """The geometry the card runs for an [H, W] frame, chosen at first use
+    from ``cudaOccupancyMaxActiveClusters``: clusters of 16 where the card
+    holds one, else the portable 8 (raises if it holds neither), and as many
+    bands as it holds such clusters at once, so that the bands spread over
+    the card's SMs. Call with the frame's device current."""
+    geo = _GEOMETRY.get((height, width))
+    if geo is None:
+        lib = load().lib
+        for cluster in CLUSTER_SIZES:
+            geo = launch_geometry(height, width, cluster)
+            n = ctypes.c_int(0)
+            _check(lib, lib.rasterize_max_active_clusters(
+                geo.cluster, geo.bands, geo.threads, geo.bytes_per_block,
+                ctypes.byref(n)), "occupancy query")
+            if n.value >= 1:
+                geo = launch_geometry(height, width, cluster, n.value)
+                break
+        else:
+            raise RuntimeError(
+                f"the card holds no raster cluster of {geo.cluster} blocks "
+                f"with {geo.bytes_per_block} B of shared memory each")
+        _GEOMETRY[(height, width)] = geo
+    return geo
 
 
 def rasterize_bilinear_cuda(xs, ys, values, height: int, width: int):
@@ -89,16 +174,14 @@ def rasterize_bilinear_cuda(xs, ys, values, height: int, width: int):
     if height <= 0 or width <= 0:
         raise ValueError(f"bad frame size {height}x{width}")
     lib = load().lib
-    acc = torch.empty(height * width, dtype=torch.int64, device=xs.device)
     out = torch.empty((height, width), dtype=torch.float32, device=xs.device)
     with torch.cuda.device(xs.device):
+        geo = card_geometry(height, width)
         stream = torch.cuda.current_stream(xs.device).cuda_stream
-        rc = lib.rasterize_launch(xs.data_ptr(), ys.data_ptr(),
-                                  values.data_ptr(), xs.numel(), height, width,
-                                  acc.data_ptr(), out.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.rasterize_error_string(rc).decode()
-        raise RuntimeError(f"rasterize kernel launch failed: {msg}")
+        _check(lib, lib.rasterize_launch(
+            xs.data_ptr(), ys.data_ptr(), values.data_ptr(), xs.numel(),
+            height, width, geo.cluster, geo.bands, geo.rows_per_band,
+            geo.slice_px, geo.threads, out.data_ptr(), stream), "launch")
     rasterize_bilinear.launches += 1
     return out
 

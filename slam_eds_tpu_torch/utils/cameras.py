@@ -20,7 +20,7 @@ class Pinhole(NamedTuple):
     width: int
     height: int
 
-    def K(self, dtype=torch.float32, device="cpu"):
+    def K(self, dtype=torch.float32, *, device):
         return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy],
                              [0.0, 0.0, 1.0]], dtype=dtype, device=device)
 

@@ -4,19 +4,20 @@ port of ``slam_eds_tpu.utils.events``.
 A packet is fixed-capacity (x, y, t, polarity) arrays with ``n_valid`` live
 events at the front. The bilinear scatter goes through
 ``ops/kernels/rasterize.rasterize_bilinear`` (the CUDA kernel on the card,
-its plain version on the CPU); the nearest-pixel scatter is an
-``index_add_``.
+its plain version on the CPU); the nearest-pixel scatter is an order-free
+``index_add_`` (``utils.scatter``).
 """
 from __future__ import annotations
 
 import torch
 
 from . import image as image_ops
+from .scatter import order_free_index_add
 from ..ops.kernels.rasterize import rasterize_bilinear
 
 
-def event_time_weights(n_valid: int, capacity: int, dtype=torch.float32,
-                       device="cpu"):
+def event_time_weights(n_valid: int, capacity: int, dtype=torch.float32, *,
+                       device):
     """Gaussian time-ordering weights exp(-0.5 ((i/N - 1/2) / (1/6))^2), a
     bell centred mid-packet (``expWeight``). N is a device scalar, so the
     division is a true one (a host scalar divides by its reciprocal on the
@@ -44,8 +45,8 @@ def scatter_accumulate(xs, ys, values, height: int, width: int,
     values = torch.where(finite, values, torch.zeros_like(values))
     ix = torch.clamp(torch.round(torch.where(finite, xs, 0.0)), 0, width - 1)
     iy = torch.clamp(torch.round(torch.where(finite, ys, 0.0)), 0, height - 1)
-    img = torch.zeros(height * width, dtype=values.dtype, device=values.device)
-    img.index_add_(0, iy.long() * width + ix.long(), values)
+    img = order_free_index_add(iy.long() * width + ix.long(), values,
+                               height * width)
     return img.reshape(height, width)
 
 

@@ -19,7 +19,7 @@ PATTERN_NUM = 8
 PATTERN_PAD = 2
 
 
-def pattern(dtype=torch.float32, device="cpu"):
+def pattern(dtype, device):
     """PATTERN_DSO8 as a [8, 2] tensor."""
     return torch.as_tensor(PATTERN_DSO8, dtype=dtype, device=device)
 

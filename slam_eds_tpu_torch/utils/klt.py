@@ -7,7 +7,7 @@ import torch
 from .interp import bilinear
 
 
-def _patch_grid(radius: int, dtype=torch.float32, device="cpu"):
+def _patch_grid(radius: int, dtype, device):
     r = torch.arange(-radius, radius + 1, dtype=dtype, device=device)
     dy, dx = torch.meshgrid(r, r, indexing="ij")
     return dx.reshape(-1), dy.reshape(-1)

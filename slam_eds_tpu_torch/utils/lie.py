@@ -95,7 +95,7 @@ class SE3(NamedTuple):
     t: torch.Tensor
 
     @staticmethod
-    def identity(dtype=torch.float32, device="cpu"):
+    def identity(dtype=torch.float32, *, device):
         return SE3(torch.eye(3, dtype=dtype, device=device),
                    torch.zeros(3, dtype=dtype, device=device))
 
@@ -133,7 +133,7 @@ class SE3(NamedTuple):
 # Quaternions [w, x, y, z] — the event tracker's pose state.
 # ---------------------------------------------------------------------------
 
-def quat_identity(dtype=torch.float32, device="cpu"):
+def quat_identity(dtype, device):
     q = torch.zeros(4, dtype=dtype, device=device)
     q[0] = 1.0           # a fill, not a host-to-device copy
     return q

@@ -118,14 +118,14 @@ def _jax_step(inp, lim, iters, statics):
 def _port_step(inp, iters, counters):
     """The same step in the port, from the JAX state carried over with the
     numpy converters."""
-    kf = tkf.from_numpy(_np_dict(inp["kf"]))
+    kf = tkf.from_numpy(_np_dict(inp["kf"]), device="cpu")
     pk = inp["packet"]
-    lim, _, statics = tpl.EDSPipeline(TCAM, load_config(CFG)) \
-        ._packet_step_args()
+    lim, _, statics = tpl.EDSPipeline(TCAM, load_config(CFG), \
+                                       device="cpu")._packet_step_args()
     return tpl._event_packet_fused(
-        tet.state_from_numpy(_np_dict(inp["tracker"])),
-        tet.pose_filter_from_numpy(_np_dict(inp["pf"])),
-        tdf.from_numpy(_np_dict(inp["depth"])), TCAM,
+        tet.state_from_numpy(_np_dict(inp["tracker"]), device="cpu"),
+        tet.pose_filter_from_numpy(_np_dict(inp["pf"]), device="cpu"),
+        tdf.from_numpy(_np_dict(inp["depth"]), device="cpu"), TCAM,
         kf.T_w_kf_R, kf.T_w_kf_t,
         torch.as_tensor(np.array(inp["pred"].R)),
         torch.as_tensor(np.array(inp["pred"].t)),
@@ -197,7 +197,7 @@ def test_warm_packet_at_the_configured_caps(jax_packets):
 @pytest.fixture(scope="module")
 def port_loop(sequence):
     frames, packets, gt, ev_gt = sequence
-    pipe = tpl.EDSPipeline(TCAM, load_config(CFG))
+    pipe = tpl.EDSPipeline(TCAM, load_config(CFG), device="cpu")
     ev_pos, ev_ref = [], []
     for k, (t, img) in enumerate(frames):
         pipe.process_frame(img, t)
@@ -245,11 +245,11 @@ def test_event_state_is_finite_and_on_the_pipeline_device(port_loop):
 ])
 def test_unported_event_options_raise(change):
     with pytest.raises(NotImplementedError):
-        tpl.EDSPipeline(TCAM, load_config(change))
+        tpl.EDSPipeline(TCAM, load_config(change), device="cpu")
 
 
 def test_undistortion_maps_raise(sequence):
-    pipe = tpl.EDSPipeline(TCAM, load_config(CFG))
+    pipe = tpl.EDSPipeline(TCAM, load_config(CFG), device="cpu")
     maps = (np.zeros((H, W), np.float32),) * 2
     with pytest.raises(NotImplementedError):
         pipe.process_events(sequence[1][0], fwd_maps=maps)

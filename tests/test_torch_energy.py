@@ -45,7 +45,7 @@ def to_torch(jstate) -> tbs.BAState:
          if k != "T_eval"}
     d["T_eval.R"] = np.asarray(jstate.T_eval.R)
     d["T_eval.t"] = np.asarray(jstate.T_eval.t)
-    return tbs.from_numpy(d)
+    return tbs.from_numpy(d, device="cpu")
 
 
 def tt(tup, cls):
@@ -66,7 +66,7 @@ def world():
 def test_state_numpy_roundtrip(world):
     jst, _, tst, _ = world
     d = tbs.to_numpy(tst)
-    back = tbs.from_numpy(d)
+    back = tbs.from_numpy(d, device="cpu")
     for a, b in zip(tbs.tuple_to_numpy(back).values(), d.values()):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(d["p_host"], np.asarray(jst.p_host))

@@ -98,7 +98,7 @@ def _states(w, tau, vx):
     q = jlie.mat_to_quat(Tj.R)
     js = jet.TrackerState(px=Tj.t, qx=q, vx=jnp.asarray(vx))
     return js, tet.state_from_numpy({k: np.asarray(v) for k, v in
-                                     js._asdict().items()})
+                                     js._asdict().items()}, device="cpu")
 
 
 def _args(w, side):
@@ -221,7 +221,8 @@ def test_pose_filter_warp_and_flow(world):
         jm, tm = jet.pose_filter_mean(jf), tet.pose_filter_mean(tf)
         close(tm.R, jm.R, rtol=0, atol=1e-6)
         close(tm.t, jm.t, rtol=0, atol=1e-6)
-    back = tet.pose_filter_from_numpy(tet.pose_filter_to_numpy(tf))
+    back = tet.pose_filter_from_numpy(tet.pose_filter_to_numpy(tf),
+                                      device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(back, tf))
 
     js, ts = _states(w, w["tau"] * 30.0, w["vx"])   # some points leave
@@ -322,7 +323,7 @@ def test_vogiatzis_update_and_guards():
     for a, b in zip(out, jout):
         assert np.isfinite(N(a)).all()
         close(a, b, rtol=1e-5, atol=0)
-    back = tdf.from_numpy(tdf.to_numpy(out))
+    back = tdf.from_numpy(tdf.to_numpy(out), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(back, out))
 
 
@@ -398,7 +399,7 @@ def test_create_keyframe_640(keyframes, name):
               "weight", "T_w_kf_R", "T_w_kf_t", "time"):
         a, b = N(getattr(t, f)), np.asarray(getattr(j, f))
         close(a, b, rtol=1e-5, atol=1e-5 * max(1.0, np.abs(b).max()), msg=f)
-    back = tkf.from_numpy(tkf.to_numpy(t))
+    back = tkf.from_numpy(tkf.to_numpy(t), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(back, t))
 
 

@@ -120,7 +120,8 @@ def test_build_template_parity(scene):
                                        np.asarray(getattr(a, f))[m],
                                        rtol=1e-5, atol=1e-5)
     # numpy round trip of the containers
-    back = tct.template_from_numpy(tct.template_to_numpy(tt[0]))
+    back = tct.template_from_numpy(tct.template_to_numpy(tt[0]),
+                                   device="cpu")
     assert torch.equal(back.u, tt[0].u)
 
 
@@ -129,7 +130,8 @@ def test_track_newest_coarse_parity(scene, target):
     tj, _ = _templates(scene)
     # both sides get the JAX templates, so this isolates the LM solve
     tt = [tct.template_from_numpy({f: np.asarray(getattr(t, f))
-                                   for f in t._fields}) for t in tj]
+                                   for f in t._fields}, device="cpu")
+          for t in tj]
     img = scene[0][target][1]
     pyr = _pyr(img, 4)
     L = 4
@@ -142,7 +144,7 @@ def test_track_newest_coarse_parity(scene, target):
         jnp.zeros(2, jnp.float32), jnp.asarray(abort), max_iterations=iters)
     rt = tct.track_newest_coarse(
         tt, [T(l) for l in pyr], [TCAM.pyramid_level(l) for l in range(L)],
-        TSE3.identity(), torch.zeros(2), (torch.tensor(1.0), torch.tensor(1.0)),
+        TSE3.identity(device="cpu"), torch.zeros(2), (torch.tensor(1.0), torch.tensor(1.0)),
         torch.zeros(2), T(abort), max_iterations=iters)
     assert bool(rt.ok) == bool(rj.ok)
     assert bool(rj.ok)
@@ -204,7 +206,7 @@ def test_trace_on_parity(scene):
             assert r.max() <= 5e-3, (f, r.max())
         # hand the JAX state over so each step is compared from equal inputs
         pt = tim.from_numpy({f: np.asarray(getattr(pj, f))
-                             for f in pj._fields})
+                             for f in pj._fields}, device="cpu")
 
 
 def test_activate_idepth_parity(scene):
@@ -213,7 +215,8 @@ def test_activate_idepth_parity(scene):
     tgt = _pyr(scene[0][1][1], 1)[0]
     pj = jim.trace_on(pj, jnp.asarray(tgt), jnp.asarray(KRKi), jnp.asarray(Kt),
                       jnp.asarray([1.0, 0.0], jnp.float32), W, H)
-    pts = tim.from_numpy({f: np.asarray(getattr(pj, f)) for f in pj._fields})
+    pts = tim.from_numpy({f: np.asarray(getattr(pj, f)) for f in pj._fields},
+                         device="cpu")
     imgs = np.stack([_pyr(scene[0][k][1], 1)[0] for k in range(3)])
     KR = np.stack([_KRKi_Kt(scene, 0, k)[0] for k in range(3)])
     Kts = np.stack([_KRKi_Kt(scene, 0, k)[1] for k in range(3)])

@@ -11,8 +11,13 @@ The raster kernel is held to its plain version on the four cases of
 ``chip_smoke.py``'s phase 7 (a 640x480 packet of 65,536-event capacity, random
 fractional events, a ragged case with border, huge, NaN and inf coordinates,
 and a case at the fixed-point range bound, there against the plain version
-in float64): max |d| <= 1e-5 max(1, max|ref|), finite, and two launches
-bitwise equal (the kernel accumulates in 64-bit fixed point).
+in float64): max |d| <= 1e-5 max(1, max|ref|), finite, bitwise equal to
+the 64-bit fixed-point sum formed with torch int64 ops, and two launches
+bitwise equal (the kernel accumulates in 64-bit fixed point, in a
+thread-block cluster's shared memory, one launch per call).
+
+``splat_idepth`` sums in 64-bit fixed point with integer ``index_add_``: two
+launches on the card, and the CPU, give the same grid bitwise.
 
 Tolerances: the sampler kernel is built without multiply-add contraction and
 follows the plain version term by term, so ``ok`` is identical and values
@@ -30,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from slam_eds_tpu_torch.ops import coarse_tracker as ct
 from slam_eds_tpu_torch.ops import energy
 from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
 from slam_eds_tpu_torch.ops.kernels import rasterize as rz
@@ -87,6 +93,33 @@ def test_sampler_kernel_matches_plain(card, F, H, W, P, stack):
         assert a.shape == u.shape
         assert torch.isfinite(a).all()
         assert (a[ok] - b[ok]).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack", [True, False])
+@pytest.mark.parametrize("F,H,W,P", CASES)
+def test_sampler_kernel_is_bitwise_the_plain_version_on_ok_taps(card, F, H,
+                                                                W, P, stack):
+    rng = np.random.default_rng(F * H + W + P + 1)
+    shape = (F, H, W, 3) if stack else (F, H, W)
+    planes = torch.as_tensor(rng.uniform(0, 255, shape).astype(np.float32),
+                             device=card)
+    u, v = (torch.as_tensor(a, device=card) for a in _taps(rng, F, H, W, P))
+    # clustered 8-tap patterns as on the path: one centre per (p, f)
+    c = rng.uniform(2, (W - 3, H - 3), (P, F, 1, 2)).astype(np.float32)
+    pat = np.array([[0, -2], [-1, -1], [1, -1], [-2, 0], [0, 0], [2, 0],
+                    [-1, 1], [0, 2]], np.float32)
+    uc, vc = (torch.as_tensor(a, device=card)
+              for a in np.moveaxis(c + pat, -1, 0))
+    for uu, vv in ((u, v), (uc.contiguous(), vc.contiguous())):
+        out = ps.pattern_sample(planes, uu, vv)
+        ref = ps.pattern_sample_reference(planes, uu, vv)
+        torch.cuda.synchronize()
+        ok = ref[3]
+        assert torch.equal(out[3], ok) and ok.any()
+        for a, b in zip(out[:3], ref[:3]):
+            assert torch.equal(a[ok], b[ok])
+            assert torch.isfinite(a).all()
 
 
 @pytest.mark.cuda
@@ -161,6 +194,43 @@ def test_raster_kernel_matches_plain_and_is_deterministic(card, raster_cases,
                                                           case):
     err, bound = chip_smoke._compare_raster(rz, *raster_cases[case])
     assert err <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["packet", "random", "ragged", "bound"])
+def test_raster_kernel_is_bitwise_the_fixed_point_sum(card, raster_cases,
+                                                      case):
+    xs, ys, vals, H, W, _ = raster_cases[case]
+    got = rz.rasterize_bilinear(xs, ys, vals, H, W)
+    assert torch.equal(got, chip_smoke.raster_fixed_point(xs, ys, vals, H, W))
+
+
+@pytest.mark.cuda
+def test_raster_geometry_on_the_card(card):
+    geo = rz.card_geometry(480, 640)
+    assert geo.cluster in rz.CLUSTER_SIZES
+    assert geo == rz.launch_geometry(480, 640, geo.cluster, geo.bands)
+    # one launch and one device activity per call
+    x = torch.zeros(64, device=card)
+    assert chip_smoke.device_profile(
+        lambda: rz.rasterize_bilinear_cuda(x, x, x, 480, 640))[1] == 1
+
+
+@pytest.mark.cuda
+def test_splat_idepth_is_bitwise_repeatable_and_the_cpu_grid(card):
+    rng = np.random.default_rng(8)
+    H, W, n = 480, 640, 2048
+    uv = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], -1)
+    uv[: n // 2] = uv[n // 2:] + rng.uniform(-0.4, 0.4, (n // 2, 2))
+    args = [uv.astype(np.float32), rng.uniform(0.1, 3.0, n).astype(
+        np.float32), np.ones(n, np.float32), rng.uniform(size=n) < 0.9]
+    on = [torch.as_tensor(a, device=card) for a in args]
+    a = ct.splat_idepth(*on, H, W)
+    b = ct.splat_idepth(*on, H, W)
+    c = ct.splat_idepth(*(torch.as_tensor(x) for x in args), H, W)
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y)
+        assert torch.equal(x.cpu(), z)
 
 
 @pytest.mark.cuda

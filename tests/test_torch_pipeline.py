@@ -88,20 +88,21 @@ def _se3(T):
 def _port_from_jax(jp):
     """A port pipeline holding the JAX pipeline's exact window and tracking
     state (every array copied through numpy)."""
-    tp = TPipe(TCAM, load_config(CFG))
+    tp = TPipe(TCAM, load_config(CFG), device="cpu")
     jw, w = jp.window, tp.window
     d = {k: np.asarray(v) for k, v in jw.state._asdict().items()
          if k != "T_eval"}
     d["T_eval.R"], d["T_eval.t"] = jw.state.T_eval.R, jw.state.T_eval.t
-    w.state = tbs.from_numpy(d)
+    w.state = tbs.from_numpy(d, device="cpu")
     w.images = _t(jw.images)
+    w.intensity = w.images[..., 0].contiguous()
     w.pyramids = [None if p is None else [_t(l) for l in p]
                   for p in jw.pyramids]
     w.immatures = [None if p is None else tim.from_numpy(
-        {f: np.asarray(getattr(p, f)) for f in p._fields})
+        {f: np.asarray(getattr(p, f)) for f in p._fields}, device="cpu")
         for p in jw.immatures]
     w.coarse_templates = [tct.template_from_numpy(
-        {f: np.asarray(getattr(t, f)) for f in t._fields})
+        {f: np.asarray(getattr(t, f)) for f in t._fields}, device="cpu")
         for t in jw.coarse_templates]
     w.frame_ids, w.frame_times = list(jw.frame_ids), list(jw.frame_times)
     w.next_id, w.newest_slot = jw.next_id, jw.newest_slot
@@ -139,7 +140,7 @@ def runs():
         mp.setattr(tin, "sample_picks", _jax_picks)
         mp.setattr(tin, "bootstrap_eight_point",
                    _recorded(tin.bootstrap_eight_point, boots["port"]))
-        tp = TPipe(TCAM, load_config(CFG))
+        tp = TPipe(TCAM, load_config(CFG), device="cpu")
         ttrace = []
         for t, img in frames:
             tp.process_frame(img, t)
@@ -260,13 +261,13 @@ def test_window_state_stays_on_device_and_finite(runs):
 ])
 def test_unported_bootstraps_raise(change):
     with pytest.raises(NotImplementedError):
-        TPipe(TCAM, load_config(change))
+        TPipe(TCAM, load_config(change), device="cpu")
 
 
 def test_photometric_and_depth_map_raise():
     with pytest.raises(NotImplementedError):
-        TPipe(TCAM, photometric=object())
-    pipe = TPipe(TCAM, load_config(CFG))
+        TPipe(TCAM, photometric=object(), device="cpu")
+    pipe = TPipe(TCAM, load_config(CFG), device="cpu")
     with pytest.raises(NotImplementedError):
         pipe.process_frame(np.zeros((H, W), np.float32), 0.0,
                            depth_map=np.ones((H, W), np.float32))

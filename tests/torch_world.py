@@ -104,7 +104,7 @@ def world_arrays(seed=11) -> dict:
     }
 
 
-def port_world(device="cpu", seed=11):
+def port_world(device, seed=11):
     """(BAState, images) of ``world_arrays`` as the port's tensors."""
     d = world_arrays(seed)
     st = empty_state(F, P, [FX, FY, CX, CY], device=device)
