@@ -5,14 +5,19 @@ Builds the hand-written ``sm_90a`` kernels (the pattern sampler and the
 event raster) from ``slam_eds_tpu_torch/csrc``, one ``nvcc`` each, started
 together; holds each against its plain PyTorch version; runs the keyframe BA
 at the reference operating point, the frame-only path
-(``FrameOnlyPipeline``) and the event path (``EDSPipeline``), both at 640x480
-with the default ``EDSConfig``. The event cell runs first and again last, and
-the two runs must agree packet for packet. Phases, one output line each:
+(``FrameOnlyPipeline``), the event path (``EDSPipeline``) and the on-disk
+runner (``runner.run_sequence``), all at 640x480 with the default
+``EDSConfig``. The event cell runs first and again last, and the two runs
+must agree packet for packet. Phases, one output line each:
 
 1. device   -- card name and power limit, torch/CUDA versions, f32 numerics
-2. build, build-raster -- the nvcc builds of csrc/pattern_sample.cu and
-               csrc/rasterize.cu (ptxas registers and spills)
-3. eds-first -- the event cell (phase 8) first in the process
+2. build, build-raster, build-host -- the nvcc builds of
+               csrc/pattern_sample.cu and csrc/rasterize.cu (ptxas
+               registers and spills) and the host C++ build of the
+               runner's csrc/host runtime, all started together (a failed
+               host build is reported, and the runner then takes its
+               pure-Python ring, reader and PNG path)
+3. eds-first -- the event cell (phase 9) first in the process
 4. kernel   -- kernel vs ``pattern_sample_reference`` at the BA operating
                point (F=8, P=2048, K=8, 640x480, 0-255 planes) on random
                taps, on the taps one ``linearize`` call of phase 5's BA
@@ -31,7 +36,7 @@ the two runs must agree packet for packet. Phases, one output line each:
                at least one marginalized frame, no full reset, kernel
                launches, every window tensor on the card, ATE bound
 7. kernel-raster -- raster kernel vs ``rasterize_bilinear_reference`` on the
-               largest packet of phase 8's sequence (65,536 capacity, time
+               largest packet of phase 9's sequence (65,536 capacity, time
                weights and mask applied), 65,536 random fractional events at
                640x480, a ragged case (E=700, 77x131, border taps, +-1e10,
                -1e6, NaN and inf) and a case at the fixed-point range bound
@@ -40,12 +45,25 @@ the two runs must agree packet for packet. Phases, one output line each:
                with torch int64 ops, two launches bitwise equal; time per
                call of both on the packet (CUDA events, device time from the
                profiler, device activities per call) and its bound
-8. eds      -- ``EDSPipeline`` over 32 frames of the bench_e2e sequence
+8. runner   -- the on-disk runner: phase 9's sequence written by
+               ``SyntheticSequence.write_dataset`` (PNG frames, events.txt,
+               ground truth) with a zero-coefficient radtan calib.yaml, so
+               the frame remap and the event forward maps run on the card,
+               then ``run_sequence(dir, device="cuda")`` with the recorder
+               on: 32 frames, 31 packets, no reset, a marginalized frame,
+               ATE bound, at least 24 usable solves in poses.txt (one line
+               per usable solve), both kernels launched, one scalar host
+               read per packet, which host runtime ran (native or python,
+               with the build error's last line when python); frames/s over
+               the whole wall time, median frame and packet times, the
+               seconds spent waiting on frame decode and on event I/O, the
+               seconds to write the dataset, ATE and RPE
+9. eds      -- ``EDSPipeline`` over 32 frames of the bench_e2e sequence
                (65,536-event packets): bootstrap, BA run, no reset, event
                keyframes, usable solves, both kernels launched, every event
                and window tensor on the card, frame and event ATE bounds;
                frames/s, ms per packet, host reads per packet
-9. history  -- phases 3 and 8 agree: the same usable string and counts, and
+10. history -- phases 3 and 9 agree: the same usable string and counts, and
                every usable packet's pose within 1e-6
 
 Then the kernels JSON line, the ``nvidia-smi`` name/power-limit line and, as
@@ -65,7 +83,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-# Phase 5's sequence and its reference: the JAX package, run on the CPU on
+# Phase 6's sequence and its reference: the JAX package, run on the CPU on
 # the same 640x480 sequence with the default config, bootstraps at frame 1
 # and makes 11 keyframes, 9 BA runs and 4 frame marginalizations with no
 # reset over these frames, at this ATE-RMSE (the port must stay within
@@ -74,7 +92,7 @@ PIPE_FRAMES = 32
 JAX_CPU_ATE = 0.050325214862823486
 PIPE_WARMUP = 4            # frames left out of frames/s (bootstrap, warm-up)
 KERNEL_TOL = 1e-4
-# Phase 8's reference: the JAX package's EDSPipeline on the CPU over the same
+# Phase 9's reference: the JAX package's EDSPipeline on the CPU over the same
 # 32 frames with 65,536-event packets (bench.py's bench_e2e operating
 # point): bootstrap at frame 1, 30 packets fed and 30 usable solves, 19
 # event keyframes, 11 keyframes, 9 BA runs, 4 marginalizations, no reset.
@@ -82,6 +100,20 @@ EVENT_CAP = 65536
 JAX_CPU_EDS = {"ate": 0.050906877964735031, "event_ate": 0.045590642839670181,
                "event_solves": 30, "event_kfs": 19, "keyframes": 11,
                "ba_runs": 9, "marginalized": 4, "resets": 0}
+# Phase 8's reference: the JAX package's runner on the CPU over the dataset
+# its own write_dataset writes for the same sequence, with the same radtan
+# calib.yaml and config (native ring, reader and scheduler), as
+# `tools/runner_reference.py --package jax` prints it: 32 frames, 31
+# packets, 30 usable solves (lines of poses.txt), 10 keyframes, 3
+# marginalizations, no reset, at this ATE and RPE.
+JAX_CPU_RUNNER = {"ate": 0.03956463187932968, "rpe_trans": 0.017112864181399345,
+                  "rpe_rot_rad": 0.1058921068906784, "frames": 32,
+                  "packets": 31, "poses_lines": 30, "keyframes": 10,
+                  "marginalizations": 3, "resets": 0}
+RUNNER_MIN_SOLVES = 24
+RADTAN_ZERO_CALIB = ("cam0:\n  intrinsics: [400.0, 400.0, 319.5, 239.5]\n"
+                     "  resolution: [640, 480]\n  distortion_model: radtan\n"
+                     "  distortion_coeffs: [0, 0, 0, 0]\n")
 RASTER_TOL = 1e-5          # max |d| <= RASTER_TOL * max(1, max|ref|)
 POSE_TOL = 1e-6            # the two event-cell runs, per usable packet
 # the card's peaks for the bounds: NVIDIA's H100 SXM data sheet (dense,
@@ -167,12 +199,16 @@ def phase_device():
 
 
 def build_kernels():
-    """Both kernel libraries, one nvcc each, started together."""
+    """Both kernel libraries, one nvcc each, and the host runtime, started
+    together. Returns the kernels' build records and whether the host
+    runtime built."""
+    from slam_eds_tpu_torch.io import event_buffer as eb
     from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
     from slam_eds_tpu_torch.ops.kernels import rasterize as rz
-    with ThreadPoolExecutor(2) as ex:
+    with ThreadPoolExecutor(3) as ex:
         jobs = {"pattern_sample": ex.submit(ps.load),
-                "rasterize": ex.submit(rz.load)}
+                "rasterize": ex.submit(rz.load),
+                "host": ex.submit(eb.available)}
         return {name: job.result() for name, job in jobs.items()}
 
 
@@ -181,6 +217,13 @@ def phase_build(label, built):
              if "registers" in l or "spill" in l]
     phase(label, library=built.path.name,
           seconds=round(built.build_seconds, 3), ptxas=ptxas)
+
+
+def phase_build_host(ok):
+    from slam_eds_tpu_torch.io import event_buffer as eb
+    err = (eb.build_error() or "").strip().splitlines()
+    phase("build-host", host_runtime="native" if ok else "python",
+          build_error_last_line=err[-1] if err else None)
 
 
 def bound(nbytes, ops):
@@ -532,7 +575,7 @@ def phase_pipeline(dev):
 
 
 def eds_inputs(dev):
-    """Phase 8's camera, sequence, frames and packets: bench.py's bench_e2e
+    """Phase 9's camera, sequence, frames and packets: bench.py's bench_e2e
     operating point (640x480, seed 7, motion_scale 0.22, micro_steps 2,
     65,536-event packets)."""
     from slam_eds_tpu_torch.io.dataset import SyntheticSequence
@@ -786,6 +829,136 @@ def phase_eds(dev, label="eds"):
         "u" if u else "x" for u in usable), "counts": counts, "poses": poses}
 
 
+class _Timed:
+    """Wraps methods of classes with a host timer (with a device sync
+    before the clock stops, so device work is charged to the call that
+    issued it) for one run; ``restore()`` puts the originals back."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.seconds = {}
+        self.calls = {}
+        self.objects = {}
+        self._saved = []
+
+    def wrap(self, cls, name, label):
+        orig = getattr(cls, name)
+        self._saved.append((cls, name, orig))
+        self.seconds[label] = []
+        timed = self
+
+        def wrapper(obj, *args, **kwargs):
+            timed.objects[label] = obj
+            t0 = time.perf_counter()
+            out = orig(obj, *args, **kwargs)
+            torch.cuda.synchronize(timed.dev)
+            timed.seconds[label].append(time.perf_counter() - t0)
+            timed.calls.setdefault(label, []).append(out)
+            return out
+        setattr(cls, name, wrapper)
+
+    def restore(self):
+        for cls, name, orig in reversed(self._saved):
+            setattr(cls, name, orig)
+
+
+def phase_runner(dev):
+    """The on-disk runner on phase 9's sequence; returns its launches."""
+    import os
+    import tempfile
+    from slam_eds_tpu_torch.io import event_buffer as eb
+    from slam_eds_tpu_torch.io import frame_loader as fl
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.models.pipeline import EDSPipeline
+    from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
+    from slam_eds_tpu_torch.ops.kernels.rasterize import rasterize_bilinear
+    from slam_eds_tpu_torch.runner import run_sequence
+    from slam_eds_tpu_torch.utils.cameras import Pinhole
+
+    native = eb.available()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as tmp:
+        d = os.path.join(tmp, "seq")
+        t0 = time.perf_counter()
+        seq = SyntheticSequence(Pinhole(400.0, 400.0, 319.5, 239.5, 640, 480),
+                                num_frames=PIPE_FRAMES,
+                                events_per_packet=EVENT_CAP, motion_scale=0.22,
+                                micro_steps=2, seed=7, device=dev)
+        seq.write_dataset(d)
+        write_s = time.perf_counter() - t0
+        with open(os.path.join(d, "calib.yaml"), "w") as f:
+            f.write(RADTAN_ZERO_CALIB)
+        out_dir = os.path.join(tmp, "out")
+        cfg = eds_config()
+        cfg = dataclasses.replace(cfg, recorder=dataclasses.replace(
+            cfg.recorder, enabled=True, output_folder=out_dir))
+        timed = _Timed(dev)
+        timed.wrap(EDSPipeline, "process_frame", "frame")
+        timed.wrap(EDSPipeline, "process_events", "packet")
+        timed.wrap(fl.FrameLoader, "next", "decode_wait")
+        timed.wrap(fl.SequenceScheduler, "next", "event_io")
+        torch.cuda.synchronize()
+        pattern_sample.launches = 0
+        rasterize_bilinear.launches = 0
+        try:
+            res = run_sequence(d, cfg, verbose=False, device=dev)
+        finally:
+            timed.restore()
+        launches = {"pattern_sample": pattern_sample.launches,
+                    "rasterize_bilinear": rasterize_bilinear.launches}
+        with open(os.path.join(out_dir, "poses.txt")) as f:
+            poses_lines = len(f.read().strip().splitlines())
+    pipe = timed.objects["packet"]
+    c = pipe.telemetry.counters
+    usable = sum(T is not None for T in timed.calls["packet"])
+    sec = {k: float(sum(v)) for k, v in timed.seconds.items()}
+    wall = res["wall_s"]
+    io_s = sec.get("decode_wait", 0.0) + sec.get("event_io", 0.0)
+    ate_bound = max(0.05, 1.5 * JAX_CPU_RUNNER["ate"])
+    info = dict(
+        host_runtime="native" if native else "python",
+        frames=res["frames"], packets=res["packets"],
+        usable_solves=usable, poses_lines=poses_lines,
+        resets=res["resets"], marginalizations=res["marginalizations"],
+        keyframes=res["keyframes"], kernel_launches=launches,
+        ate=res.get("ate_rmse"), ate_bound=ate_bound,
+        rpe_trans=res.get("rpe_trans"), rpe_rot_rad=res.get("rpe_rot_rad"),
+        jax_cpu=JAX_CPU_RUNNER, write_dataset_s=write_s, wall_s=wall,
+        frames_per_s=res["frames_per_s"],
+        frame_ms_median=1e3 * float(np.median(timed.seconds["frame"])),
+        packet_ms_median=1e3 * float(np.median(timed.seconds["packet"])),
+        frame_s=sec["frame"], packet_s=sec["packet"],
+        decode_wait_s=sec.get("decode_wait", 0.0),
+        event_io_s=sec.get("event_io", 0.0),
+        decode_and_event_io_share=io_s / wall,
+        other_host_s=wall - sec["frame"] - sec["packet"] - io_s,
+        scalar_host_reads_per_packet=c["event_scalar_host_reads"]
+        / max(c["event_packets"], 1))
+    if not native:
+        info["host_build_error"] = (eb.build_error() or "").strip(
+            ).splitlines()[-1:]
+    phase("runner", **info)
+    if res["frames"] != PIPE_FRAMES or res["packets"] != \
+            JAX_CPU_RUNNER["packets"]:
+        fail(f"the runner read {res['frames']} frames and fed "
+             f"{res['packets']} packets")
+    if res["resets"] != 0 or res["marginalizations"] < 1:
+        fail(f"the runner made {res['resets']} resets and "
+             f"{res['marginalizations']} marginalizations")
+    if not (res.get("ate_rmse") is not None and res["ate_rmse"] <= ate_bound):
+        fail(f"runner ATE {res.get('ate_rmse')} above the bound {ate_bound}")
+    if poses_lines != usable or usable < RUNNER_MIN_SOLVES:
+        fail(f"poses.txt has {poses_lines} lines for {usable} usable solves "
+             f"(at least {RUNNER_MIN_SOLVES} wanted)")
+    if min(launches.values()) <= 0:
+        fail(f"a kernel was not launched on the runner's path: {launches}")
+    if c["event_scalar_host_reads"] != c["event_packets"]:
+        fail(f"{c['event_scalar_host_reads']} scalar host reads for "
+             f"{c['event_packets']} packets")
+    if not np.isfinite(res["positions"]).all():
+        fail("the runner's trajectory is not finite")
+    return launches
+
+
 def phase_history(first, last):
     """The event cell run first in the process and again after every other
     phase: the same usable string and counts, and every usable packet's
@@ -812,11 +985,13 @@ def main():
     built = build_kernels()
     phase_build("build", built["pattern_sample"])
     phase_build("build-raster", built["rasterize"])
+    phase_build_host(built["host"])
     first = phase_eds(dev, label="eds-first")
     kern = phase_kernel(dev)
     phase_ba(dev)
     frame_launches = phase_pipeline(dev)
     raster = phase_kernel_raster(dev)
+    runner_launches = phase_runner(dev)
     last = phase_eds(dev)
     phase_history(first, last)
     event_launches = last["launches"]
@@ -826,13 +1001,15 @@ def main():
          "replaces": "slam_eds_tpu/ops/pallas/sample.py:84",
          "launches": frame_launches["pattern_sample"],
          "launches_frame_cell": frame_launches["pattern_sample"],
-         "launches_event_cell": event_launches["pattern_sample"], **kern},
+         "launches_event_cell": event_launches["pattern_sample"],
+         "launches_runner": runner_launches["pattern_sample"], **kern},
         {"name": "rasterize_bilinear", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/rasterize.cu",
          "replaces": "slam_eds_tpu/ops/pallas/raster.py:71",
          "launches": event_launches["rasterize_bilinear"],
          "launches_frame_cell": frame_launches["rasterize_bilinear"],
          "launches_event_cell": event_launches["rasterize_bilinear"],
+         "launches_runner": runner_launches["rasterize_bilinear"],
          **raster}]}))
     print(gpu_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ pixel near a threshold may give one event more or fewer.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -164,6 +165,59 @@ class SyntheticSequence:
             order = order[sel]
         return pack_events(xs_c[order], ys_c[order], ts_c[order],
                            ps_c[order], self.capacity)
+
+    def write_dataset(self, out_dir: str, events: bool = True,
+                      progress: bool = False) -> str:
+        """Write this sequence as an on-disk dataset in the layout
+        ``runner.run_sequence`` reads: images/*.png (8-bit gray), images.txt
+        ("t name"), events.txt ("t x y p"), calib.yaml (kalibr-style cam0
+        block) and groundtruth.txt (TUM "t x y z qx qy qz qw", camToWorld).
+        The layout and text formats of the JAX package's ``write_dataset``.
+        Returns out_dir."""
+        from .image_rw import write_png
+        from ..utils.lie import mat_to_quat
+        os.makedirs(os.path.join(out_dir, "images"), exist_ok=True)
+        lines = []
+        for k in range(self.num_frames):
+            t, img, _ = self.frame(k)
+            name = f"images/frame_{k:06d}.png"
+            u8 = np.clip(np.rint(img.cpu().numpy()), 0, 255).astype(np.uint8)
+            write_png(os.path.join(out_dir, name), u8)
+            lines.append(f"{t:.9f} {name}")
+            if progress and k % 20 == 0:
+                print(f"[write_dataset] frame {k}/{self.num_frames}",
+                      flush=True)
+        with open(os.path.join(out_dir, "images.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        if events:
+            with open(os.path.join(out_dir, "events.txt"), "w") as f:
+                f.write("# t x y p\n")
+                for k in range(self.num_frames - 1):
+                    pk = self.events_between(k, k + 1)
+                    n = int(pk.n_valid)
+                    rows = np.column_stack([
+                        np.asarray(pk.ts[:n], np.float64),
+                        np.asarray(pk.xs[:n], np.float64),
+                        np.asarray(pk.ys[:n], np.float64),
+                        (np.asarray(pk.polarity[:n]) > 0).astype(np.float64)])
+                    np.savetxt(f, rows, fmt="%.9f %.0f %.0f %.0f")
+        cam = self.cam
+        with open(os.path.join(out_dir, "calib.yaml"), "w") as f:
+            f.write("cam0:\n"
+                    f"  resolution: [{int(cam.width)}, {int(cam.height)}]\n"
+                    f"  intrinsics: [{float(cam.fx)}, {float(cam.fy)}, "
+                    f"{float(cam.cx)}, {float(cam.cy)}]\n"
+                    "  distortion_model: none\n")
+        T = SE3.exp(torch.as_tensor(self.taus)).inverse()     # camToWorld
+        q = mat_to_quat(T.R).numpy()                          # [w, x, y, z]
+        with open(os.path.join(out_dir, "groundtruth.txt"), "w") as f:
+            f.write("# t x y z qx qy qz qw\n")
+            for k in range(self.num_frames):
+                x, y, z = (float(v) for v in T.t[k])
+                qw, qx, qy, qz = (float(v) for v in q[k])
+                f.write(f"{self.times[k]:.9f} {x:.9f} {y:.9f} {z:.9f} "
+                        f"{qx:.9f} {qy:.9f} {qz:.9f} {qw:.9f}\n")
+        return out_dir
 
     def gt_positions(self):
         """[N, 3] ground-truth camera positions (camToWorld translations)."""

@@ -11,9 +11,8 @@
 
 Host Python owns sequencing, as in the JAX module; every numeric step runs
 in torch on the pipeline's device under ``torch.inference_mode``. Not
-ported yet: the ``dso`` and ``midas`` bootstraps, photometric calibration,
-event track refinement, undistortion maps for ``process_events`` and the
-recorder.
+ported yet: the ``dso`` and ``midas`` bootstraps and event track
+refinement.
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ import torch
 
 from ..config import EDSConfig
 from ..device import resolve_device, set_numerics
+from ..io.recorder import Recorder
 from ..utils.cameras import Pinhole
 from ..utils import lie
 from ..utils.lie import SE3
@@ -49,11 +49,11 @@ class FrameOnlyPipeline:
     cam: Pinhole
     cfg: EDSConfig = field(default_factory=EDSConfig)
     device: str = "cuda"
+    # optional PhotometricCalib: its response-derivative table weights the
+    # pixel selector's gradient maps
     photometric: object = None
 
     def __post_init__(self):
-        if self.photometric is not None:
-            raise NotImplementedError("later PR: photometric calibration")
         if self.cfg.tracker.bootstrap != "eight_points":
             raise NotImplementedError(
                 f"later PR: bootstrap={self.cfg.tracker.bootstrap!r}")
@@ -86,7 +86,10 @@ class FrameOnlyPipeline:
         return SE3.identity(device=self.device)
 
     def _new_window(self):
-        return WindowManager(self.cam, self.cfg, device=self.device)
+        bgrad = (None if self.photometric is None
+                 else self.photometric.b_grad_table())
+        return WindowManager(self.cam, self.cfg, device=self.device,
+                             photometric_bgrad=bgrad)
 
     # ------------------------------------------------------------------
     def _full_reset(self):
@@ -425,8 +428,6 @@ class EDSPipeline:
     photometric: object = None
 
     def __post_init__(self):
-        if self.cfg.recorder.enabled:
-            raise NotImplementedError("later PR: the recorder")
         if self.cfg.tracker.track_refinement != "none":
             raise NotImplementedError(
                 f"later PR: track_refinement="
@@ -448,6 +449,8 @@ class EDSPipeline:
         self._seen_resets = 0
         self._kf_n_initial = 0
         self.num_event_kfs = 0
+        self.recorder = (Recorder(self.cfg.recorder)
+                         if self.cfg.recorder.enabled else None)
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -601,13 +604,20 @@ class EDSPipeline:
         """Feed one EventPacket. Returns the worldToCam pose of the event
         frame, or None before initialization and for a rejected solve.
 
-        One host read of the 8-entry scalar vector per packet, besides the
+        fwd_maps: optional (fwd_x, fwd_y) [H, W] per-event undistortion
+        tables (``utils.cameras.forward_maps``); tensors already on the
+        pipeline's device are used as they are.
+
+        One host read per packet of the 8-entry scalar vector with the
+        event-frame pose and the velocity (for the recorder), besides the
         LM's and the retry ladder's reads inside the step (all counted in
         ``telemetry.counters``)."""
-        if fwd_maps is not None:
-            raise NotImplementedError("later PR: undistortion maps")
         if self.kf is None:
             return None
+        if fwd_maps is not None:
+            fwd_maps = tuple(torch.as_tensor(m, dtype=torch.float32,
+                                             device=self.device)
+                             for m in fwd_maps)
         kf = self.kf
         c = self.telemetry.counters
         lim, iters, statics = self._packet_step_args()
@@ -618,11 +628,11 @@ class EDSPipeline:
             self.tracker_state, self.pose_filter, self.depth, self.cam,
             kf.T_w_kf_R, kf.T_w_kf_t, pred.R, pred.t,
             kf.uv, kf.norm_coord, kf.grad, kf.idepth, kf.weight, kf.mask,
-            xs, ys, ts, ps, int(packet.n_valid), None, iters,
+            xs, ys, ts, ps, int(packet.n_valid), fwd_maps, iters,
             self.loss_scale, lim, counters=c, **statics)
-        # the packet's one host read: the scalars and the event-frame
-        # position in a single copy
-        host = torch.cat([scalars, t_wef]).cpu().numpy()
+        # the packet's one host read: the scalars, the event-frame pose and
+        # the velocity in a single copy
+        host = torch.cat([scalars, t_wef, R_wef.reshape(-1), vx]).cpu().numpy()
         sc = host[:8]
         c["event_packets"] += 1
         c["event_scalar_host_reads"] += 1
@@ -639,8 +649,13 @@ class EDSPipeline:
         self.telemetry.event_solve(n_iter=int(sc[3]), energy=float(sc[1]))
 
         T_w_ef = SE3(R_wef, t_wef)
-        self.event_poses.append(host[8:].copy())
+        self.event_poses.append(host[8:11].copy())
         self.event_pose_list.append(T_w_ef.inverse())
+        if self.recorder is not None:
+            ef_time = float(sc[6])
+            self.recorder.record_pose(
+                ef_time, SE3(host[11:20].reshape(3, 3), host[8:11]))
+            self.recorder.record_velocity(ef_time, host[20:])
         self.kf = kf._replace(mask=mask, track=tracks, residual=residuals,
                               idepth=depth.mu)
         # the event tracker seeds the frame front-end's next coarse track,

@@ -136,6 +136,10 @@ class WindowManager:
     next_id: int = 0
     coarse_templates: list = None
     newest_slot: int = -1
+    # [256] forward-response derivative table (PhotometricCalib.
+    # b_grad_table) or None: when set, the pixel selector's squared-gradient
+    # maps are weighted by bg(I)^2 per level (setting_gammaWeightsPixelSelect)
+    photometric_bgrad: object = None
     marg_count: int = 0
 
     def __post_init__(self):
@@ -223,6 +227,12 @@ class WindowManager:
         (makeNewTraces)."""
         pyr = self.pyramids[slot]
         abs_sq = [torch.sum(l[..., 1:3] ** 2, -1) for l in pyr[:3]]
+        if self.photometric_bgrad is not None:
+            bg = torch.as_tensor(self.photometric_bgrad, dtype=torch.float32,
+                                 device=self.device)
+            gw = [bg[torch.clamp((l[..., 0] + 0.5).long(), 0, 255)]
+                  for l in pyr[:3]]
+            abs_sq = [a * g * g for a, g in zip(abs_sq, gw)]
         status, _, _ = pixel_selector.make_maps(
             pyr[0], abs_sq, density=self.cfg.selector.desired_immature_density,
             pot_initial=self.cfg.selector.potential_initial,

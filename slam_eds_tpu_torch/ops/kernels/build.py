@@ -1,11 +1,17 @@
-"""Lazy nvcc build of the port's CUDA sources into ctypes libraries.
+"""Lazy builds of the port's native sources into ctypes libraries.
 
-Each library is compiled at first use from the sources under
-``slam_eds_tpu_torch/csrc`` with ``nvcc -gencode arch=compute_90a,code=sm_90a
--O3 -shared -Xcompiler -fPIC`` into ``slam_eds_tpu_torch/_build/`` (listed
-in ``.gitignore``), keyed by a hash of the sources and flags, and loaded
-with ``ctypes``. Nothing here runs at import time; a missing ``nvcc`` or a
-failed compile raises.
+* ``build_library``: a CUDA library from the sources under
+  ``slam_eds_tpu_torch/csrc`` with ``nvcc -gencode arch=compute_90a,
+  code=sm_90a -O3 -shared -Xcompiler -fPIC``.
+* ``build_host_library``: a host library (the event ring, the event-file
+  reader, the PNG decoder, the frame loader and the sequence scheduler under
+  ``csrc/host``) with the host C++ compiler, ``-O3 -std=c++17 -fPIC -shared
+  -lz -lpthread``.
+
+Each goes into ``slam_eds_tpu_torch/_build/`` (listed in ``.gitignore``),
+keyed by a hash of the sources and flags, and is loaded with ``ctypes``.
+Nothing here runs at import time; a missing compiler or a failed compile
+raises.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # operation as its plain torch version does (each torch op rounds alone)
 NVCC_FLAGS = ["-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler",
               "-fPIC", "-Xptxas", "-v"]
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+HOST_LIBS = ["-lz", "-lpthread"]
 
 
 def find_nvcc() -> str:
@@ -35,35 +43,55 @@ def find_nvcc() -> str:
                        "slam_eds_tpu_torch are built with nvcc at first use")
 
 
+def find_host_compiler() -> str:
+    for cand in ("g++", "c++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler (g++ or c++) found")
+
+
 class BuiltLibrary:
-    """A loaded kernel library with its build record."""
+    """A loaded library with its build record."""
 
     def __init__(self, lib, path: Path, seconds: float, log: str):
         self.lib = lib
         self.path = path
         self.build_seconds = seconds   # 0.0 when an existing build was loaded
-        self.log = log                 # nvcc/ptxas output (registers, spills)
+        self.log = log                 # compiler output (registers, spills)
 
 
-def build_library(name: str, sources) -> BuiltLibrary:
+def _build(name: str, sources, compiler: str, flags, libs) -> BuiltLibrary:
     srcs = [CSRC_DIR / s for s in sources]
     h = hashlib.sha256()
     for s in srcs:
         h.update(s.read_bytes())
-    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(" ".join(flags + libs).encode())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # a private name, then an atomic rename: a concurrent build of the
+        # same library never exposes a half-written file
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, srcs)]
+        cmd = [compiler, *flags, "-o", str(tmp), *map(str, srcs), *libs]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {name} "
+            raise RuntimeError(f"{Path(compiler).name} failed building {name} "
                                f"(rc={proc.returncode}):\n{log}")
         os.replace(tmp, out)
     return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
+
+
+def build_library(name: str, sources) -> BuiltLibrary:
+    """A CUDA library built with nvcc for ``sm_90a``."""
+    return _build(name, sources, find_nvcc(), ARCH_FLAGS + NVCC_FLAGS, [])
+
+
+def build_host_library(name: str, sources) -> BuiltLibrary:
+    """A host library built with the host C++ compiler, linked with zlib
+    and pthreads."""
+    return _build(name, sources, find_host_compiler(), HOST_FLAGS, HOST_LIBS)

@@ -1,8 +1,10 @@
-"""Trajectory alignment and ATE — port of ``umeyama`` and ``ate_rmse`` from
-``slam_eds_tpu.utils.alignment``."""
+"""Trajectory alignment and error metrics — port of
+``slam_eds_tpu.utils.alignment`` (Umeyama, ATE, RPE)."""
 from __future__ import annotations
 
 import torch
+
+from .lie import SE3
 
 
 def umeyama(src, dst, with_scale: bool = True):
@@ -33,3 +35,19 @@ def ate_rmse(est_xyz, gt_xyz, align: bool = True, with_scale: bool = True):
         s, R, t = umeyama(est, gt, with_scale)
         est = s * est @ R.T + t
     return torch.sqrt(torch.mean(torch.sum((est - gt) ** 2, 1)))
+
+
+def rpe(est_poses, gt_poses, delta: int = 1):
+    """Relative pose error over a frame gap ``delta``. est_poses / gt_poses:
+    SE3 with a leading axis N (world_T_cam). Returns (trans_rmse,
+    rot_rmse_rad)."""
+    def rel(poses):
+        a = SE3(poses.R[:-delta], poses.t[:-delta])
+        b = SE3(poses.R[delta:], poses.t[delta:])
+        return a.inverse().compose(b)
+
+    err = rel(gt_poses).inverse().compose(rel(est_poses))
+    t_err = torch.sqrt(torch.mean(torch.sum(err.t ** 2, -1)))
+    trace = torch.diagonal(err.R, dim1=-2, dim2=-1).sum(-1)
+    cos_r = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
+    return t_err, torch.sqrt(torch.mean(torch.acos(cos_r) ** 2))

@@ -2,8 +2,9 @@
 the order-free scatter-sums, on the CPU.
 
 * Every public entry point of the port defaults to ``"cuda"``: without a
-  card, building one with no device raises (``resolve_device``); a caller
-  asks for the CPU by name.
+  card, building one (or running ``run_sequence``, before it reads a
+  file) with no device raises (``resolve_device``); a caller asks for the
+  CPU by name.
 * ``launch_geometry``: every pixel of the frame is owned by exactly one
   block of one band, and a block's int64 slice fits the card's 232,448 B of
   shared memory, with clusters of 16 and of the portable 8, one cluster or
@@ -33,6 +34,7 @@ from slam_eds_tpu_torch.ops import depth_filter as tdf
 from slam_eds_tpu_torch.ops import event_tracker as tet
 from slam_eds_tpu_torch.ops import immature as tim
 from slam_eds_tpu_torch.ops.kernels import rasterize as rz
+from slam_eds_tpu_torch.runner import run_sequence
 from slam_eds_tpu_torch.utils.cameras import Pinhole
 from slam_eds_tpu_torch.utils.scatter import order_free_index_add
 
@@ -52,6 +54,7 @@ ENTRY_POINTS = {
     "pose_filter_from_numpy": lambda: tet.pose_filter_from_numpy({}),
     "depth_filter.from_numpy": lambda: tdf.from_numpy({}),
     "template_from_numpy": lambda: tct.template_from_numpy({}),
+    "run_sequence": lambda: run_sequence("no-such-dataset"),
 }
 
 

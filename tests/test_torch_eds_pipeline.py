@@ -241,7 +241,7 @@ def test_event_state_is_finite_and_on_the_pipeline_device(port_loop):
 @pytest.mark.parametrize("change", [
     {"tracker": {"track_refinement": "klt"}},
     {"tracker": {"track_refinement": "epiline"}},
-    {"recorder": {"enabled": True}},
+    {"tracker": {"track_refinement": "model_klt"}},
 ])
 def test_unported_event_options_raise(change):
     with pytest.raises(NotImplementedError):
@@ -249,16 +249,37 @@ def test_unported_event_options_raise(change):
 
 
 def test_undistortion_maps_raise(sequence):
-    pipe = tpl.EDSPipeline(TCAM, load_config(CFG), device="cpu")
-    maps = (np.zeros((H, W), np.float32),) * 2
-    with pytest.raises(NotImplementedError):
-        pipe.process_events(sequence[1][0], fwd_maps=maps)
+    """Undistortion maps no longer raise: ``process_events(fwd_maps=...)``
+    undistorts each event through the maps. Identity forward maps (every
+    pixel to itself, given as numpy arrays) leave the synthetic packets'
+    integer coordinates as they are, so two pipelines fed the same frames
+    give bitwise the same event pose with and without them."""
+    frames, packets = sequence[0], sequence[1]
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    pipes = [tpl.EDSPipeline(TCAM, load_config(CFG), device="cpu")
+             for _ in range(2)]
+    for k, (t, img) in enumerate(frames):
+        for pipe in pipes:
+            pipe.process_frame(img, t)
+        if pipes[0].kf is not None:
+            break
+    T0 = pipes[0].process_events(packets[k])
+    T1 = pipes[1].process_events(packets[k], fwd_maps=(xs, ys))
+    assert T0 is not None and T1 is not None
+    assert torch.equal(T0.R, T1.R) and torch.equal(T0.t, T1.t)
+
+
+PORT_MODULES = (
+    "slam_eds_tpu_torch.models.pipeline", "slam_eds_tpu_torch.runner",
+    "slam_eds_tpu_torch.ops.kernels.rasterize",
+    "slam_eds_tpu_torch.io.dataset", "slam_eds_tpu_torch.io.event_buffer",
+    "slam_eds_tpu_torch.io.frame_loader", "slam_eds_tpu_torch.io.image_rw",
+    "slam_eds_tpu_torch.io.recorder", "slam_eds_tpu_torch.utils.calib")
 
 
 def test_event_path_imports_no_jax_and_no_yaml():
-    code = ("import sys; from slam_eds_tpu_torch.models.pipeline import "
-            "EDSPipeline; import slam_eds_tpu_torch.ops.kernels.rasterize, "
-            "slam_eds_tpu_torch.io.dataset; "
+    code = ("import importlib, sys; "
+            f"[importlib.import_module(m) for m in {PORT_MODULES!r}]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'slam_eds_tpu', 'yaml')); print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -265,9 +265,15 @@ def test_unported_bootstraps_raise(change):
 
 
 def test_photometric_and_depth_map_raise():
-    with pytest.raises(NotImplementedError):
-        TPipe(TCAM, photometric=object(), device="cpu")
-    pipe = TPipe(TCAM, load_config(CFG), device="cpu")
+    """A photometric calib no longer raises (the window weights its pixel
+    selection by the calib's response-derivative table; see
+    ``test_torch_calib.py``); an external depth map (the ``midas``
+    bootstrap's input) still does."""
+    from slam_eds_tpu_torch.utils.calib import PhotometricCalib
+    calib = PhotometricCalib.from_files(np.arange(256, dtype=np.float64))
+    pipe = TPipe(TCAM, load_config(CFG), device="cpu", photometric=calib)
+    np.testing.assert_array_equal(pipe.window.photometric_bgrad,
+                                  calib.b_grad_table())
     with pytest.raises(NotImplementedError):
         pipe.process_frame(np.zeros((H, W), np.float32), 0.0,
                            depth_map=np.ones((H, W), np.float32))
@@ -280,15 +286,46 @@ def test_cuda_request_without_cuda_raises():
         TPipe(TCAM, load_config(CFG), device="cuda")
 
 
+AUDIT = """
+import importlib, os, sys, tempfile
+import numpy as np
+native = os.path.join(os.getcwd(), "native") + os.sep
+seen = []
+
+def hook(event, args):
+    if event in ("open", "ctypes.dlopen", "os.listdir", "os.scandir",
+                 "subprocess.Popen") and args and isinstance(
+                     args[0], (str, bytes, os.PathLike)):
+        seen.append(os.path.abspath(os.fsdecode(args[0])))
+
+sys.addaudithook(hook)
+for m in ("slam_eds_tpu_torch.models.pipeline", "slam_eds_tpu_torch.runner",
+          "slam_eds_tpu_torch.io.dataset", "slam_eds_tpu_torch.utils.alignment",
+          "slam_eds_tpu_torch.utils.calib", "slam_eds_tpu_torch.io.recorder"):
+    importlib.import_module(m)
+from slam_eds_tpu_torch.io import event_buffer as eb, frame_loader as fl
+from slam_eds_tpu_torch.io import image_rw
+eb.available() and fl.available()
+with tempfile.TemporaryDirectory() as d:
+    image_rw.write_png(os.path.join(d, "a.png"), np.zeros((4, 5), np.uint8))
+    image_rw.read_png(os.path.join(d, "a.png"))
+    eb.make_ring(16).push([1.0], [2.0], [0.5], [1.0])
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "jaxlib", "slam_eds_tpu", "yaml"))
+bad += [p for p in seen if p.startswith(native)]
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
 def test_port_imports_no_jax_and_no_yaml():
-    code = ("import sys; import slam_eds_tpu_torch.models.pipeline, "
-            "slam_eds_tpu_torch.io.dataset, slam_eds_tpu_torch.utils.alignment;"
-            " bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'slam_eds_tpu', 'yaml')); print(bad); "
-            "sys.exit(1 if bad else 0)")
+    """The port's modules, the runner and its I/O included, import no JAX,
+    nothing of the JAX package and no PyYAML; and building and using the
+    host runtime, a ring and a PNG opens, lists, runs or loads nothing
+    under ``native/`` (the port builds its own copy into ``_build``)."""
     root = Path(__file__).resolve().parents[1]
-    out = subprocess.run([sys.executable, "-c", code], cwd=root,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", AUDIT], cwd=root,
+                         capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
 
 
