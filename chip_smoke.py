@@ -5,9 +5,10 @@ Builds the hand-written ``sm_90a`` kernels (the pattern sampler and the
 event raster) from ``slam_eds_tpu_torch/csrc``, one ``nvcc`` each, started
 together; holds each against its plain PyTorch version; runs the keyframe BA
 at the reference operating point, the frame-only path
-(``FrameOnlyPipeline``), the event path (``EDSPipeline``) and the on-disk
-runner (``runner.run_sequence``), all at 640x480 with the default
-``EDSConfig``. The event cell runs first and again last, and the two runs
+(``FrameOnlyPipeline``), the event path (``EDSPipeline``), the on-disk
+runner (``runner.run_sequence``), the track-refinement modes, the ``dso``
+and ``midas`` bootstraps, checkpoint/resume and the evaluator with the map
+export, all at 640x480 with the default ``EDSConfig``. The event cell runs first and again last, and the two runs
 must agree packet for packet. Phases, one output line each:
 
 1. device   -- card name and power limit, torch/CUDA versions, f32 numerics
@@ -58,6 +59,42 @@ must agree packet for packet. Phases, one output line each:
                the whole wall time, median frame and packet times, the
                seconds spent waiting on frame decode and on event I/O, the
                seconds to write the dataset, ATE and RPE
+8a. kernel-splat -- the raster kernel at the track refinement's shape:
+               E = 2,048 float-valued points at 640x480, the coordinates,
+               mask and ``kf_grad`` columns recorded from one usable packet
+               of the event cell in ``klt`` mode, plus the normalized model
+               values: each within 1e-5 max(1, max|ref|) of
+               ``rasterize_bilinear_reference``, bitwise the fixed-point sum,
+               two launches bitwise equal, values inside the kernel's exact
+               range (E max|v| < 2^30); device time, bound and share
+8b. eds-refine -- the event cell with ``track_refinement="model_klt"`` at
+               full width and depth: bootstrapped, no reset, usable solves
+               >= 0.8 x the JAX CPU run's, frame and event ATE bounds,
+               exactly 2 raster launches per packet, host reads per packet no
+               higher than the cell without refinement (within one), ms per
+               packet beside that cell's; then ``klt_pyr`` and ``epiline``
+               over the first 12 frames: finite, no reset, exactly 3 and 2
+               raster launches per packet, the points left alive
+8c. boot-dso, boot-midas -- ``FrameOnlyPipeline`` on the frame cell's
+               sequence with ``bootstrap="dso"`` over 24 frames (snap and
+               initialization frames within one of the JAX CPU run's, a BA
+               run, no reset, keyframes within one, ATE bound; seconds in
+               ``set_first`` and per ``track_frame``, host reads) and with
+               ``bootstrap="midas"`` over 16 frames, fed frame 0's true
+               depth as a dense map (initialized on frame 0, >= 16 seeded
+               points, a BA run, no reset, ATE bound)
+8d. resume  -- the event cell stopped after frame 16 and its packet,
+               ``checkpoint.save_pipeline``, ``restore_pipeline(...,
+               device="cuda")`` into a new pipeline, continued to frame 31:
+               the usable string, counts and per-packet poses of phase 3
+               within 1e-6 (and whether bitwise); file size, save and
+               restore seconds; both kernels launched after the restore
+8e. eval-maps -- ``eval.evaluate_sequences`` on phase 8's dataset (12
+               frames; finite ATE, frames/s, both kernels launched), then
+               ``output_maps.get_map`` of the resumed pipeline's window with
+               and without the radius outlier removal, ``write_ply``,
+               ``write_trajectory_tum`` and one ``viz`` image through the
+               recorder: counts, every exported coordinate finite
 9. eds      -- ``EDSPipeline`` over 32 frames of the bench_e2e sequence
                (65,536-event packets): bootstrap, BA run, no reset, event
                keyframes, usable solves, both kernels launched, every event
@@ -77,6 +114,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -111,6 +149,27 @@ JAX_CPU_RUNNER = {"ate": 0.03956463187932968, "rpe_trans": 0.017112864181399345,
                   "packets": 31, "poses_lines": 30, "keyframes": 10,
                   "marginalizations": 3, "resets": 0}
 RUNNER_MIN_SOLVES = 24
+# The references of the cells below: the JAX package on the CPU on the same
+# 640x480 sequence with the default config, as
+# `tools/runner_reference.py --package jax --cell refine|dso|midas` prints
+# them. refine: the event cell with track_refinement="model_klt". dso:
+# FrameOnlyPipeline with bootstrap="dso" over 24 frames (the frames at which
+# the initializer snaps and the pipeline initializes). midas: bootstrap=
+# "midas" over 16 frames, fed frame 0's true depth as a dense map.
+JAX_CPU_REFINE = {"ate": 0.05097723752260208,
+                  "event_ate": 0.04307886213064194, "packets_fed": 30,
+                  "event_solves": 30, "event_kfs": 19, "keyframes": 11,
+                  "ba_runs": 9, "marginalized": 4, "resets": 0}
+JAX_CPU_DSO = {"ate": 0.031713008880615234, "frames": 24, "trajectory": 17,
+               "snap_frame": 3, "init_frame": 8, "keyframes": 5, "ba_runs": 3,
+               "marginalized": 0, "resets": 0, "active_points": 2048}
+JAX_CPU_MIDAS = {"ate": 0.00010620228567859158, "frames": 16,
+                 "trajectory": 16, "init_frame": 0, "keyframes": 5,
+                 "ba_runs": 4, "marginalized": 0, "resets": 0,
+                 "active_points": 2048}
+REFINE_SHORT_FRAMES = 12   # klt_pyr and epiline: smaller depth, same width
+RESUME_AT = 16             # the resume cell stops after this frame
+EVAL_FRAMES = 12
 RADTAN_ZERO_CALIB = ("cam0:\n  intrinsics: [400.0, 400.0, 319.5, 239.5]\n"
                      "  resolution: [640, 480]\n  distortion_model: radtan\n"
                      "  distortion_coeffs: [0, 0, 0, 0]\n")
@@ -125,6 +184,12 @@ F32_OPS_PER_S = 67e12
 # fractions, weights and four quantizations (22)
 SAMPLER_OPS_PER_TAP = 39
 RASTER_OPS_PER_EVENT = 22
+
+
+def smoke_camera():
+    """The 640x480 pinhole of every cell."""
+    from slam_eds_tpu_torch.utils.cameras import Pinhole
+    return Pinhole(400.0, 400.0, 319.5, 239.5, 640, 480)
 
 
 def fail(msg):
@@ -521,9 +586,8 @@ def phase_pipeline(dev):
     from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
     from slam_eds_tpu_torch.ops.kernels.rasterize import rasterize_bilinear
     from slam_eds_tpu_torch.utils.alignment import ate_rmse
-    from slam_eds_tpu_torch.utils.cameras import Pinhole
 
-    cam = Pinhole(400.0, 400.0, 319.5, 239.5, 640, 480)
+    cam = smoke_camera()
     seq = SyntheticSequence(cam, num_frames=PIPE_FRAMES, motion_scale=0.22,
                             micro_steps=2, device=dev)
     frames = [seq.frame(k)[:2] for k in range(PIPE_FRAMES)]
@@ -579,8 +643,7 @@ def eds_inputs(dev):
     operating point (640x480, seed 7, motion_scale 0.22, micro_steps 2,
     65,536-event packets)."""
     from slam_eds_tpu_torch.io.dataset import SyntheticSequence
-    from slam_eds_tpu_torch.utils.cameras import Pinhole
-    cam = Pinhole(400.0, 400.0, 319.5, 239.5, 640, 480)
+    cam = smoke_camera()
     seq = SyntheticSequence(cam, num_frames=PIPE_FRAMES, motion_scale=0.22,
                             micro_steps=2, events_per_packet=EVENT_CAP,
                             device=dev)
@@ -734,23 +797,31 @@ def eds_config():
                                         events_per_frame=EVENT_CAP))
 
 
-def phase_eds(dev, label="eds"):
-    """The event cell on inputs made for this run; returns its launches,
-    its counts and every packet's pose (None where rejected)."""
+def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
+                   after_packet=None):
+    """Frames [start, stop) of the event cell's sequence (to its end when
+    ``stop`` is None), each followed by
+    its packet, through ``pipe`` (a new ``EDSPipeline(cfg)`` when None), with
+    both kernels' launch counts set to 0 just before and read just after.
+    ``after_packet(pipe, T)`` is called after every packet. Returns the
+    pipe, the launches, the per-frame and per-packet seconds, the usable
+    flags, every packet's pose (None where rejected) and the event
+    positions with their ground truth."""
     from slam_eds_tpu_torch.models.pipeline import EDSPipeline
     from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
     from slam_eds_tpu_torch.ops.kernels.rasterize import rasterize_bilinear
-    from slam_eds_tpu_torch.utils.alignment import ate_rmse
 
     cam, seq, frames, packets = eds_inputs(dev)
-    pipe = EDSPipeline(cam, eds_config(), device=dev)
+    if pipe is None:
+        pipe = EDSPipeline(cam, cfg, device=dev)
     torch.cuda.synchronize()
 
     pattern_sample.launches = 0
     rasterize_bilinear.launches = 0
     frame_s, packet_s = [], []
     ev_pos, ev_gt, usable, poses = [], [], [], []
-    for k, (t, img) in enumerate(frames):
+    for k in range(start, len(frames) if stop is None else stop):
+        t, img = frames[k]
         t0 = time.perf_counter()
         pipe.process_frame(img, t)
         torch.cuda.synchronize()
@@ -766,23 +837,49 @@ def phase_eds(dev, label="eds"):
             if T is not None:
                 ev_pos.append(T.inverse().t.cpu().numpy())
                 ev_gt.append(seq.pose_at(k + 0.5).inverse().t.cpu().numpy())
+            if after_packet is not None:
+                after_packet(pipe, T)
     launches = {"pattern_sample": pattern_sample.launches,
                 "rasterize_bilinear": rasterize_bilinear.launches}
+    return dict(pipe=pipe, seq=seq, frames=frames, packets=packets,
+                launches=launches, frame_s=frame_s, packet_s=packet_s,
+                usable=usable, poses=poses, ev_pos=ev_pos, ev_gt=ev_gt)
+
+
+def event_cell_ates(run):
+    """(frame ATE, event ATE) of a ``run_event_cell`` result."""
+    from slam_eds_tpu_torch.utils.alignment import ate_rmse
+    est = run["pipe"].frame_pipe.positions()
+    ate = float(ate_rmse(est, run["seq"].gt_positions()[:len(est)]))
+    ev_ate = (float(ate_rmse(np.stack(run["ev_pos"]), np.stack(run["ev_gt"])))
+              if len(run["ev_pos"]) >= 3 else float("inf"))
+    return ate, ev_ate
+
+
+def host_reads_per_packet(counters):
+    n_pk = max(counters["event_packets"], 1)
+    return {name: counters[f"event_{name}_host_reads"] / n_pk
+            for name in ("lm", "gate", "scalar")}
+
+
+def phase_eds(dev, label="eds"):
+    """The event cell on inputs made for this run; returns its launches,
+    its counts and every packet's pose (None where rejected)."""
+    run = run_event_cell(dev, eds_config())
+    pipe, frames, packets = run["pipe"], run["frames"], run["packets"]
+    launches, usable, poses = run["launches"], run["usable"], run["poses"]
+    frame_s, packet_s = run["frame_s"], run["packet_s"]
 
     fp = pipe.frame_pipe
     est = fp.positions()
-    ate = float(ate_rmse(est, seq.gt_positions()[:len(est)]))
-    ev_ate = (float(ate_rmse(np.stack(ev_pos), np.stack(ev_gt)))
-              if len(ev_pos) >= 3 else float("inf"))
+    ate, ev_ate = event_cell_ates(run)
     c, fc = pipe.telemetry.counters, fp.telemetry.counters
     ate_bound = max(0.05, 1.5 * JAX_CPU_EDS["ate"])
     ev_bound = max(0.12, 1.5 * JAX_CPU_EDS["event_ate"])
     min_solves = 0.8 * JAX_CPU_EDS["event_solves"]
     steady_pk = [s for k, s in packet_s if k >= PIPE_WARMUP]
     steady_s = sum(frame_s[PIPE_WARMUP:]) + sum(steady_pk)
-    n_pk = max(c["event_packets"], 1)
-    reads = {name: c[f"event_{name}_host_reads"] / n_pk
-             for name in ("lm", "gate", "scalar")}
+    reads = host_reads_per_packet(c)
     phase(label, frames=len(frames), packets_fed=len(usable),
           usable_solves=int(sum(usable)),
           usable_fraction=sum(usable) / max(len(usable), 1),
@@ -826,7 +923,9 @@ def phase_eds(dev, label="eds"):
               "marginalized": fp.window.marg_count,
               "event_counters": dict(c), "frame_counters": dict(fc)}
     return {"launches": launches, "usable": "".join(
-        "u" if u else "x" for u in usable), "counts": counts, "poses": poses}
+        "u" if u else "x" for u in usable), "counts": counts, "poses": poses,
+        "reads_per_packet": sum(reads.values()),
+        "packet_ms_median": 1e3 * float(np.median(steady_pk))}
 
 
 class _Timed:
@@ -862,10 +961,10 @@ class _Timed:
             setattr(cls, name, orig)
 
 
-def phase_runner(dev):
-    """The on-disk runner on phase 9's sequence; returns its launches."""
+def phase_runner(dev, tmp):
+    """The on-disk runner on phase 9's sequence, written under ``tmp``;
+    returns its launches and the dataset's directory."""
     import os
-    import tempfile
     from slam_eds_tpu_torch.io import event_buffer as eb
     from slam_eds_tpu_torch.io import frame_loader as fl
     from slam_eds_tpu_torch.io.dataset import SyntheticSequence
@@ -873,40 +972,37 @@ def phase_runner(dev):
     from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
     from slam_eds_tpu_torch.ops.kernels.rasterize import rasterize_bilinear
     from slam_eds_tpu_torch.runner import run_sequence
-    from slam_eds_tpu_torch.utils.cameras import Pinhole
 
     native = eb.available()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_runner_") as tmp:
-        d = os.path.join(tmp, "seq")
-        t0 = time.perf_counter()
-        seq = SyntheticSequence(Pinhole(400.0, 400.0, 319.5, 239.5, 640, 480),
-                                num_frames=PIPE_FRAMES,
-                                events_per_packet=EVENT_CAP, motion_scale=0.22,
-                                micro_steps=2, seed=7, device=dev)
-        seq.write_dataset(d)
-        write_s = time.perf_counter() - t0
-        with open(os.path.join(d, "calib.yaml"), "w") as f:
-            f.write(RADTAN_ZERO_CALIB)
-        out_dir = os.path.join(tmp, "out")
-        cfg = eds_config()
-        cfg = dataclasses.replace(cfg, recorder=dataclasses.replace(
-            cfg.recorder, enabled=True, output_folder=out_dir))
-        timed = _Timed(dev)
-        timed.wrap(EDSPipeline, "process_frame", "frame")
-        timed.wrap(EDSPipeline, "process_events", "packet")
-        timed.wrap(fl.FrameLoader, "next", "decode_wait")
-        timed.wrap(fl.SequenceScheduler, "next", "event_io")
-        torch.cuda.synchronize()
-        pattern_sample.launches = 0
-        rasterize_bilinear.launches = 0
-        try:
-            res = run_sequence(d, cfg, verbose=False, device=dev)
-        finally:
-            timed.restore()
-        launches = {"pattern_sample": pattern_sample.launches,
-                    "rasterize_bilinear": rasterize_bilinear.launches}
-        with open(os.path.join(out_dir, "poses.txt")) as f:
-            poses_lines = len(f.read().strip().splitlines())
+    d = os.path.join(tmp, "seq")
+    t0 = time.perf_counter()
+    seq = SyntheticSequence(smoke_camera(), num_frames=PIPE_FRAMES,
+                            events_per_packet=EVENT_CAP, motion_scale=0.22,
+                            micro_steps=2, seed=7, device=dev)
+    seq.write_dataset(d)
+    write_s = time.perf_counter() - t0
+    with open(os.path.join(d, "calib.yaml"), "w") as f:
+        f.write(RADTAN_ZERO_CALIB)
+    out_dir = os.path.join(tmp, "out")
+    cfg = eds_config()
+    cfg = dataclasses.replace(cfg, recorder=dataclasses.replace(
+        cfg.recorder, enabled=True, output_folder=out_dir))
+    timed = _Timed(dev)
+    timed.wrap(EDSPipeline, "process_frame", "frame")
+    timed.wrap(EDSPipeline, "process_events", "packet")
+    timed.wrap(fl.FrameLoader, "next", "decode_wait")
+    timed.wrap(fl.SequenceScheduler, "next", "event_io")
+    torch.cuda.synchronize()
+    pattern_sample.launches = 0
+    rasterize_bilinear.launches = 0
+    try:
+        res = run_sequence(d, cfg, verbose=False, device=dev)
+    finally:
+        timed.restore()
+    launches = {"pattern_sample": pattern_sample.launches,
+                "rasterize_bilinear": rasterize_bilinear.launches}
+    with open(os.path.join(out_dir, "poses.txt")) as f:
+        poses_lines = len(f.read().strip().splitlines())
     pipe = timed.objects["packet"]
     c = pipe.telemetry.counters
     usable = sum(T is not None for T in timed.calls["packet"])
@@ -956,6 +1052,394 @@ def phase_runner(dev):
              f"{c['event_packets']} packets")
     if not np.isfinite(res["positions"]).all():
         fail("the runner's trajectory is not finite")
+    return launches, d
+
+
+def tracker_config(**change):
+    """``eds_config()`` with fields of its tracker section replaced."""
+    cfg = eds_config()
+    return dataclasses.replace(
+        cfg, tracker=dataclasses.replace(cfg.tracker, **change))
+
+
+def splat_inputs(dev):
+    """The refinement splats of one usable packet of the event cell: the
+    first frames run in ``klt`` mode with ``event_tracker._splat`` recording
+    its arguments, so the coordinates are the path's ``uv_warped``, the
+    values its ``kf_grad`` columns and the mask its ``alive``; the model
+    values are formed as the packet step forms them, from the state after
+    that packet. Returns name -> (xs, ys, masked values), the number of
+    live points and the number of non-finite raw values on masked lanes."""
+    from slam_eds_tpu_torch.models.pipeline import _normalized_model
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    seen, kept = [], {}
+    splat = et._splat
+
+    def record(uv, values, mask, height, width):
+        seen.append((uv.clone(), values.clone(), mask.clone()))
+        return splat(uv, values, mask, height, width)
+
+    def after_packet(pipe, T):
+        if T is not None and len(seen) >= 2:
+            kept["splats"] = seen[-2:]
+            kept["kf"], kept["vx"] = pipe.kf, pipe.tracker_state.vx
+        seen.clear()
+
+    et._splat = record
+    try:
+        run_event_cell(dev, tracker_config(track_refinement="klt"), stop=8,
+                       after_packet=after_packet)
+    finally:
+        et._splat = splat
+    if "splats" not in kept:
+        fail("no usable packet in the first 8 frames of the klt cell")
+    (uv, gx, mask), (uv_y, gy, _) = kept["splats"]
+    if not torch.equal(uv, uv_y) or uv.shape != (
+            eds_config().caps.max_points_per_kf, 2):
+        fail(f"the klt mode splatted at {tuple(uv.shape)} coordinates")
+    kf = kept["kf"]
+    model = _normalized_model(kf.norm_coord, kf.grad, kf.idepth, kf.mask,
+                              kept["vx"])
+    xs, ys = uv[:, 0].contiguous(), uv[:, 1].contiguous()
+    cases, dirty = {}, 0
+    for name, v in (("grad_x", gx), ("grad_y", gy), ("model", model)):
+        dirty += int((~torch.isfinite(v) & ~mask).sum())
+        v = torch.where(mask, v, torch.zeros_like(v)).contiguous()
+        if not torch.isfinite(v).all():
+            fail(f"a live lane of the {name} splat holds a non-finite value")
+        cases[name] = (xs, ys, v)
+    return cases, int(mask.sum()), dirty
+
+
+def phase_kernel_splat(dev):
+    """The raster kernel at the refinement modes' shape: E = 2,048
+    float-valued points at 640x480, on the path's own coordinates and
+    values."""
+    from slam_eds_tpu_torch.ops.kernels import rasterize as rz
+    cam = smoke_camera()
+    H, W = cam.height, cam.width
+    cases, live, dirty = splat_inputs(dev)
+    errs = {name: _compare_raster(rz, xs, ys, v, H, W, False)
+            for name, (xs, ys, v) in cases.items()}
+    xs, ys, vals = cases["grad_x"]
+    E = xs.numel()
+    # the kernel's exact range: E * max|v| < 2^30
+    vmax = max(float(v.abs().max()) for _, _, v in cases.values())
+    if not E * vmax < 2.0 ** 30:
+        fail(f"splat values up to {vmax} leave the kernel's exact range")
+    ms = cuda_time_ms(lambda: rz.rasterize_bilinear_cuda(xs, ys, vals, H, W),
+                      200)
+    plain_ms = cuda_time_ms(
+        lambda: rz.rasterize_bilinear_reference(xs, ys, vals, H, W), 50)
+    dev_us, activities = device_profile(
+        lambda: rz.rasterize_bilinear_cuda(xs, ys, vals, H, W))
+    plain_dev_us = device_us(
+        lambda: rz.rasterize_bilinear_reference(xs, ys, vals, H, W))
+    roof = roofline(E * 12 + H * W * 4, E * RASTER_OPS_PER_EVENT, dev_us)
+    err = max(e for e, _ in errs.values())
+    phase("kernel-splat", name="rasterize_bilinear", max_abs_err=err,
+          errors={k: {"max_abs_err": e, "bound": b}
+                  for k, (e, b) in errs.items()},
+          points=E, live_points=live, max_abs_value=vmax,
+          exact_range_max_abs_value=2.0 ** 30 / E,
+          nonfinite_values_on_masked_lanes=dirty,
+          us_per_call=ms * 1e3, plain_us_per_call=plain_ms * 1e3,
+          device_us=dev_us, device_activities_per_call=activities,
+          plain_device_us=plain_dev_us, **roof)
+    if activities != 1:
+        fail(f"{activities} device activities per splat call, not 1")
+    return kernel_entry(err, dev_us, plain_dev_us, ms, plain_ms, roof)
+
+
+def _refine_checks(label, run, per_packet):
+    """What every refinement cell must show; returns its counters."""
+    pipe = run["pipe"]
+    fp = pipe.frame_pipe
+    c = pipe.telemetry.counters
+    est = fp.positions()
+    if not fp._initialized or fp._resets != 0:
+        fail(f"{label}: not bootstrapped, or {fp._resets} resets")
+    if not np.isfinite(est).all() or not all(
+            np.isfinite(p).all() for p in run["poses"] if p is not None):
+        fail(f"{label}: a pose is not finite")
+    want = per_packet * c["event_packets"]
+    if run["launches"]["rasterize_bilinear"] != want or want <= 0:
+        fail(f"{label}: {run['launches']['rasterize_bilinear']} raster "
+             f"launches for {c['event_packets']} packets, not {per_packet} "
+             f"each")
+    if run["launches"]["pattern_sample"] <= 0:
+        fail(f"{label}: the sampler kernel was never launched")
+    if c["event_scalar_host_reads"] != c["event_packets"]:
+        fail(f"{label}: {c['event_scalar_host_reads']} scalar host reads "
+             f"for {c['event_packets']} packets")
+    return c
+
+
+def phase_eds_refine(dev, none_cell):
+    """The event cell with ``model_klt`` at full width and depth, then
+    ``klt_pyr`` and ``epiline`` over the first frames."""
+    run = run_event_cell(dev, tracker_config(track_refinement="model_klt"))
+    c = _refine_checks("model_klt", run, per_packet=2)
+    pipe, usable = run["pipe"], run["usable"]
+    fp = pipe.frame_pipe
+    ate, ev_ate = event_cell_ates(run)
+    ate_bound = max(0.05, 1.5 * JAX_CPU_REFINE["ate"])
+    ev_bound = max(0.05, 1.5 * JAX_CPU_REFINE["event_ate"])
+    min_solves = 0.8 * JAX_CPU_REFINE["event_solves"]
+    reads = host_reads_per_packet(c)
+    steady_pk = [s for k, s in run["packet_s"] if k >= PIPE_WARMUP]
+    short = {}
+    for mode, per_packet in (("klt_pyr", 3), ("epiline", 2)):
+        r = run_event_cell(dev, tracker_config(track_refinement=mode),
+                           stop=REFINE_SHORT_FRAMES)
+        cm = _refine_checks(mode, r, per_packet)
+        short[mode] = {
+            "frames": REFINE_SHORT_FRAMES, "packets": cm["event_packets"],
+            "usable_solves": int(sum(r["usable"])),
+            "kernel_launches": r["launches"],
+            "raster_launches_per_packet": per_packet,
+            "alive_points": int(r["pipe"].kf.mask.sum()),
+            "kf_points_initial": int(r["pipe"].kf.n_initial),
+            "packet_ms_median": 1e3 * float(np.median(
+                [s for _, s in r["packet_s"]]))}
+    phase("eds-refine", mode="model_klt", frames=len(run["frames"]),
+          packets_fed=len(usable), usable_solves=int(sum(usable)),
+          usable_by_packet="".join("u" if u else "x" for u in usable),
+          event_kfs=pipe.num_event_kfs, keyframes=fp.window.next_id,
+          marginalized=fp.window.marg_count, kernel_launches=run["launches"],
+          raster_launches_per_packet=2, ate=ate, ate_bound=ate_bound,
+          event_ate=ev_ate, event_ate_bound=ev_bound, jax_cpu=JAX_CPU_REFINE,
+          packet_ms_median=1e3 * float(np.median(steady_pk)),
+          none_cell_packet_ms_median=none_cell["packet_ms_median"],
+          host_reads_per_packet=sum(reads.values()),
+          host_reads_per_packet_by_kind=reads,
+          none_cell_host_reads_per_packet=none_cell["reads_per_packet"],
+          short_cells=short)
+    if sum(usable) < min_solves:
+        fail(f"model_klt: {sum(usable)} usable solves, fewer than "
+             f"{min_solves}")
+    if not ate <= ate_bound:
+        fail(f"model_klt: frame ATE {ate} above the bound {ate_bound}")
+    if not ev_ate <= ev_bound:
+        fail(f"model_klt: event ATE {ev_ate} above the bound {ev_bound}")
+    # the refinement is device work: it adds no read to a packet. The LM's
+    # reads follow its iteration count, which the refined depths may move,
+    # so the totals are held to one read of each other
+    if sum(reads.values()) > none_cell["reads_per_packet"] + 1.0:
+        fail(f"model_klt: {sum(reads.values())} host reads per packet, the "
+             f"cell without refinement {none_cell['reads_per_packet']}")
+    return run["launches"]
+
+
+def phase_boot(dev, name):
+    """``FrameOnlyPipeline`` on the frame cell's sequence with the ``dso``
+    or the ``midas`` bootstrap (the latter fed frame 0's true depth as a
+    dense map); returns its launches."""
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.models import ba_state as bs
+    from slam_eds_tpu_torch.models.pipeline import FrameOnlyPipeline
+    from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
+    from slam_eds_tpu_torch.ops.kernels.rasterize import rasterize_bilinear
+    from slam_eds_tpu_torch.utils.alignment import ate_rmse
+
+    ref = JAX_CPU_DSO if name == "dso" else JAX_CPU_MIDAS
+    n = ref["frames"]
+    cam = smoke_camera()
+    seq = SyntheticSequence(cam, num_frames=n, motion_scale=0.22,
+                            micro_steps=2, device=dev)
+    frames = [seq.frame(k) for k in range(n)]
+    pipe = FrameOnlyPipeline(cam, tracker_config(bootstrap=name), device=dev)
+    torch.cuda.synchronize()
+    pattern_sample.launches = 0
+    rasterize_bilinear.launches = 0
+    snap_at = init_at = seeded = None
+    walls = []
+    for k, (t, img, depth) in enumerate(frames):
+        t0 = time.perf_counter()
+        pipe.process_frame(img, t, depth_map=(
+            depth if name == "midas" and k == 0 else None))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        st = pipe._init_state
+        if snap_at is None and st is not None and bool(st.snapped):
+            snap_at = k
+        if init_at is None and pipe._initialized:
+            init_at = k
+            seeded = int((pipe.window.state.p_status == bs.PT_ACTIVE).sum())
+    launches = {"pattern_sample": pattern_sample.launches,
+                "rasterize_bilinear": rasterize_bilinear.launches}
+    est = pipe.positions()
+    ate = float(ate_rmse(est, seq.gt_positions()[:len(est)]))
+    bound = max(0.05, 1.5 * ref["ate"])
+    c = dict(pipe.telemetry.counters)
+    info = dict(frames=n, init_frame=init_at, points_at_init=seeded,
+                keyframes=pipe.window.next_id,
+                marginalized=pipe.window.marg_count, counters=c,
+                kernel_launches=launches, ate=ate, ate_bound=bound,
+                jax_cpu=ref)
+    if name == "dso":
+        init_frames = walls[1:init_at] if init_at else walls[1:]
+        info.update(
+            snap_frame=snap_at, set_first_s=walls[0],
+            level_points=[int(l.mask.sum()) for l in st.levels] if st else None,
+            track_frame_s_median=float(np.median(init_frames)),
+            track_frame_s_first=init_frames[0],
+            init_host_reads=c.get("init_host_reads", 0))
+    phase(f"boot-{name}", **info)
+    if init_at is None or abs(init_at - ref["init_frame"]) > 1:
+        fail(f"boot-{name}: initialized at frame {init_at}, the JAX CPU run "
+             f"at {ref['init_frame']}")
+    if name == "dso" and (snap_at is None
+                          or abs(snap_at - ref["snap_frame"]) > 1):
+        fail(f"boot-dso: snapped at frame {snap_at}, the JAX CPU run at "
+             f"{ref['snap_frame']}")
+    if name == "midas" and (init_at != 0 or seeded < 16):
+        fail(f"boot-midas: initialized at frame {init_at} with {seeded} "
+             f"seeded points")
+    if c.get("ba_runs", 0) < 1 or pipe._resets != 0:
+        fail(f"boot-{name}: {c.get('ba_runs', 0)} BA runs, "
+             f"{pipe._resets} resets")
+    if abs(pipe.window.next_id - ref["keyframes"]) > 1:
+        fail(f"boot-{name}: {pipe.window.next_id} keyframes, the JAX CPU "
+             f"run {ref['keyframes']}")
+    if launches["pattern_sample"] <= 0:
+        fail(f"boot-{name}: the sampler kernel was never launched")
+    if len(est) != ref["trajectory"] or not np.isfinite(est).all():
+        fail(f"boot-{name}: trajectory has {len(est)} entries or is not "
+             f"finite")
+    if not ate <= bound:
+        fail(f"boot-{name}: ATE {ate} above the bound {bound}")
+    return launches
+
+
+def phase_resume(dev, first, tmp):
+    """The event cell stopped after frame RESUME_AT and its packet, saved,
+    restored into a fresh pipeline and continued: the same usable string,
+    counts and per-packet poses as the uninterrupted first run. Returns the
+    launches of both parts and the resumed pipeline."""
+    import os
+    from slam_eds_tpu_torch import checkpoint
+    cam = eds_inputs(dev)[0]
+    head = run_event_cell(dev, eds_config(), stop=RESUME_AT + 1)
+    t0 = time.perf_counter()
+    loc = checkpoint.save_pipeline(os.path.join(tmp, "resume"), head["pipe"])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe = checkpoint.restore_pipeline(loc, cam, eds_config(), device=dev)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    tail = run_event_cell(dev, eds_config(), pipe=pipe, start=RESUME_AT + 1)
+
+    usable = "".join("u" if u else "x"
+                     for u in head["usable"] + tail["usable"])
+    poses = head["poses"] + tail["poses"]
+    fp = pipe.frame_pipe
+
+    def summed(a, b=None):
+        # without the zero entries that reading a defaultdict leaves behind
+        b = b or {}
+        tot = {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+        return {k: v for k, v in sorted(tot.items()) if v}
+    counts = {
+        "event_kfs": pipe.num_event_kfs, "keyframes": fp.window.next_id,
+        "marginalized": fp.window.marg_count,
+        "event_counters": summed(head["pipe"].telemetry.counters,
+                                 pipe.telemetry.counters),
+        "frame_counters": summed(
+            head["pipe"].frame_pipe.telemetry.counters,
+            fp.telemetry.counters)}
+    want = dict(first["counts"],
+                event_counters=summed(first["counts"]["event_counters"]),
+                frame_counters=summed(first["counts"]["frame_counters"]))
+    diffs = [float(np.abs(a - b).max())
+             for a, b in zip(first["poses"], poses) if a is not None
+             and b is not None]
+    d = max(diffs, default=0.0)
+    launches = {k: head["launches"][k] + tail["launches"][k]
+                for k in head["launches"]}
+    phase("resume", stopped_after_frame=RESUME_AT, usable=usable,
+          packets=len(poses), max_pose_diff=d, pose_tol=POSE_TOL,
+          bitwise=all(x == 0.0 for x in diffs),
+          checkpoint_bytes=os.path.getsize(loc), save_s=save_s,
+          restore_s=restore_s, kernel_launches=launches,
+          kernel_launches_after_restore=tail["launches"])
+    if usable != first["usable"] or len(poses) != len(first["poses"]):
+        fail(f"resume: usable packets {usable}, uninterrupted "
+             f"{first['usable']}")
+    if counts != want:
+        fail(f"resume: counts {counts}, uninterrupted {want}")
+    if not d <= POSE_TOL:
+        fail(f"resume: poses differ from the uninterrupted run by {d}")
+    if min(tail["launches"].values()) <= 0:
+        fail(f"resume: a kernel was not launched after the restore: "
+             f"{tail['launches']}")
+    return launches, pipe
+
+
+def phase_eval_maps(dev, dataset_dir, pipe, tmp):
+    """``evaluate_sequences`` on the runner phase's dataset, then the map,
+    trajectory and viz export of a pipeline's final window."""
+    import os
+    from slam_eds_tpu_torch.config import RecorderConfig
+    from slam_eds_tpu_torch.eval import evaluate_sequences
+    from slam_eds_tpu_torch.io import output_maps as om
+    from slam_eds_tpu_torch.io.recorder import Recorder
+    from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
+    from slam_eds_tpu_torch.ops.kernels.rasterize import rasterize_bilinear
+    from slam_eds_tpu_torch.utils import viz
+    from slam_eds_tpu_torch.utils.lie import SE3
+
+    pattern_sample.launches = 0
+    rasterize_bilinear.launches = 0
+    report = evaluate_sequences([dataset_dir], eds_config(),
+                                max_frames=EVAL_FRAMES, verbose=False,
+                                device=dev)
+    launches = {"pattern_sample": pattern_sample.launches,
+                "rasterize_bilinear": rasterize_bilinear.launches}
+    name = os.path.basename(dataset_dir)
+    res = report["sequences"].get(name)
+    fp = pipe.frame_pipe
+    win = fp.window
+    raw = om.get_map(win.state, win.images)
+    cloud = om.get_map(win.state, win.images, sor=(8, 0.1))
+    n_ply = om.write_ply(os.path.join(tmp, "map.ply"), cloud)
+    poses = SE3(torch.stack([p.R for p in fp.poses]),
+                torch.stack([p.t for p in fp.poses]))
+    n_tum = om.write_trajectory_tum(os.path.join(tmp, "trajectory.txt"),
+                                    fp.times, poses)
+    with open(os.path.join(tmp, "map.ply")) as f:
+        ply = f.read().splitlines()
+    tum = np.loadtxt(os.path.join(tmp, "trajectory.txt"))
+    kf = pipe.kf
+    rec = Recorder(RecorderConfig(enabled=True,
+                                  output_folder=os.path.join(tmp, "viz")))
+    png = rec.save_viz("idepth", viz.idepth_map_viz(
+        kf.img.cpu().numpy(), kf.uv.cpu().numpy(), kf.idepth.cpu().numpy(),
+        kf.mask.cpu().numpy()))
+    rec.close()
+    phase("eval-maps", sequences=sorted(report["sequences"]),
+          frames=res and res["frames"], ate=res and res.get("ate_rmse"),
+          total_frames_per_s=report["total_frames_per_s"],
+          wall_s=report["wall_s"], kernel_launches=launches,
+          map_points=int(raw.valid.sum()), map_points_after_sor=n_ply,
+          ply_lines=len(ply), tum_lines=n_tum,
+          viz_png_bytes=os.path.getsize(png))
+    if res is None or res["frames"] != EVAL_FRAMES:
+        fail(f"eval: the report holds {sorted(report['sequences'])}")
+    if not (np.isfinite(res.get("ate_rmse", np.nan))
+            and report["total_frames_per_s"] > 0):
+        fail(f"eval: ATE {res.get('ate_rmse')} or frames/s not finite")
+    if min(launches.values()) <= 0:
+        fail(f"eval: a kernel was not launched: {launches}")
+    if int(raw.valid.sum()) <= 0 or len(ply) != 10 + n_ply:
+        fail(f"maps: {int(raw.valid.sum())} map points, {len(ply)} PLY lines "
+             f"for {n_ply} points")
+    if not (np.isfinite(raw.xyz[raw.valid]).all()
+            and np.isfinite(cloud.xyz[cloud.valid]).all()):
+        fail("maps: an exported point is not finite")
+    if n_tum != len(fp.times) or tum.shape != (n_tum, 8) \
+            or not np.isfinite(tum).all():
+        fail(f"maps: trajectory file {tum.shape} for {len(fp.times)} poses")
     return launches
 
 
@@ -991,10 +1475,20 @@ def main():
     phase_ba(dev)
     frame_launches = phase_pipeline(dev)
     raster = phase_kernel_raster(dev)
-    runner_launches = phase_runner(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        runner_launches, dataset_dir = phase_runner(dev, tmp)
+        splat = phase_kernel_splat(dev)
+        refine_launches = phase_eds_refine(dev, first)
+        dso_launches = phase_boot(dev, "dso")
+        midas_launches = phase_boot(dev, "midas")
+        resume_launches, resumed = phase_resume(dev, first, tmp)
+        eval_launches = phase_eval_maps(dev, dataset_dir, resumed, tmp)
     last = phase_eds(dev)
     phase_history(first, last)
     event_launches = last["launches"]
+    cells = {"refine_cell": refine_launches, "boot_dso": dso_launches,
+             "boot_midas": midas_launches, "resume": resume_launches,
+             "eval": eval_launches}
     print(json.dumps({"kernels": [
         {"name": "pattern_sample", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/pattern_sample.cu",
@@ -1002,7 +1496,9 @@ def main():
          "launches": frame_launches["pattern_sample"],
          "launches_frame_cell": frame_launches["pattern_sample"],
          "launches_event_cell": event_launches["pattern_sample"],
-         "launches_runner": runner_launches["pattern_sample"], **kern},
+         "launches_runner": runner_launches["pattern_sample"],
+         **{f"launches_{k}": v["pattern_sample"] for k, v in cells.items()},
+         **kern},
         {"name": "rasterize_bilinear", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/rasterize.cu",
          "replaces": "slam_eds_tpu/ops/pallas/raster.py:71",
@@ -1010,7 +1506,9 @@ def main():
          "launches_frame_cell": frame_launches["rasterize_bilinear"],
          "launches_event_cell": event_launches["rasterize_bilinear"],
          "launches_runner": runner_launches["rasterize_bilinear"],
-         **raster}]}))
+         **{f"launches_{k}": v["rasterize_bilinear"]
+            for k, v in cells.items()},
+         "splat_shape": splat, **raster}]}))
     print(gpu_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ pixel near a threshold may give one event more or fewer.
 from __future__ import annotations
 
 import os
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -223,3 +223,27 @@ class SyntheticSequence:
         """[N, 3] ground-truth camera positions (camToWorld translations)."""
         T = SE3.exp(torch.as_tensor(self.taus, device=self.device))
         return T.inverse().t.cpu().numpy()
+
+
+class ArraySequence:
+    """Preloaded arrays (times [N], images [N, H, W], optional event
+    packets) in the sequence interface of ``SyntheticSequence``."""
+
+    def __init__(self, times, images, packets: Optional[list] = None,
+                 gt_positions=None):
+        self.times = np.asarray(times)
+        self.images = np.asarray(images)
+        self.packets = packets
+        self._gt = gt_positions
+        self.num_frames = len(self.times)
+
+    def frame(self, k: int):
+        return float(self.times[k]), self.images[k], None
+
+    def events_between(self, k0: int, k1: int):
+        if self.packets is None:
+            return None
+        return self.packets[k0]
+
+    def gt_positions(self):
+        return self._gt

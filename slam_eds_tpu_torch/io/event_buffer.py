@@ -62,6 +62,8 @@ def _declare(lib) -> None:
                                     ctypes.c_int64]
     lib.png_unfilter_rows.argtypes = [u8p, u8p, ctypes.c_int64,
                                       ctypes.c_int64, ctypes.c_int64]
+    lib.event_apply_undistort.argtypes = [f32p, f32p, ctypes.c_int64, f32p,
+                                          f32p, ctypes.c_int, ctypes.c_int]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -326,3 +328,23 @@ class PurePythonReader:
 
     def pump(self, ring, chunk: int = 1 << 16) -> int:
         return _pump(self, ring, chunk)
+
+
+def apply_undistort(xs, ys, mapx, mapy, width: int, height: int):
+    """Per-event forward-map undistortion on the host in one pass: xs / ys
+    (float32, contiguous) are replaced in place by the map's value at their
+    rounded pixel; events outside the map move to (-1, -1), which the raster
+    drops. The native route and the numpy route round half away from zero
+    alike (``std::lround``)."""
+    lib = _load()
+    if lib is None:
+        xi = np.trunc(xs + np.copysign(0.5, xs)).astype(np.int64)
+        yi = np.trunc(ys + np.copysign(0.5, ys)).astype(np.int64)
+        ok = (xi >= 0) & (yi >= 0) & (xi < width) & (yi < height)
+        idx = np.clip(yi * width + xi, 0, width * height - 1)
+        xs[:] = np.where(ok, mapx.reshape(-1)[idx], -1.0)
+        ys[:] = np.where(ok, mapy.reshape(-1)[idx], -1.0)
+        return
+    mapx = np.ascontiguousarray(mapx, np.float32).reshape(-1)
+    mapy = np.ascontiguousarray(mapy, np.float32).reshape(-1)
+    lib.event_apply_undistort(xs, ys, len(xs), mapx, mapy, width, height)

@@ -154,7 +154,7 @@ def create_keyframe(raw_img, cam: Pinhole, capacity: int,
         idepth=idp, weight=torch.where(mask, w, torch.zeros_like(w)),
         residual=torch.zeros((capacity,), dtype=dtype, device=img.device),
         track=torch.zeros((capacity, 2), dtype=dtype, device=img.device),
-        mask=mask, n_initial=mask.sum(),
+        mask=mask, n_initial=mask.sum().to(torch.int32),
         T_w_kf_R=T_w_kf.R, T_w_kf_t=T_w_kf.t,
         time=torch.full((), float(time), dtype=dtype, device=img.device))
 

@@ -10,9 +10,11 @@
   rate against keyframes that the frame backend produces.
 
 Host Python owns sequencing, as in the JAX module; every numeric step runs
-in torch on the pipeline's device under ``torch.inference_mode``. Not
-ported yet: the ``dso`` and ``midas`` bootstraps and event track
-refinement.
+in torch on the pipeline's device under ``torch.inference_mode``.
+``tracker.bootstrap`` selects the two-view eight-point bootstrap, the
+DSO-style joint initializer (``dso``, ``ops.coarse_init``) or an external
+depth map (``midas``); ``tracker.track_refinement`` the event track
+refinement of the packet step.
 """
 from __future__ import annotations
 
@@ -32,12 +34,17 @@ from ..utils import klt
 from ..utils import image as image_ops
 from ..utils.stats import masked_median
 from ..ops import initializer, event_tracker as et, depth_filter as df
+from ..ops import coarse_init as ci
 from ..ops.pixel_selector import candidate_points_grid
 from . import ba_state as bs
 from . import keyframe as kfm
 from .event_frame import create_event_frame
 from .window import WindowManager
 from ..telemetry import Telemetry
+
+
+TRACK_REFINEMENTS = ("none", "klt", "klt_pyr", "model_klt", "epiline")
+BOOTSTRAPS = ("eight_points", "dso", "midas")
 
 
 def _np(x):
@@ -54,9 +61,9 @@ class FrameOnlyPipeline:
     photometric: object = None
 
     def __post_init__(self):
-        if self.cfg.tracker.bootstrap != "eight_points":
-            raise NotImplementedError(
-                f"later PR: bootstrap={self.cfg.tracker.bootstrap!r}")
+        if self.cfg.tracker.bootstrap not in BOOTSTRAPS:
+            raise ValueError(
+                f"unknown bootstrap {self.cfg.tracker.bootstrap!r}")
         self.device = resolve_device(self.device)
         set_numerics()
         # RANSAC's generator, seeded with 0 as the JAX pipeline draws with
@@ -70,6 +77,7 @@ class FrameOnlyPipeline:
         self.telemetry = Telemetry()
         self._boot_img = None
         self._boot_time = None
+        self._init_state = None      # ops.coarse_init.InitState (dso)
         self._initialized = False
         self._last_pose = self._identity()
         self._last_good_pose = self._identity()
@@ -105,6 +113,7 @@ class FrameOnlyPipeline:
         self.window.marg_count = prev_margs
         self._boot_img = None
         self._boot_time = None
+        self._init_state = None
         self._initialized = False
         self._lost = False
         self._lost_frames = 0
@@ -202,13 +211,95 @@ class FrameOnlyPipeline:
         return True
 
     # ------------------------------------------------------------------
+    def _bootstrap_dso(self, img, time: float) -> bool:
+        """DSO-style pyramid initializer (``ops.coarse_init``): frames
+        accumulate until the joint pose + idepth solve snaps, then the
+        window is seeded from the level-0 structure."""
+        pyr, _ = image_ops.build_pyramid(
+            torch.as_tensor(img, dtype=torch.float32, device=self.device),
+            self.cfg.initializer.pyr_levels)
+        if self._init_state is None:
+            self._init_state = ci.set_first(pyr)
+            self._boot_img = img
+            self._boot_time = time
+            return False
+        self._init_state, done = ci.track_frame(
+            self._init_state, pyr, self.cam, counters=self.telemetry.counters)
+        if not done:
+            return False
+        T_10, uv0, idp0, okm = ci.extract_result(self._init_state)
+        anchor = self._world_anchor
+        T1 = T_10.compose(anchor)
+        self.window.insert_frame(self._boot_img, anchor, self._boot_time,
+                                 is_first=True,
+                                 immature_seed=(uv0, idp0, okm))
+        self.window.insert_frame(img, T1, time, immature_seed=None)
+        self.window.trace_all(self.window.newest_slot)
+        self.window.activate_points()
+        self.window.optimize()
+        self.window.rebuild_coarse_template()
+        self._last_pose = T1
+        self._record_boot([(self._boot_time, anchor), (time, T1)])
+        self._initialized = True
+        return True
+
+    def _bootstrap_depthmap(self, img, time: float, depth_map) -> bool:
+        """Depth-map bootstrap: an externally supplied monocular depth (a
+        dense [H, W] metric depth image, or a sparse (uv [N, 2], idepth [N],
+        mask [N]) tuple) seeds the first keyframe's structure, immatures and
+        active points with an idepth prior, so tracking starts from frame
+        one without two-view parallax."""
+        dev = self.device
+        if isinstance(depth_map, tuple):
+            uv, idp, mask = (torch.as_tensor(a, device=dev)
+                             for a in depth_map)
+        else:
+            g0 = torch.as_tensor(img, dtype=torch.float32, device=dev)
+            gx, gy = image_ops.sobel(g0, 3)
+            uv, mask = candidate_points_grid(
+                image_ops.gradient_magnitude(gx, gy), patch=8,
+                capacity=self.cfg.caps.max_points_per_kf)
+            d = torch.as_tensor(depth_map, dtype=torch.float32, device=dev)
+            ui = torch.clamp(uv[:, 0].to(torch.int32), 0, d.shape[1] - 1)
+            vi = torch.clamp(uv[:, 1].to(torch.int32), 0, d.shape[0] - 1)
+            z = d[vi.long(), ui.long()]
+            mask = mask & torch.isfinite(z) & (z > 1e-3)
+            idp = 1.0 / torch.clamp(z, min=1e-3)
+        anchor = self._world_anchor
+        slot = self.window.insert_frame(img, anchor, time, is_first=True,
+                                        immature_seed=(uv, idp, mask))
+        n = self.window.activate_seed_points(
+            slot, uv, idp, mask, prior=self.cfg.bundles.idepth_fix_prior)
+        if n < 16:
+            return False
+        self.window.rebuild_coarse_template()
+        self._last_pose = anchor
+        self._record_boot([(time, anchor)])
+        self._initialized = True
+        return True
+
+    # ------------------------------------------------------------------
     @torch.inference_mode()
     def process_frame(self, img, time: float, depth_map=None):
-        """Feed one grayscale frame [H, W]; returns the worldToCam pose."""
-        if depth_map is not None:
-            raise NotImplementedError("later PR: depth-map bootstrap")
+        """Feed one grayscale frame [H, W]; returns the worldToCam pose.
+
+        depth_map: optional external depth for the ``midas`` bootstrap, a
+        dense [H, W] metric depth or a sparse (uv [N, 2], idepth [N],
+        mask [N]) tuple."""
         if not self._initialized:
             held = self._world_anchor
+            if self.cfg.tracker.bootstrap == "midas":
+                if depth_map is not None and \
+                        self._bootstrap_depthmap(img, time, depth_map):
+                    return self._last_pose
+                # no depth yet: hold at the anchor until one arrives
+                self._record_pending(time)
+                return held
+            if self.cfg.tracker.bootstrap == "dso":
+                if not self._bootstrap_dso(img, time):
+                    self._record_pending(time)
+                    return held
+                return self._last_pose
             if self._boot_img is None:
                 self._boot_img = img
                 self._boot_time = time
@@ -319,6 +410,16 @@ class FrameOnlyPipeline:
         return np.stack(self.trajectory)
 
 
+def _normalized_model(kf_nc, kf_grad, kf_idp, kf_mask, vx):
+    """The per-point brightness-change model -grad . flow of the solved
+    velocity, zero on dead points, normalized like the event frame: what
+    ``model_klt`` and ``epiline`` splat."""
+    flow = et.compute_flow(kf_nc, vx, kf_idp)
+    model = -(kf_grad[:, 0] * flow[:, 0] + kf_grad[:, 1] * flow[:, 1])
+    model = torch.where(kf_mask, model, torch.zeros_like(model))
+    return model / torch.sqrt(1e-3 + torch.sum(model * model))
+
+
 def _event_packet_fused(tracker_state, pose_filter, depth, cam,
                         kf_pose_R, kf_pose_t, frame_pred_R, frame_pred_t,
                         kf_uv, kf_nc, kf_grad, kf_idp, kf_weight, kf_mask,
@@ -342,11 +443,11 @@ def _event_packet_fused(tracker_state, pose_filter, depth, cam,
     selected back to its input when no solve passes (``torch.where``).
 
     lim: {mu_range, min_depth, max_depth, px_noise, max_step_t, max_step_r,
-    activity_th} as floats. Returns (state, pose_filter, depth, mask,
+    activity_th, search_range, consistency_px} as floats. Returns (state, pose_filter, depth, mask,
     tracks, residuals, scalars [usable, energy, loss_scale, n_iter, flow,
     alive_count, ef_time, med_depth], T_w_ef_R, T_w_ef_t, vx)."""
-    if refinement != "none":
-        raise NotImplementedError(f"later PR: track_refinement={refinement!r}")
+    if refinement not in TRACK_REFINEMENTS:
+        raise ValueError(f"unknown track_refinement {refinement!r}")
     ef = create_event_frame(
         xs, ys, ts, ps, n_valid, height, width, num_levels=num_levels,
         fwd_maps=fwd_maps, use_time_weights=use_time_weights,
@@ -396,7 +497,27 @@ def _event_packet_fused(tracker_state, pose_filter, depth, cam,
     new_pf = et._tree_where(usable, pf_pushed, pose_filter)
     T_w_ef = SE3(kf_pose_R, kf_pose_t).compose(et.pose_filter_mean(new_pf))
 
+    # warp, then the configured track refinement: device work on every
+    # packet (its results are selected by ``usable`` below like the rest)
     uv_ef, alive = et.warp_coords(res.state, cam, kf_nc, kf_idp, kf_mask)
+    if refinement in ("klt", "klt_pyr"):
+        delta, _ = et.refine_tracks_klt(
+            ef.frames[0], uv_ef, kf_grad, alive, patch_radius=patch_radius,
+            num_levels=(refine_levels if refinement == "klt_pyr" else 1))
+        uv_ef = uv_ef + delta
+    elif refinement in ("model_klt", "epiline"):
+        model = _normalized_model(kf_nc, kf_grad, kf_idp, kf_mask,
+                                  res.state.vx)
+        if refinement == "model_klt":
+            delta, _ = et.refine_tracks_model_klt(
+                ef.frames[0], uv_ef, model, alive, patch_radius=patch_radius)
+            uv_ef = uv_ef + delta
+        else:
+            uv_ef, alive = et.refine_tracks_epiline(
+                ef.frames[0], kf_uv, uv_ef, model, alive,
+                et.pose_kf_ef(res.state), cam, patch_radius=patch_radius,
+                search_range=lim["search_range"],
+                consistency_px=lim["consistency_px"])
     tracks = uv_ef - kf_uv
     depth_new = df.update(depth, et.pose_kf_ef(res.state), kf_uv, tracks,
                           cam, mu_range=lim["mu_range"],
@@ -428,10 +549,9 @@ class EDSPipeline:
     photometric: object = None
 
     def __post_init__(self):
-        if self.cfg.tracker.track_refinement != "none":
-            raise NotImplementedError(
-                f"later PR: track_refinement="
-                f"{self.cfg.tracker.track_refinement!r}")
+        if self.cfg.tracker.track_refinement not in TRACK_REFINEMENTS:
+            raise ValueError(f"unknown track_refinement "
+                             f"{self.cfg.tracker.track_refinement!r}")
         self.frame_pipe = FrameOnlyPipeline(self.cam, self.cfg,
                                             device=self.device,
                                             photometric=self.photometric)
@@ -571,6 +691,8 @@ class EDSPipeline:
             "max_step_t": cfg.tracker.max_step_translation,
             "max_step_r": cfg.tracker.max_step_rotation,
             "activity_th": cfg.keyframe.refinement_activity_th,
+            "search_range": cfg.tracker.refinement_search_range,
+            "consistency_px": cfg.tracker.refinement_consistency_px,
         }
         its = cfg.tracker.max_iterations
         iters = [its[min(lvl, len(its) - 1)]

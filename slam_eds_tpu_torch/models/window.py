@@ -44,9 +44,10 @@ def all_pairs(state: bs.BAState, K):
 
 
 def activate_commit(state: bs.BAState, images, dst, host, uv, idp,
-                    outlier_th: float) -> bs.BAState:
+                    outlier_th: float, prior: float = 0.0) -> bs.BAState:
     """Write newly activated points into slots ``dst``: pattern colors and
-    gradient weights sampled from each point's host image."""
+    gradient weights sampled from each point's host image; ``prior`` is
+    their idepth prior."""
     offs = image_ops.pattern(uv.dtype, uv.device)
     F_, H_, W_, C_ = images.shape
     x = uv[:, 0:1] + offs[None, :, 0]
@@ -84,7 +85,7 @@ def activate_commit(state: bs.BAState, images, dst, host, uv, idp,
         p_idepth_zero=put(state.p_idepth_zero, idp),
         p_color=put(state.p_color, hit[..., 0]),
         p_weight=put(state.p_weight, w),
-        p_prior=put(state.p_prior, 0.0),
+        p_prior=put(state.p_prior, prior),
         p_status=put(state.p_status, bs.PT_ACTIVE),
         r_active=put(state.r_active, r_rows),
     )
@@ -158,6 +159,10 @@ class WindowManager:
         self.frame_ids = [-1] * F
         self.frame_times = [0.0] * F
         self.K = self.cam.K(device=dev)
+
+    @property
+    def num_active_frames(self) -> int:
+        return int(self.state.frame_valid.sum())
 
     def _free_slot(self) -> int:
         free = np.where(~_np(self.state.frame_valid))[0]
@@ -401,6 +406,34 @@ class WindowManager:
             cat(sel_idp, torch.float32),
             outlier_th=self.cfg.bundles.outlier_th_sum_component)
         return total
+
+    # ------------------------------------------------------------------
+    def activate_seed_points(self, slot: int, uv, idp, mask,
+                             prior: float = 2500.0,
+                             max_new: Optional[int] = None) -> int:
+        """Promote externally seeded points (the depth-map bootstrap)
+        straight into free BA point slots of host frame ``slot``, with an
+        idepth prior. uv [N, 2], idp [N], mask [N]; returns how many."""
+        dev = self.device
+        st = self.state
+        idp = torch.as_tensor(idp, dtype=torch.float32, device=dev)
+        uv = torch.as_tensor(uv, dtype=torch.float32, device=dev)
+        ok = torch.as_tensor(mask, device=dev) & torch.isfinite(idp) \
+            & (idp > 1e-4)
+        # one read: the free slots and the usable seeds
+        free = torch.nonzero(st.p_status == bs.PT_EMPTY)[:, 0]
+        take = torch.nonzero(ok)[:, 0]
+        n = min(len(free) if max_new is None else min(len(free), max_new),
+                len(take))
+        if n == 0:
+            return 0
+        take = take[:n]
+        self.state = activate_commit(
+            st, self.images, free[:n],
+            torch.full((n,), slot, dtype=torch.int32, device=dev), uv[take],
+            torch.clamp(idp[take], min=1e-4),
+            outlier_th=self.cfg.bundles.outlier_th_sum_component, prior=prior)
+        return n
 
     # ------------------------------------------------------------------
     def optimize(self, iterations: Optional[int] = None):

@@ -35,3 +35,11 @@ def coarse_distance_map(uv, mask, height: int, width: int,
         n = torch.minimum(torch.minimum(up, dn), torch.minimum(lf, rt))
         d = torch.minimum(d, n + 1.0)
     return d
+
+
+def sample_distance(dist_map, uv):
+    """Nearest-pixel lookup of the distance map at (same-resolution) uv."""
+    h, w = dist_map.shape
+    ix = torch.clamp(torch.round(uv[:, 0]).long(), 0, w - 1)
+    iy = torch.clamp(torch.round(uv[:, 1]).long(), 0, h - 1)
+    return dist_map[iy, ix]

@@ -13,7 +13,12 @@ velocity vx. The LM runs over the 12-dof local increment with the analytic
 Jacobian (``event_residuals_and_jac``). Where the JAX module loops with
 ``lax.while_loop``/``lax.scan``, this one loops in Python: one host read of
 the LM's ``done`` flag per iteration, counted in ``counters`` when given.
-Track refinement (``klt``/``model_klt``/``epiline``) is not ported yet.
+
+Track refinement (``refine_tracks_klt`` / ``_model_klt`` / ``_epiline``)
+refines the warp-predicted tracks against the event frame before they feed
+the depth filter. Each splats per-point values with
+``utils.events.scatter_accumulate(..., method="bilinear")``: the raster
+kernel on the card.
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ from ..models.ba_state import tuple_from_numpy, tuple_to_numpy
 from ..utils import lie
 from ..utils.lie import SE3
 from ..utils.cameras import Pinhole
-from ..utils.interp import bicubic, bicubic_with_grad
+from ..utils import klt as kltmod
+from ..utils.events import scatter_accumulate
+from ..utils.interp import bicubic, bicubic_with_grad, bilinear
 from ..utils.stats import huber_weight, cauchy_weight, masked_mad, HUBER_K
 
 
@@ -363,3 +370,138 @@ def pose_filter_mean(f: PoseFilter) -> SE3:
     mean = torch.sum(f.taus * m[:, None], 0) / torch.clamp(torch.sum(m),
                                                            min=1.0)
     return SE3.exp(mean)
+
+
+# ---------------------------------------------------------------------------
+# Track refinement (Tracker::trackPoints / trackPointsPyr /
+# trackPointsAlongEpiline), batched over points.
+# ---------------------------------------------------------------------------
+
+def _splat(uv, values, mask, height: int, width: int):
+    """Bilinear splat of per-point values at uv [P, 2] into [H, W]; masked
+    lanes add nothing (their value is zeroed ahead of the kernel, their
+    coordinate may be anything)."""
+    return scatter_accumulate(uv[:, 0].contiguous(), uv[:, 1].contiguous(),
+                              values.contiguous(), height, width, mask=mask,
+                              method="bilinear")
+
+
+def _splat_gradient_images(uv, grad, mask, height: int, width: int):
+    """Rasterize the per-point keyframe gradient values at the warped
+    coordinates. Returns (gx_img, gy_img)."""
+    return (_splat(uv, grad[:, 0], mask, height, width),
+            _splat(uv, grad[:, 1], mask, height, width))
+
+
+def _klt_flow_from_patches(gx_p, gy_p, ev_p, min_strength: float = 1e-6,
+                           rank_ratio: float = 1e-3):
+    """One Lucas-Kanade normal-equation solve per point with the event frame
+    as the temporal derivative: f = -M^+ b, M = [sum IxIx, sum IxIy; .,
+    sum IyIy], b = [sum Ix It, sum Iy It]; patch axes [P, K].
+
+    The 2x2 symmetric pseudo-inverse, by eigendecomposition: a patch with a
+    single splatted point has a rank-1 structure tensor, for which this gives
+    the minimal-norm solution (the normal flow along the gradient)."""
+    Mxx = torch.sum(gx_p * gx_p, -1)
+    Mxy = torch.sum(gx_p * gy_p, -1)
+    Myy = torch.sum(gy_p * gy_p, -1)
+    b = torch.stack([torch.sum(gx_p * ev_p, -1),
+                     torch.sum(gy_p * ev_p, -1)], -1)
+    tr = Mxx + Myy
+    disc = torch.sqrt(torch.clamp((Mxx - Myy) ** 2 + 4.0 * Mxy * Mxy, min=0.0))
+    lam1 = 0.5 * (tr + disc)
+    lam2 = torch.clamp(0.5 * (tr - disc), min=0.0)
+    # principal eigenvector by the better-conditioned of two formulas
+    v1a = torch.stack([lam1 - Myy, Mxy], -1)
+    v1b = torch.stack([Mxy, lam1 - Mxx], -1)
+    use_a = torch.abs(lam1 - Myy) >= torch.abs(lam1 - Mxx)
+    v1 = torch.where(use_a[:, None], v1a, v1b)
+    v1 = v1 / torch.clamp(torch.linalg.vector_norm(v1, dim=-1, keepdim=True),
+                          min=1e-20)
+    v2 = torch.stack([-v1[:, 1], v1[:, 0]], -1)
+    zero = torch.zeros_like(lam1)
+    ok = lam1 > min_strength
+    c1 = torch.where(ok, torch.sum(v1 * b, -1) / torch.clamp(lam1, min=1e-20),
+                     zero)
+    c2 = torch.where(lam2 > rank_ratio * lam1,
+                     torch.sum(v2 * b, -1) / torch.clamp(lam2, min=1e-20),
+                     zero)
+    return -(c1[:, None] * v1 + c2[:, None] * v2), ok
+
+
+def refine_tracks_klt(event_frame, uv_warped, grad, mask,
+                      patch_radius: int = 3, num_levels: int = 1):
+    """Refine warped tracks by per-point event-based KLT (pyramidal when
+    num_levels > 1): the keyframe's per-point gradients are splatted at the
+    warped coordinates; a patch of those and of the event frame around each
+    warped point feeds one LK solve whose flow is the track increment,
+    accumulated coarse to fine with a 1/scale^2 weighting.
+
+    Returns (delta [P, 2], ok [P]); points without a solvable system get
+    delta 0."""
+    H, W = event_frame.shape
+    gx_img, gy_img = _splat_gradient_images(uv_warped, grad, mask, H, W)
+    dx, dy = kltmod._patch_grid(patch_radius, uv_warped.dtype,
+                                uv_warped.device)
+    delta = torch.zeros_like(uv_warped)
+    ok_all = torch.zeros_like(mask)
+    for lvl in range(num_levels - 1, -1, -1):
+        scale = float(2 ** lvl)
+        # the full-resolution images sampled with 2^l spacing
+        xs = uv_warped[:, 0:1] + scale * dx[None, :]
+        ys = uv_warped[:, 1:2] + scale * dy[None, :]
+        f, ok = _klt_flow_from_patches(bilinear(gx_img, xs, ys),
+                                       bilinear(gy_img, xs, ys),
+                                       bilinear(event_frame, xs, ys))
+        delta = delta + f / (scale * scale)
+        ok_all = ok_all | ok
+    # one LK step on a sparse splat can shoot far on a near-degenerate system
+    delta = torch.clamp(delta, -2.0 * patch_radius, 2.0 * patch_radius)
+    ok_all = mask & ok_all
+    return torch.where(ok_all[:, None], delta, torch.zeros_like(delta)), ok_all
+
+
+def refine_tracks_model_klt(event_frame, uv_warped, model, mask,
+                            patch_radius: int = 3, iterations: int = 4,
+                            max_delta: float = 3.0):
+    """Inverse-compositional LK between the rasterized brightness-change
+    model image and the event frame: the model, normalized like the event
+    frame, is splatted at the warped positions, so the LK solution is the
+    geometric offset in pixels whatever either normalization.
+
+    model: [P] normalized sparse model values. Returns (delta [P, 2],
+    ok [P])."""
+    H, W = event_frame.shape
+    model_img = _splat(uv_warped, model, mask, H, W)
+    uv_new, ok, _ = kltmod.klt_track(model_img, event_frame, uv_warped,
+                                     radius=patch_radius,
+                                     iterations=iterations)
+    delta = torch.clamp(uv_new - uv_warped, -max_delta, max_delta)
+    ok = ok & mask
+    return torch.where(ok[:, None], delta, torch.zeros_like(delta)), ok
+
+
+def refine_tracks_epiline(event_frame, kf_uv, uv_warped, model, mask,
+                          T_kf_ef: SE3, cam: Pinhole,
+                          patch_radius: int = 3, search_range: float = 6.0,
+                          num_steps: int = 25,
+                          consistency_px: float = 5.0):
+    """Epipolar template search: each point's patch of the rasterized model
+    is searched along its epipolar line in the event frame with two
+    similarity measures (zssd, zncc); points where the two matches differ
+    by more than ``consistency_px`` (in the norm of the matched position)
+    are flagged dead. Returns (uv_refined [P, 2], alive [P])."""
+    H, W = event_frame.shape
+    model_img = _splat(kf_uv, model, mask, H, W)
+    K = cam.K(kf_uv.dtype, device=kf_uv.device)
+    F = kltmod.fundamental_from_pose(T_kf_ef.inverse(), K)
+    d = kltmod.epiline_directions(F, kf_uv)
+    found = [kltmod.search_along_epiline(
+        model_img, event_frame, uv_warped, d, search_range,
+        radius=patch_radius, num_steps=num_steps, measure=measure,
+        uv_tpl=kf_uv)[0] for measure in ("zssd", "zncc")]
+    uv_ssd, uv_ncc = found
+    dis = torch.abs(torch.linalg.vector_norm(uv_ssd, dim=-1)
+                    - torch.linalg.vector_norm(uv_ncc, dim=-1))
+    alive = mask & (dis <= consistency_px)
+    return torch.where(alive[:, None], uv_ssd, uv_warped), alive

@@ -1,8 +1,10 @@
-"""Runtime counters — the counters part of ``slam_eds_tpu.telemetry``. Its
-wall-clock timers and ``profile_trace`` (``jax.profiler``) have no
-counterpart here; use ``torch.profiler`` directly."""
+"""Structured runtime telemetry — port of ``slam_eds_tpu.telemetry``:
+counters, wall-clock timers (``tic`` / ``toc`` / ``rate``) and
+``profile_trace``, a device trace through ``torch.profiler``."""
 from __future__ import annotations
 
+import os
+import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 
@@ -11,6 +13,16 @@ from dataclasses import dataclass, field
 class Telemetry:
     counters: dict = field(default_factory=lambda: defaultdict(int))
     sums: dict = field(default_factory=lambda: defaultdict(float))
+    _t0: dict = field(default_factory=dict)
+
+    def tic(self, name: str):
+        self._t0[name] = time.perf_counter()
+
+    def toc(self, name: str):
+        dt = time.perf_counter() - self._t0.pop(name)
+        self.counters[f"{name}_n"] += 1
+        self.sums[f"{name}_s"] += dt
+        return dt
 
     def event_solve(self, n_iter: int, energy: float):
         """TrackerInfo equivalent: one usable event solve."""
@@ -27,3 +39,46 @@ class Telemetry:
         self.counters["frames"] += 1
         if not ok:
             self.counters["track_failures"] += 1
+
+    def rate(self, name: str):
+        n = self.counters.get(f"{name}_n", 0)
+        s = self.sums.get(f"{name}_s", 0.0)
+        return n / s if s > 0 else 0.0
+
+    def summary(self) -> dict:
+        out = dict(self.counters)
+        out.update({k: round(v, 6) for k, v in self.sums.items()})
+        return out
+
+
+class profile_trace:
+    """Context manager around ``torch.profiler.profile`` (CPU activity, and
+    CUDA when a card is present): on exit a Chrome trace, viewable in
+    Perfetto or chrome://tracing, is written to ``<log_dir>/trace.json``
+    (``self.path``); ``self.prof`` keeps the profiler for
+    ``key_averages()``.
+
+        with telemetry.profile_trace("trace_dir"):
+            pipe.process_events(packet)
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.path = os.path.join(log_dir, "trace.json")
+        self.prof = None
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        os.makedirs(self.log_dir, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=acts)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.prof.__exit__(*exc)
+        self.prof.export_chrome_trace(self.path)
+        return False

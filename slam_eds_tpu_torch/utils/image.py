@@ -10,6 +10,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .interp import bilinear
+
 # DSO residual pattern: 8 offsets (dx, dy), "residualPattern 8"
 # (src/utils/settings.h:203-215 of the reference).
 PATTERN_DSO8 = np.array(
@@ -138,3 +140,36 @@ def dilate3(img, iters: int = 1):
 def erode3(img, iters: int = 1):
     """3x3 morphological erosion (edge-replicated borders)."""
     return _morph3(img, iters, torch.amin)
+
+
+def split_image_in_patches(img, uv, patch_radius: int):
+    """Per-point square patches around sub-pixel centers uv [N, 2]. Returns
+    ([N, S, S] bilinear patches, [N] in-bounds mask), S = 2 r + 1."""
+    d = torch.arange(-patch_radius, patch_radius + 1, dtype=img.dtype,
+                     device=img.device)
+    xs = uv[:, 0, None, None] + d[None, None, :]
+    ys = uv[:, 1, None, None] + d[None, :, None]
+    H, W = img.shape[:2]
+    ok = (uv[:, 0] >= patch_radius) & (uv[:, 1] >= patch_radius) \
+        & (uv[:, 0] <= W - 1 - patch_radius) \
+        & (uv[:, 1] <= H - 1 - patch_radius)
+    return bilinear(img, xs, ys), ok
+
+
+def pyramid_patches(pyr_levels, uv, patch_radius: int):
+    """Patches of the same points across a pyramid: level-l centers are
+    uv / 2^l. Returns a list of ([N, S, S], [N]) per level."""
+    return [split_image_in_patches(img, uv / (2.0 ** l), patch_radius)
+            for l, img in enumerate(pyr_levels)]
+
+
+def compute_bundle_patches(img, uv):
+    """DSO 8-point residual-pattern samples per point. Returns ([N, 8]
+    colors, [N] in-bounds mask)."""
+    offs = pattern(img.dtype, img.device)
+    H, W = img.shape[:2]
+    ok = (uv[:, 0] >= PATTERN_PAD) & (uv[:, 1] >= PATTERN_PAD) \
+        & (uv[:, 0] <= W - 1 - PATTERN_PAD) \
+        & (uv[:, 1] <= H - 1 - PATTERN_PAD)
+    return bilinear(img, uv[:, 0:1] + offs[None, :, 0],
+                    uv[:, 1:2] + offs[None, :, 1]), ok

@@ -29,6 +29,11 @@ def hat(w):
     ], -2)
 
 
+def vee(W):
+    """Inverse of hat: [..., 3, 3] skew matrices -> [..., 3]."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], -1)
+
+
 def _eye3(w):
     return torch.eye(3, dtype=w.dtype, device=w.device).expand(
         w.shape[:-1] + (3, 3))
@@ -110,6 +115,11 @@ class SE3(NamedTuple):
         v = _matvec(_so3_left_jacobian_inv(w), self.t)
         return torch.cat([v, w], -1)
 
+    def __matmul__(self, other):
+        if isinstance(other, SE3):
+            return self.compose(other)
+        raise TypeError(type(other))
+
     def compose(self, other: "SE3") -> "SE3":
         return SE3(self.R @ other.R, _matvec(self.R, other.t) + self.t)
 
@@ -127,6 +137,17 @@ class SE3(NamedTuple):
         top = torch.cat([self.R, hat(self.t) @ self.R], -1)
         bot = torch.cat([z, self.R], -1)
         return torch.cat([top, bot], -2)
+
+    def matrix(self):
+        """[..., 4, 4] homogeneous matrix."""
+        top = torch.cat([self.R, self.t[..., None]], -1)
+        bot = torch.zeros_like(top[..., :1, :])
+        bot[..., 0, 3] = 1.0
+        return torch.cat([top, bot], -2)
+
+    @staticmethod
+    def from_matrix(M):
+        return SE3(M[..., :3, :3], M[..., :3, 3])
 
 
 # ---------------------------------------------------------------------------
@@ -208,3 +229,21 @@ def mat_to_quat(R):
     q = torch.gather(qs, -2, idx[..., None, None].expand(
         idx.shape + (1, 4)))[..., 0, :]
     return quat_normalize(q)
+
+
+def quat_rotate(q, v):
+    """Rotate vector(s) v [..., 3] by quaternion q without forming the
+    matrix."""
+    qv = q[..., 1:].expand(v.shape)
+    uv = torch.linalg.cross(qv, v)
+    uuv = torch.linalg.cross(qv, uv)
+    return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+def se3_mean(taus, weights=None):
+    """(Weighted) mean of SE(3) tangent vectors [N, 6], the pose-window Lie
+    mean."""
+    if weights is None:
+        return torch.mean(taus, 0)
+    w = weights / (torch.sum(weights) + _EPS)
+    return torch.sum(taus * w[:, None], 0)

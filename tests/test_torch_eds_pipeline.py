@@ -244,8 +244,15 @@ def test_event_state_is_finite_and_on_the_pipeline_device(port_loop):
     {"tracker": {"track_refinement": "model_klt"}},
 ])
 def test_unported_event_options_raise(change):
-    with pytest.raises(NotImplementedError):
-        tpl.EDSPipeline(TCAM, load_config(change), device="cpu")
+    """The refinement modes are ported now (``test_torch_refinement.py``
+    runs them against JAX): the option constructs a pipeline and no longer
+    raises; a name that is no mode raises ``ValueError``."""
+    mode = change["tracker"]["track_refinement"]
+    pipe = tpl.EDSPipeline(TCAM, load_config(change), device="cpu")
+    assert pipe._packet_step_args()[2]["refinement"] == mode
+    bad = {"tracker": {"track_refinement": mode + "x"}}
+    with pytest.raises(ValueError):
+        tpl.EDSPipeline(TCAM, load_config(bad), device="cpu")
 
 
 def test_undistortion_maps_raise(sequence):
@@ -274,7 +281,11 @@ PORT_MODULES = (
     "slam_eds_tpu_torch.ops.kernels.rasterize",
     "slam_eds_tpu_torch.io.dataset", "slam_eds_tpu_torch.io.event_buffer",
     "slam_eds_tpu_torch.io.frame_loader", "slam_eds_tpu_torch.io.image_rw",
-    "slam_eds_tpu_torch.io.recorder", "slam_eds_tpu_torch.utils.calib")
+    "slam_eds_tpu_torch.io.recorder", "slam_eds_tpu_torch.utils.calib",
+    "slam_eds_tpu_torch.ops.coarse_init", "slam_eds_tpu_torch.checkpoint",
+    "slam_eds_tpu_torch.eval", "slam_eds_tpu_torch.io.output_maps",
+    "slam_eds_tpu_torch.utils.viz", "slam_eds_tpu_torch.utils.klt",
+    "slam_eds_tpu_torch.ops.event_tracker", "slam_eds_tpu_torch.telemetry")
 
 
 def test_event_path_imports_no_jax_and_no_yaml():

@@ -16,6 +16,13 @@ the 64-bit fixed-point sum formed with torch int64 ops, and two launches
 bitwise equal (the kernel accumulates in 64-bit fixed point, in a
 thread-block cluster's shared memory, one launch per call).
 
+The same kernel at the track refinement's splat shape (2,048 float-valued
+points at 640x480: gradient-sized values, normalized model values, masked
+lanes with NaN and far coordinates) is held to the same four properties,
+and each ``refine_tracks_*`` on the card launches it once per splat (2 for
+``klt``, 1 for ``model_klt``, 1 for ``epiline``) and agrees with the same
+call on the CPU within 1e-3 px.
+
 ``splat_idepth`` sums in 64-bit fixed point with integer ``index_add_``: two
 launches on the card, and the CPU, give the same grid bitwise.
 
@@ -37,6 +44,7 @@ import torch
 
 from slam_eds_tpu_torch.ops import coarse_tracker as ct
 from slam_eds_tpu_torch.ops import energy
+from slam_eds_tpu_torch.ops import event_tracker as et
 from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
 from slam_eds_tpu_torch.ops.kernels import rasterize as rz
 from slam_eds_tpu_torch.utils import events as ev
@@ -265,3 +273,82 @@ def test_raster_wrapper_rejects_what_the_kernel_does_not_take(card):
         rz.rasterize_bilinear(torch.zeros(32, device=card)[::2], x, x, 8, 8)
     with pytest.raises(ValueError):
         rz.rasterize_bilinear_cuda(x.cpu(), x.cpu(), x.cpu(), 8, 8)
+
+
+def _splat_case(kind):
+    """2,048 points at 640x480 as the refinement modes splat them: masked
+    lanes (a fifth) carry NaN or far coordinates and arbitrary values."""
+    rng = np.random.default_rng(12)
+    n, h, w = 2048, 480, 640
+    uv = np.stack([rng.uniform(-1, w, n), rng.uniform(-1, h, n)],
+                  -1).astype(np.float32)
+    mask = rng.uniform(size=n) < 0.8
+    uv[~mask] = rng.choice([np.nan, 1e7, -3e5], ((~mask).sum(), 2))
+    if kind == "gradient":
+        vals = (rng.normal(size=n) * 300).astype(np.float32)
+    else:
+        vals = rng.normal(size=n).astype(np.float32)
+        vals /= np.linalg.norm(vals)
+    return uv, vals, mask, h, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gradient", "model"])
+def test_raster_kernel_at_the_splat_shape(card, kind):
+    uv, vals, mask, h, w = _splat_case(kind)
+    uv, vals, mask = (torch.as_tensor(a, device=card)
+                      for a in (uv, vals, mask))
+    before = rz.rasterize_bilinear.launches
+    got = et._splat(uv, vals, mask, h, w)
+    assert rz.rasterize_bilinear.launches == before + 1
+    xs, ys = uv[:, 0].contiguous(), uv[:, 1].contiguous()
+    v = torch.where(mask, vals, torch.zeros_like(vals))
+    err, bound = chip_smoke._compare_raster(rz, xs, ys, v, h, w, False)
+    assert err <= bound
+    assert torch.equal(got, chip_smoke.raster_fixed_point(xs, ys, v, h, w))
+    assert 2048 * float(v.abs().max()) < 2.0 ** 30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,launches", [("klt", 2), ("klt_pyr", 2),
+                                           ("model_klt", 1), ("epiline", 1)])
+def test_refinement_splats_launch_the_raster_kernel(card, mode, launches):
+    from slam_eds_tpu_torch.utils.cameras import Pinhole
+    from slam_eds_tpu_torch.utils.lie import SE3
+    rng = np.random.default_rng(13)
+    n, h, w = 2048, 480, 640
+    cam = Pinhole(400.0, 400.0, 319.5, 239.5, w, h)
+    uv = np.stack([rng.uniform(8, w - 9, n), rng.uniform(8, h - 9, n)],
+                  -1).astype(np.float32)
+    grad = (rng.normal(size=(n, 2)) * 30).astype(np.float32)
+    model = rng.normal(size=n).astype(np.float32)
+    model /= np.linalg.norm(model)
+    mask = rng.uniform(size=n) < 0.9
+    shift = np.float32([0.6, -0.3])
+    ev_frame = rz.rasterize_bilinear_reference(
+        *(torch.as_tensor(a) for a in (uv[:, 0] + shift[0],
+                                       uv[:, 1] + shift[1], model)), h, w)
+    tau = torch.tensor([0.05, 0.0, 0.0, 0.0, 0.0, 0.0])
+
+    def run(dev):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        if mode in ("klt", "klt_pyr"):
+            return et.refine_tracks_klt(
+                t(ev_frame), t(uv), t(grad), t(mask), patch_radius=3,
+                num_levels=3 if mode == "klt_pyr" else 1)
+        if mode == "model_klt":
+            return et.refine_tracks_model_klt(t(ev_frame), t(uv), t(model),
+                                              t(mask), patch_radius=3)
+        return et.refine_tracks_epiline(
+            t(ev_frame), t(uv), t(uv), t(model), t(mask), SE3.exp(t(tau)),
+            cam, patch_radius=3)
+
+    before = rz.rasterize_bilinear.launches
+    got, ok = run(card)
+    assert rz.rasterize_bilinear.launches == before + launches
+    want, ok_cpu = run("cpu")
+    assert got.device.type == "cuda"
+    same = (ok.cpu() == ok_cpu)
+    assert int((~same).sum()) <= 2
+    sel = same & ok_cpu
+    assert float((got.cpu() - want)[sel].abs().max()) <= 1e-3

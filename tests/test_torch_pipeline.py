@@ -260,23 +260,30 @@ def test_window_state_stays_on_device_and_finite(runs):
     {"tracker": {"bootstrap": "midas"}},
 ])
 def test_unported_bootstraps_raise(change):
-    with pytest.raises(NotImplementedError):
-        TPipe(TCAM, load_config(change), device="cpu")
+    """Both bootstraps are ported now (``test_torch_coarse_init.py`` runs
+    them against JAX): the option constructs a pipeline and no longer
+    raises; a name that is no bootstrap raises ``ValueError``."""
+    pipe = TPipe(TCAM, load_config(change), device="cpu")
+    assert pipe.cfg.tracker.bootstrap == change["tracker"]["bootstrap"]
+    bad = {"tracker": {"bootstrap": change["tracker"]["bootstrap"] + "x"}}
+    with pytest.raises(ValueError):
+        TPipe(TCAM, load_config(bad), device="cpu")
 
 
 def test_photometric_and_depth_map_raise():
     """A photometric calib no longer raises (the window weights its pixel
     selection by the calib's response-derivative table; see
-    ``test_torch_calib.py``); an external depth map (the ``midas``
-    bootstrap's input) still does."""
+    ``test_torch_calib.py``), and neither does an external depth map: the
+    ``eight_points`` bootstrap ignores it, as in the JAX package, and the
+    ``midas`` bootstrap starts from it on the first frame."""
     from slam_eds_tpu_torch.utils.calib import PhotometricCalib
     calib = PhotometricCalib.from_files(np.arange(256, dtype=np.float64))
     pipe = TPipe(TCAM, load_config(CFG), device="cpu", photometric=calib)
     np.testing.assert_array_equal(pipe.window.photometric_bgrad,
                                   calib.b_grad_table())
-    with pytest.raises(NotImplementedError):
-        pipe.process_frame(np.zeros((H, W), np.float32), 0.0,
-                           depth_map=np.ones((H, W), np.float32))
+    pipe.process_frame(np.zeros((H, W), np.float32), 0.0,
+                       depth_map=np.ones((H, W), np.float32))
+    assert not pipe._initialized
 
 
 def test_cuda_request_without_cuda_raises():
@@ -301,7 +308,11 @@ def hook(event, args):
 sys.addaudithook(hook)
 for m in ("slam_eds_tpu_torch.models.pipeline", "slam_eds_tpu_torch.runner",
           "slam_eds_tpu_torch.io.dataset", "slam_eds_tpu_torch.utils.alignment",
-          "slam_eds_tpu_torch.utils.calib", "slam_eds_tpu_torch.io.recorder"):
+          "slam_eds_tpu_torch.utils.calib", "slam_eds_tpu_torch.io.recorder",
+          "slam_eds_tpu_torch.ops.coarse_init", "slam_eds_tpu_torch.checkpoint",
+          "slam_eds_tpu_torch.eval", "slam_eds_tpu_torch.io.output_maps",
+          "slam_eds_tpu_torch.utils.viz", "slam_eds_tpu_torch.utils.klt",
+          "slam_eds_tpu_torch.telemetry"):
     importlib.import_module(m)
 from slam_eds_tpu_torch.io import event_buffer as eb, frame_loader as fl
 from slam_eds_tpu_torch.io import image_rw

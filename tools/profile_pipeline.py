@@ -25,8 +25,10 @@ With ``--eds``, two runs of the event path (``EDSPipeline`` on phase 8's
                      around each stage: raster (``scatter_accumulate``),
                      blur and levels (the rest of ``build_event_frame``),
                      the LM per pyramid level (first solve), the retry
-                     solves of the gate's ladder, the depth filter, and the
-                     rest of the step; mean ms per steady packet (after the
+                     solves of the gate's ladder, the track refinement
+                     (``--refinement klt|klt_pyr|model_klt|epiline``; its
+                     splats included), the depth filter, and the rest of
+                     the step; mean ms per steady packet (after the
                      smoke's warm-up frames) and host reads per packet;
 * ``eds_steady``  -- 8 steady packets, each under the profiler (CUDA
                      activity): wall, device busy time and idle share, top
@@ -34,7 +36,8 @@ With ``--eds``, two runs of the event path (``EDSPipeline`` on phase 8's
 
 Needs a CUDA device; imports no JAX.
 
-    python3 tools/profile_pipeline.py [--eds] [--out profile.json]
+    python3 tools/profile_pipeline.py [--eds [--refinement MODE]]
+        [--out profile.json]
 """
 import argparse
 import json
@@ -176,9 +179,9 @@ def _run_eds(pipe, frames, packets, on_packet=None):
     torch.cuda.synchronize()
 
 
-def profile_eds_stages(cam, frames, packets, dev):
+def profile_eds_stages(cam, frames, packets, dev, cfg):
     clock = _StageClock()
-    n_levels = cs.eds_config().event_frame.num_levels
+    n_levels = cfg.event_frame.num_levels
     solves = []         # _pyramid_fused calls in the current packet
 
     def lm_level(args):
@@ -216,6 +219,9 @@ def profile_eds_stages(cam, frames, packets, dev):
                (etmod, "_lm_solve", counted_lm),
                (etmod, "_pyramid_fused", pyramid),
                (dfmod, "update", clock.wrap("depth_filter", dfmod.update))]
+    patches += [(etmod, n, clock.wrap("refinement", getattr(etmod, n)))
+                for n in ("refine_tracks_klt", "refine_tracks_model_klt",
+                          "refine_tracks_epiline")]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     per_packet = []
 
@@ -238,7 +244,7 @@ def profile_eds_stages(cam, frames, packets, dev):
     for m, n, fn in patches:
         setattr(m, n, fn)
     try:
-        pipe = EDSPipeline(cam, cs.eds_config(), device=dev)
+        pipe = EDSPipeline(cam, cfg, device=dev)
         _run_eds(pipe, frames, packets, on_packet)
     finally:
         for m, n, fn in saved:
@@ -256,8 +262,8 @@ def profile_eds_stages(cam, frames, packets, dev):
             "event_counters": dict(c)}
 
 
-def profile_eds_steady(cam, frames, packets, dev):
-    pipe = EDSPipeline(cam, cs.eds_config(), device=dev)
+def profile_eds_steady(cam, frames, packets, dev, cfg):
+    pipe = EDSPipeline(cam, cfg, device=dev)
     busy, wall, items, n = 0.0, 0.0, defaultdict(float), 0
 
     def on_packet(k, step):
@@ -288,6 +294,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--eds", action="store_true",
                     help="profile the event path instead of the frame path")
+    ap.add_argument("--refinement", default="none",
+                    choices=("none", "klt", "klt_pyr", "model_klt", "epiline"),
+                    help="tracker.track_refinement of the --eds runs")
     ap.add_argument("--out", help="also write every result to this JSON file")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -301,10 +310,11 @@ def main():
 
     if args.eds:
         cam, _, frames, packets = cs.eds_inputs(dev)
+        cfg = cs.tracker_config(track_refinement=args.refinement)
         runs = (("eds_stages",
-                 lambda: profile_eds_stages(cam, frames, packets, dev)),
+                 lambda: profile_eds_stages(cam, frames, packets, dev, cfg)),
                 ("eds_steady",
-                 lambda: profile_eds_steady(cam, frames, packets, dev)))
+                 lambda: profile_eds_steady(cam, frames, packets, dev, cfg)))
     else:
         cam = Pinhole(400.0, 400.0, 319.5, 239.5, 640, 480)
         seq = SyntheticSequence(cam, num_frames=cs.PIPE_FRAMES,
