@@ -343,15 +343,23 @@ class SolveResult(NamedTuple):
 
 
 def solve_delta(state: BAState, asm: Assembled, lam: float = 1e-5,
-                use_orth: bool = True) -> SolveResult:
+                use_orth: bool = True, reduce=None) -> SolveResult:
     """Damped Schur solve with the marginalization and frame/calib priors;
     back-substitutes the per-point idepth steps (solveSystemF +
-    resubstituteF, FIX_LAMBDA)."""
+    resubstituteF, FIX_LAMBDA).
+
+    reduce: with the point axis split over ranks (``parallel.sharded_ba``),
+    a callable that sums a tensor over the ranks; the point-partial H, b and
+    Schur terms go through it (JAX ``axis_name``), so the solve runs
+    replicated and each rank back-substitutes its own points. Frame state
+    and priors must be replicated."""
     D = state.dim
     F = state.num_frames
     dtype, dev = asm.H.dtype, asm.H.device
     zf = torch.zeros((), dtype=dtype, device=dev)
     H, b = asm.H, asm.b
+    if reduce is not None:
+        H, b = reduce(H), reduce(b)
     c_prior = 5e9 * (state.c_zero > 0).to(dtype)
     H = H + torch.diag(torch.cat([c_prior,
                                   torch.zeros(8 * F, dtype=dtype,
@@ -373,6 +381,8 @@ def solve_delta(state: BAState, asm: Assembled, lam: float = 1e-5,
     Vw = asm.V * (active_pt.to(dtype) / Hdd_l)[:, None]
     H_sc = Vw.T @ asm.V
     b_sc = Vw.T @ asm.bd
+    if reduce is not None:
+        H_sc, b_sc = reduce(H_sc), reduce(b_sc)
 
     H_f = H + lam * torch.diag(torch.diagonal(H)) - H_sc
     b_f = b - b_sc
@@ -473,9 +483,12 @@ def fej_recentered_residuals(state: BAState, lin: Linearization):
 
 def marginalize_points(state: BAState, lin: Linearization,
                        marg_weight: float = 0.25,
-                       idepth_prior_marg_fac: float = 360000.0) -> BAState:
+                       idepth_prior_marg_fac: float = 360000.0,
+                       reduce=None) -> BAState:
     """Schur-marginalize all PT_MARGINALIZE points into HM/bM with
-    FEJ-recentered residuals; frees their slots."""
+    FEJ-recentered residuals; frees their slots. ``reduce`` (as in
+    ``solve_delta``) sums the point-partial terms over ranks, so HM/bM come
+    out the same on every rank."""
     marg = state.p_status == PT_MARGINALIZE
     res0 = fej_recentered_residuals(state, lin)
     state_m = state._replace(p_prior=torch.where(
@@ -488,8 +501,12 @@ def marginalize_points(state: BAState, lin: Linearization,
     Vw = asm.V * Hdd_i[:, None]
     M_sc = Vw.T @ asm.V
     b_sc = Vw.T @ asm.bd
-    HM = state.HM + marg_weight * (asm.H - M_sc)
-    bM = state.bM + marg_weight * (asm.b - b_sc)
+    H_top, b_top = asm.H, asm.b
+    if reduce is not None:
+        H_top, b_top = reduce(H_top), reduce(b_top)
+        M_sc, b_sc = reduce(M_sc), reduce(b_sc)
+    HM = state.HM + marg_weight * (H_top - M_sc)
+    bM = state.bM + marg_weight * (b_top - b_sc)
     HM = 0.5 * (HM + HM.T)
     new_status = torch.where(marg, torch.zeros_like(state.p_status),
                              state.p_status)

@@ -88,23 +88,35 @@ def _project(state: TrackerState, cam: Pinhole, norm_coord, idp):
     return RX, RX + state.px[None, :]
 
 
+def _summed(x, reduce):
+    """``torch.sum(x)``, summed over ranks too when ``reduce`` is given."""
+    s = torch.sum(x)
+    return s if reduce is None else reduce(s)
+
+
 def event_residuals(state: TrackerState, event_frame, cam: Pinhole,
                     norm_coord, grad, idp, weights, mask,
-                    norm_eps: float = 1e-3, norm_event: bool = False):
+                    norm_eps: float = 1e-3, norm_event: bool = False,
+                    reduce=None):
     """The full residual vector [P] (masked lanes 0). norm_event selects the
-    PhotometricErrorNC cost (raw frame, sampled values self-normalized)."""
+    PhotometricErrorNC cost (raw frame, sampled values self-normalized).
+
+    reduce: with the points split over ranks (``parallel.
+    sharded_event_tracker``), a callable that sums a tensor over the ranks;
+    the model norm (and the NC event norm) then couple every rank's points
+    (JAX ``_residuals_sharded``)."""
     flow = compute_flow(norm_coord, state.vx, idp)
     model = -(grad[:, 0] * flow[:, 0] + grad[:, 1] * flow[:, 1])
     zero = torch.zeros_like(model)
     model = torch.where(mask, model, zero)
-    model_norm = torch.sqrt(norm_eps + torch.sum(model * model))
+    model_norm = torch.sqrt(norm_eps + _summed(model * model, reduce))
     _, p = _project(state, cam, norm_coord, idp)
     xp = cam.fx * (p[:, 0] / p[:, 2]) + cam.cx
     yp = cam.fy * (p[:, 1] / p[:, 2]) + cam.cy
     ev = bicubic(event_frame, xp, yp)
     if norm_event:
         ev = torch.where(mask, ev, zero)
-        ev = ev / torch.sqrt(norm_eps + torch.sum(ev * ev))
+        ev = ev / torch.sqrt(norm_eps + _summed(ev * ev, reduce))
     r = weights * (model / model_norm - ev)
     return torch.where(mask, r, zero)
 
@@ -122,7 +134,7 @@ def interaction_matrix(norm_coord, idp):
 def event_residuals_and_jac(state: TrackerState, event_frame, cam: Pinhole,
                             norm_coord, grad, idp, weights, mask,
                             norm_eps: float = 1e-3,
-                            norm_event: bool = False):
+                            norm_event: bool = False, reduce=None):
     """Residuals [P] + analytic Jacobian [P, 12] wrt the local increment
     (translation additive, quaternion left exp-map, velocity normalized
     addition). With m = A v and ||m|| = sqrt(eps + m.m):
@@ -133,7 +145,8 @@ def event_residuals_and_jac(state: TrackerState, event_frame, cam: Pinhole,
       and d/d(dq) = -[R X]_x, gradE the analytic bicubic gradient.
 
     The norm and m^T A (and e.e and e^T D for NC) are reductions over all
-    points: they couple every residual."""
+    points: they couple every residual, and ``reduce`` (as in
+    ``event_residuals``) sums them over ranks (JAX ``axis_name``)."""
     dtype = norm_coord.dtype
     maskf = mask.to(dtype)
 
@@ -144,6 +157,8 @@ def event_residuals_and_jac(state: TrackerState, event_frame, cam: Pinhole,
     m = A @ v
     m2 = torch.sum(m * m)
     mTA = m @ A
+    if reduce is not None:
+        m2, mTA = reduce(m2), reduce(mTA)
     norm = torch.sqrt(norm_eps + m2)
     mh = m / norm
     Jv = (A - mh[:, None] * (mTA / norm)[None, :]) / norm
@@ -170,6 +185,8 @@ def event_residuals_and_jac(state: TrackerState, event_frame, cam: Pinhole,
         ev = ev * maskf
         e2 = torch.sum(ev * ev)
         s = ev @ D
+        if reduce is not None:
+            e2, s = reduce(e2), reduce(s)
         en = torch.sqrt(norm_eps + e2)
         eh = ev / en
         Jpose = -(D / en - eh[:, None] * (s / (en * en))[None, :])
@@ -204,11 +221,19 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
               norm_coord, grad, idp, weights, mask,
               max_iterations: int, loss_kind: str, loss_scale,
               function_tolerance: float, norm_event: bool,
-              counters=None) -> TrackerResult:
-    """LM loop shared by ``optimize`` and ``_pyramid_fused``: at most
+              counters=None, reduce=None, gather=None) -> TrackerResult:
+    """LM loop shared by ``optimize``, ``_pyramid_fused`` and
+    ``parallel.sharded_event_tracker.optimize_sharded``: at most
     ``max_iterations`` iterations, leaving early once an accepted step moves
     the energy by less than ``function_tolerance`` (relative). One host
-    read per iteration (``counters["event_lm_host_reads"]``)."""
+    read per iteration (``counters["event_lm_host_reads"]``).
+
+    With the points split over ranks, ``reduce`` sums a tensor over the
+    ranks (the norms, the [12, 12] system and the energies, so the LM
+    control and the early stop are the same on every rank) and ``gather``
+    concatenates each rank's [P/n] block in rank order (the residuals and
+    the mask for one global MAD); the returned residuals are the rank's
+    own."""
     dtype = norm_coord.dtype
     dev = norm_coord.device
     if not torch.is_tensor(loss_scale):
@@ -217,7 +242,8 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
 
     def residuals(st):
         return event_residuals(st, event_frame, cam, norm_coord, grad, idp,
-                               weights, mask, norm_event=norm_event)
+                               weights, mask, norm_event=norm_event,
+                               reduce=reduce)
 
     def robust_weights(r):
         if loss_kind == "huber":
@@ -227,7 +253,7 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
         return torch.ones_like(r)
 
     def energy_of(r):
-        return torch.sum(robust_weights(r) * r * r)
+        return _summed(robust_weights(r) * r * r, reduce)
 
     eye = torch.eye(12, dtype=dtype, device=dev)
     lam = torch.full((), 1e-4, dtype=dtype, device=dev)
@@ -236,10 +262,12 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
     while it < max_iterations:
         r, J = event_residuals_and_jac(state, event_frame, cam, norm_coord,
                                        grad, idp, weights, mask,
-                                       norm_event=norm_event)
+                                       norm_event=norm_event, reduce=reduce)
         Jw = J * (robust_weights(r) * maskf)[:, None]
         H = Jw.T @ J
         g = Jw.T @ r
+        if reduce is not None:
+            H, g = reduce(H), reduce(g)
         Hl = H + lam * torch.diag(torch.diagonal(H)) + 1e-10 * eye
         delta = -torch.linalg.solve_ex(Hl, g[:, None])[0][:, 0]
         delta = torch.where(torch.isfinite(delta), delta,
@@ -262,7 +290,10 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
 
     r_final = residuals(state)
     # MAD re-estimation of the robust scale for the next solve
-    mad, _ = masked_mad(r_final, mask)
+    if gather is None:
+        mad, _ = masked_mad(r_final, mask)
+    else:
+        mad, _ = masked_mad(gather(r_final), gather(mask))
     return TrackerResult(state=state, residuals=r_final, energy=energy,
                          n_iter=torch.full((), it, dtype=torch.int32,
                                            device=dev),

@@ -26,6 +26,9 @@ call on the CPU within 1e-3 px.
 ``splat_idepth`` sums in 64-bit fixed point with integer ``index_add_``: two
 launches on the card, and the CPU, give the same grid bitwise.
 
+``parallel.dryrun.dryrun_multichip(2, "cuda")`` runs with two spawned ranks
+sharing the card over gloo and holds itself to the JAX dry run's bounds.
+
 Tolerances: the sampler kernel is built without multiply-add contraction and
 follows the plain version term by term, so ``ok`` is identical and values
 agree within 1e-4 (0-255 planes); linearize/ba_iterate on the card against
@@ -352,3 +355,16 @@ def test_refinement_splats_launch_the_raster_kernel(card, mode, launches):
     assert int((~same).sum()) <= 2
     sel = same & ok_cpu
     assert float((got.cpu() - want)[sel].abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_dryrun_on_the_card(card, tmp_path):
+    """The multi-rank dry run with both ranks on this card over gloo: its
+    own bounds (the JAX dry run's) and bitwise replication hold, and the
+    sampler kernel is launched in each rank (the parent builds it first, so
+    the ranks only load it)."""
+    from slam_eds_tpu_torch.parallel import dryrun
+    ps.load()
+    rep = dryrun.dryrun_multichip(2, "cuda", store_dir=str(tmp_path))
+    assert rep["backend"] == "gloo"
+    assert min(rep["launches"]) > 0 and rep["launches_1"] > 0

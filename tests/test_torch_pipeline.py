@@ -312,7 +312,12 @@ for m in ("slam_eds_tpu_torch.models.pipeline", "slam_eds_tpu_torch.runner",
           "slam_eds_tpu_torch.ops.coarse_init", "slam_eds_tpu_torch.checkpoint",
           "slam_eds_tpu_torch.eval", "slam_eds_tpu_torch.io.output_maps",
           "slam_eds_tpu_torch.utils.viz", "slam_eds_tpu_torch.utils.klt",
-          "slam_eds_tpu_torch.telemetry"):
+          "slam_eds_tpu_torch.telemetry", "slam_eds_tpu_torch.parallel",
+          "slam_eds_tpu_torch.parallel.sharded_ba",
+          "slam_eds_tpu_torch.parallel.sharded_event_tracker",
+          "slam_eds_tpu_torch.parallel.dryrun",
+          "slam_eds_tpu_torch.utils.velocity",
+          "slam_eds_tpu_torch.utils.lie_groups"):
     importlib.import_module(m)
 from slam_eds_tpu_torch.io import event_buffer as eb, frame_loader as fl
 from slam_eds_tpu_torch.io import image_rw
