@@ -9,7 +9,14 @@ at the reference operating point, the frame-only path
 runner (``runner.run_sequence``), the track-refinement modes, the ``dso``
 and ``midas`` bootstraps, checkpoint/resume and the evaluator with the map
 export, all at 640x480 with the default ``EDSConfig``. The event cell runs first and again last, and the two runs
-must agree packet for packet. Phases, one output line each:
+must agree packet for packet. On the card the packet step (one program per
+rung of the gate's ladder), the frame track and the BA call run as captured
+CUDA graphs (``slam_eds_tpu_torch/graphs.py``): every cell replays them
+under ``torch.cuda.set_sync_debug_mode("error")`` (a hidden host read
+raises), and each captured program is held against the same function run
+eagerly on the card from the same inputs (bitwise expected, else within
+``CAPTURED_TOL``), the eager run under the same sync check. Phases, one
+output line each:
 
 1. device   -- card name and power limit, torch/CUDA versions, f32 numerics
 2. build, build-raster, build-host -- the nvcc builds of
@@ -19,6 +26,14 @@ must agree packet for packet. Phases, one output line each:
                host build is reported, and the runner then takes its
                pure-Python ring, reader and PNG path)
 3. eds-first -- the event cell (phase 9) first in the process
+3a. batched -- ``eval.batched_event_solves`` at B=4 on the event cell's
+               shapes and ``eval.batched_ba_windows`` at B=2 on phase 5's BA
+               world (lane 1 on other planes), one ``torch.vmap`` each:
+               every lane against its single solve (see ``phase_batched``
+               for the bounds and the readings behind them), the batched
+               calls' and the single calls' seconds; the lane-axis sampler
+               on the BA lanes' taps held bitwise to its plain version and
+               timed (its row in the kernels line)
 4. kernel   -- kernel vs ``pattern_sample_reference`` at the BA operating
                point (F=8, P=2048, K=8, 640x480, 0-255 planes) on random
                taps, on the taps one ``linearize`` call of phase 5's BA
@@ -31,11 +46,16 @@ must agree packet for packet. Phases, one output line each:
                texels they need) and ``F.grid_sample`` on the [F, 3, H, W]
                stack as the library yardstick
 5. ba       -- 6-iteration ``ba_iterate`` on the ``bench.py`` BA world
-               (6 kernel launches per call), then point and frame
+               (6 kernel launches per call), eagerly and as one captured
+               program (bitwise its eager run, 6 launches counted per
+               replay; ms per call of both), then point and frame
                marginalization (finite, symmetric HM)
 6. pipeline -- ``FrameOnlyPipeline`` over a ``SyntheticSequence``: bootstrap,
                at least one marginalized frame, no full reset, kernel
-               launches, every window tensor on the card, ATE bound
+               launches, every window tensor on the card, ATE bound; host
+               reads per frame, the device idle share over frames 4-6
+               (profiler), and the captured ``track_frame`` and window BA
+               against their eager runs at the final state
 7. kernel-raster -- raster kernel vs ``rasterize_bilinear_reference`` on the
                largest packet of phase 9's sequence (65,536 capacity, time
                weights and mask applied), 65,536 random fractional events at
@@ -70,11 +90,14 @@ must agree packet for packet. Phases, one output line each:
 8b. eds-refine -- the event cell with ``track_refinement="model_klt"`` at
                full width and depth: bootstrapped, no reset, usable solves
                >= 0.8 x the JAX CPU run's, frame and event ATE bounds,
-               exactly 2 raster launches per packet, host reads per packet no
-               higher than the cell without refinement (within one), ms per
-               packet beside that cell's; then ``klt_pyr`` and ``epiline``
-               over the first 12 frames: finite, no reset, exactly 3 and 2
-               raster launches per packet, the points left alive
+               raster launches exactly 1 per packet plus 1 splat per rung of
+               the gate's ladder taken (the tail, with the refinement, ends
+               every rung), host reads per packet no higher than the cell
+               without refinement (within one), ms per packet beside that
+               cell's; then ``klt_pyr`` and ``epiline`` over the first 12
+               frames: finite, no reset, 2 and 1 splats per rung, the
+               points left alive; each mode's rung programs against their
+               eager runs
 8c. boot-dso, boot-midas -- ``FrameOnlyPipeline`` on the frame cell's
                sequence with ``bootstrap="dso"`` over 24 frames (snap and
                initialization frames within one of the JAX CPU run's, a BA
@@ -113,9 +136,15 @@ must agree packet for packet. Phases, one output line each:
                per-rank taps ([2048, 8, 8] on an [8, 96, 128, 3] stack)
 9. eds      -- ``EDSPipeline`` over 32 frames of the bench_e2e sequence
                (65,536-event packets): bootstrap, BA run, no reset, event
-               keyframes, usable solves, both kernels launched, every event
-               and window tensor on the card, frame and event ATE bounds;
-               frames/s, ms per packet, host reads per packet
+               keyframes, usable solves, both kernels launched (the raster
+               once per packet), every event and window tensor on the card,
+               frame and event ATE bounds, host reads exactly 1 per packet
+               plus 1 per retry of the gate's ladder; frames/s, ms per
+               packet, host reads per packet and per frame beside the 52.5
+               of the loops that read on the host, the device idle share
+               over frames 4-6 (profiler), and
+               every rung's captured program against its eager run on the
+               largest and the smallest packet (two live counts)
 10. history -- phases 3 and 9 agree: the same usable string and counts, and
                every usable packet's pose within 1e-6
 
@@ -132,6 +161,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -184,6 +214,26 @@ JAX_CPU_MIDAS = {"ate": 0.00010620228567859158, "frames": 16,
                  "ba_runs": 4, "marginalized": 0, "resets": 0,
                  "active_points": 2048}
 REFINE_SHORT_FRAMES = 12   # klt_pyr and epiline: smaller depth, same width
+# frames (with their packets) under the profiler: its post-processing takes
+# about 10 s per frame of captured programs (thousands of kernels each)
+PROFILE_FRAMES = 3
+# the batched event lanes against their single solves (``phase_batched``):
+# the residuals and the energy are held after 2 and 5 LM passes, the pose
+# along the directions the cost determines after 2, 5 and the cap
+EVENT_LANE_ITERATIONS = (2, 5)
+# the pose along the determined directions: the event tracker tests' 2e-4
+# after 2 and 5 passes (readings: at most 5.0e-6); 1e-3 at the cap, where
+# one lane wanders 0.75 along the weak directions, its energy 2.3% apart,
+# and its determined part follows to 1.88e-4 (the others at most 8.3e-7;
+# NVIDIA H100 80GB HBM3, the event cell's 4 lanes)
+EVENT_LANE_POSE_TOL = 2e-4
+EVENT_LANE_CAP_POSE_TOL = 1e-3
+# H's eigendirections below this share of its largest eigenvalue are those
+# the cost leaves nearly free: on the event cell's lanes 6 of 12 (the
+# velocity's scale and 5 more at 2.7e-14 to 1.6e-7 of the largest), the
+# next at 1.8e-5 or above (NVIDIA H100 80GB HBM3, 4 lanes at 2, 5 and 10
+# passes)
+EVENT_WEAK_SHARE = 1e-6
 RESUME_AT = 16             # the resume cell stops after this frame
 EVAL_FRAMES = 12
 RADTAN_ZERO_CALIB = ("cam0:\n  intrinsics: [400.0, 400.0, 319.5, 239.5]\n"
@@ -212,7 +262,13 @@ def fail(msg):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_CLOCK = [time.perf_counter()]
+
+
 def phase(label, **kw):
+    """One phase's line, with the seconds since the previous line."""
+    now = time.perf_counter()
+    kw["phase_s"], _CLOCK[0] = now - _CLOCK[0], now
     print(json.dumps({"phase": label, **kw}), flush=True)
 
 
@@ -248,21 +304,168 @@ def device_profile(fn, reps: int = 50):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, n = 0.0, 0
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0 and e.count > 0:
-            per_call = max(1, round(e.count / reps))
-            total += e.self_device_time_total / e.count * per_call
-            n += per_call
-    return (total if total > 0 else None), n
+    # a profiling run may keep no device record of a ctypes launch: again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, n = 0.0, 0
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0 and e.count > 0:
+                per_call = max(1, round(e.count / reps))
+                total += e.self_device_time_total / e.count * per_call
+                n += per_call
+        if total > 0:
+            return total, n
+    return None, 0
 
 
 def device_us(fn, reps: int = 50):
     return device_profile(fn, reps)[0]
+
+
+# host reads per event packet of the loops that read their conditions on
+# the host, before the read-free loops (PERF.md section 5: 50.4 in the LM,
+# 1.13 at the gate, 1 of the scalars)
+HOST_LOOP_READS_PER_PACKET = 52.5
+# the captured programs against the same functions run eagerly: bitwise is
+# expected (the same kernels in the same order on the same inputs); a gap is
+# printed and held to this bound, the float32 noise of one solve's summation
+# order (the sampler and raster are bitwise deterministic, the rest are
+# library reductions)
+CAPTURED_TOL = 1e-5
+
+
+def no_sync(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: a hidden
+    synchronisation (a host read inside a read-free loop) raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def counted_syncs(fn):
+    """(``fn()``, the synchronising CUDA calls it made, whether it captured a
+    program). The host reads are measured, not tallied: under
+    ``torch.cuda.set_sync_debug_mode("warn")`` every synchronising call (a
+    device-to-host copy, ``item``, ``nonzero``, a stream synchronisation)
+    warns, and the warnings are counted; ``graphs.sync_check`` raises the
+    mode to "error" around each replay and restores it after. A call that
+    captured a program (its warm-up and capture synchronise) is told apart,
+    and so kept out of the per-step means."""
+    from slam_eds_tpu_torch import graphs
+    programs = len(graphs.CACHE.programs)
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    n = sum("synchronizing" in str(w.message) for w in seen)
+    return out, n, len(graphs.CACHE.programs) != programs
+
+
+def sync_warning_us():
+    """Host microseconds that one warned synchronisation adds (a one-element
+    ``item`` with and without the warning), the cost of measuring reads in
+    a timed run."""
+    x = torch.ones(1, device="cuda")
+    x.item()
+
+    def run(n=2000):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x.item()
+        return (time.perf_counter() - t0) / n * 1e6
+    plain = run()
+    warned = counted_syncs(run)[0]
+    return warned - plain
+
+
+def tree_gap(got, want):
+    """(max |d| over the float leaves, bitwise) of two pytrees of tensors;
+    NaN matches NaN, integer and bool leaves must be equal. The leaves that
+    differ are printed (their index in the flattened outputs)."""
+    from torch.utils._pytree import tree_leaves
+    gap, bitwise, differ = 0.0, True, []
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        if a is None and b is None:
+            continue
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"captured and eager outputs differ in shape or type: "
+                 f"{tuple(a.shape)} {a.dtype}, {tuple(b.shape)} {b.dtype}")
+        same = (a == b) | (a.isnan() & b.isnan()) if a.is_floating_point() \
+            else a == b
+        if bool(same.all()):
+            continue
+        bitwise = False
+        if not a.is_floating_point():
+            fail("captured and eager integer or bool outputs differ")
+        d = (a.double() - b.double()).abs()
+        gap = max(gap, float(d[~same].max()))
+        differ.append((i, tuple(a.shape), float(d[~same].max())))
+    if differ:
+        print(json.dumps({"captured_vs_eager_leaves": differ[:12]}))
+    return gap, bitwise
+
+
+def contiguous(tree):
+    """The inputs as a captured program holds them: contiguous copies."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: None if t is None else t.contiguous(), tree)
+
+
+def replay_against_eager(cache, run_captured, run_eager, label):
+    """One captured program of ``cache`` replayed (called twice: the first
+    call of a key is its warm-up) against the same function run eagerly
+    from the same inputs (made contiguous, as the program's buffers are),
+    the replay and the eager run under sync debug "error". Returns (max
+    gap, bitwise)."""
+    from slam_eds_tpu_torch import graphs
+    run_captured()
+    before = cache.replays()
+    with graphs.sync_check("error"):
+        got = graphs.copy_out(run_captured())
+    if cache.replays() != before + 1:
+        fail(f"{label}: the captured program was not replayed")
+    want = no_sync(run_eager)
+    gap, bitwise = tree_gap(got, want)
+    if not gap <= CAPTURED_TOL:
+        fail(f"{label}: the captured program differs from the eager run by "
+             f"{gap}")
+    return gap, bitwise
+
+
+class DeviceWindow:
+    """Device busy time over a window of a run (``torch.profiler``, CUDA
+    activity): ``start()``, ``stop()``; ``idle_share`` is 1 - busy / wall
+    (None when the profiler recorded no device time)."""
+
+    def __init__(self):
+        self.prof = None
+        self.idle_share = self.busy_s = self.wall_s = None
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self.t0
+        self.prof.__exit__(None, None, None)
+        busy = sum(e.self_device_time_total for e in self.prof.key_averages())
+        self.busy_s = busy / 1e6
+        self.idle_share = (1.0 - self.busy_s / self.wall_s) if busy > 0 \
+            else None
+        self.prof = None
 
 
 # ---------------------------------------------------------------------------
@@ -483,17 +686,17 @@ def record_taps(state, imgs, H, W):
     sampler."""
     from slam_eds_tpu_torch.ops import energy
     seen = []
-    sampler = energy.pattern_sample
+    sampler = energy.sample
 
     def record(planes, u, v):
         seen.append((planes, u.clone(), v.clone()))
         return sampler(planes, u, v)
 
-    energy.pattern_sample = record
+    energy.sample = record
     try:
         energy.linearize(state, imgs, H, W)
     finally:
-        energy.pattern_sample = sampler
+        energy.sample = sampler
     if len(seen) != 1:
         fail(f"linearize sampled {len(seen)} times")
     return seen[0]
@@ -570,6 +773,27 @@ def phase_ba(dev):
         fail(f"BA energy is not finite: {energies}")
     ms = cuda_time_ms(lambda: call(state), 10, warmup=1)
 
+    # the same call as one captured program: bitwise its eager run, and
+    # its time per call
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.models.window import ba_program
+    kw = dict(height=H, width=W, iterations=6, final_linearize=False)
+    x = {"state": state, "planes": imgs}
+    key = ("ba-cell", tuple(sorted(kw.items())))
+
+    cache = graphs.GraphCache()
+
+    def captured():
+        return cache.run(key, lambda x: ba_program(x, **kw), x)
+    gap, bitwise = replay_against_eager(
+        cache, captured, lambda: ba_program(contiguous(x), **kw), "ba cell")
+    before = pattern_sample.launches
+    captured()
+    if pattern_sample.launches - before != 6:
+        fail(f"{pattern_sample.launches - before} kernel launches counted "
+             f"in a replay of the 6-iteration ba_iterate")
+    captured_ms = cuda_time_ms(captured, 20, warmup=1)
+
     status = st.p_status.clone()
     status[::3] = bs.PT_MARGINALIZE
     st_m = st._replace(p_status=status)
@@ -583,7 +807,9 @@ def phase_ba(dev):
     if float(st_f.HM.abs().max()) <= 0.0 or bool(st_f.frame_valid[1]):
         fail("frame marginalization left no prior or kept the slot")
     phase("ba", energies=energies, ms_per_6it_call=ms,
-          gn_iters_per_s=6e3 / ms,
+          gn_iters_per_s=6e3 / ms, captured_ms_per_6it_call=captured_ms,
+          captured_gn_iters_per_s=6e3 / captured_ms,
+          captured_vs_eager={"max_gap": gap, "bitwise": bitwise},
           hm_abs_max=float(st_f.HM.abs().max()))
     return ms
 
@@ -603,6 +829,7 @@ def _window_tensors(window):
 
 
 def phase_pipeline(dev):
+    from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.config import EDSConfig
     from slam_eds_tpu_torch.io.dataset import SyntheticSequence
     from slam_eds_tpu_torch.models.pipeline import FrameOnlyPipeline
@@ -619,14 +846,23 @@ def phase_pipeline(dev):
 
     pattern_sample.launches = 0
     rasterize_bilinear.launches = 0
-    walls = []
-    for t, img in frames:
+    walls, syncs = [], []
+    window = DeviceWindow()
+    for k, (t, img) in enumerate(frames):
+        if k == PIPE_WARMUP:
+            window.start()
         t0 = time.perf_counter()
-        pipe.process_frame(img, t)
+        with graphs.sync_check("error"):
+            _, n, captured = counted_syncs(
+                lambda: pipe.process_frame(img, t))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        syncs.append((n, captured))
+        if k == PIPE_WARMUP + PROFILE_FRAMES - 1:
+            window.stop()
     launches = {"pattern_sample": pattern_sample.launches,
                 "rasterize_bilinear": rasterize_bilinear.launches}
+    captured = frame_captured_checks(pipe, frames[-1][1])
 
     est = pipe.positions()
     ate = float(ate_rmse(est, seq.gt_positions()[:len(est)]))
@@ -634,6 +870,8 @@ def phase_pipeline(dev):
     counters = dict(pipe.telemetry.counters)
     bound = max(0.05, 1.5 * JAX_CPU_ATE)
     steady = walls[PIPE_WARMUP:]
+    # host reads measured over the frames that captured no program
+    measured = [n for n, cap in syncs if not cap]
     phase("pipeline", frames=PIPE_FRAMES, keyframes=win.next_id,
           marginalized=win.marg_count, counters=counters,
           kernel_launches=launches, ate=ate, ate_bound=bound,
@@ -641,7 +879,17 @@ def phase_pipeline(dev):
           frames_per_s=len(steady) / sum(steady),
           frame_ms_median=1e3 * float(np.median(steady)),
           frame_ms_max=1e3 * max(steady),
-          first_frames_s=sum(walls[:PIPE_WARMUP]))
+          first_frames_s=sum(walls[:PIPE_WARMUP]),
+          host_reads_per_frame=sum(measured) / max(len(measured), 1),
+          host_reads_by_frame=[n for n, _ in syncs],
+          frames_capturing=len(syncs) - len(measured),
+          sync_warning_us=sync_warning_us(),
+          track_hypotheses_per_frame=counters.get("track_hypotheses", 0)
+          / PIPE_FRAMES,
+          device_idle_share=window.idle_share,
+          profiled_frames=[PIPE_WARMUP, PIPE_WARMUP + PROFILE_FRAMES],
+          profiled_wall_s=window.wall_s, profiled_device_busy_s=window.busy_s,
+          captured_vs_eager=captured)
     if not pipe._initialized or win.next_id < 2:
         fail("the pipeline did not bootstrap")
     if counters.get("ba_runs", 0) < 1 or win.marg_count < 1:
@@ -821,15 +1069,20 @@ def eds_config():
 
 
 def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
-                   after_packet=None):
+                   after_packet=None, window=None):
     """Frames [start, stop) of the event cell's sequence (to its end when
     ``stop`` is None), each followed by
     its packet, through ``pipe`` (a new ``EDSPipeline(cfg)`` when None), with
     both kernels' launch counts set to 0 just before and read just after.
-    ``after_packet(pipe, T)`` is called after every packet. Returns the
-    pipe, the launches, the per-frame and per-packet seconds, the usable
+    ``after_packet(pipe, T)`` is called after every packet; a
+    ``DeviceWindow`` given as ``window`` records frames PIPE_WARMUP to
+    PIPE_WARMUP + PROFILE_FRAMES with their packets. Returns the
+    pipe, the launches, the per-frame and per-packet seconds, the
+    synchronising calls of each frame and packet (``counted_syncs``; a
+    packet's with the rungs it took), the usable
     flags, every packet's pose (None where rejected) and the event
     positions with their ground truth."""
+    from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.models.pipeline import EDSPipeline
     from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
     from slam_eds_tpu_torch.ops.kernels.rasterize import rasterize_bilinear
@@ -839,21 +1092,30 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
         pipe = EDSPipeline(cam, cfg, device=dev)
     torch.cuda.synchronize()
 
+    warm0 = dict(graphs.CACHE.warmups)
     pattern_sample.launches = 0
     rasterize_bilinear.launches = 0
-    frame_s, packet_s = [], []
+    frame_s, packet_s, frame_syncs, packet_syncs = [], [], [], []
     ev_pos, ev_gt, usable, poses = [], [], [], []
+    c = pipe.telemetry.counters
     for k in range(start, len(frames) if stop is None else stop):
         t, img = frames[k]
+        if window is not None and k == PIPE_WARMUP:
+            window.start()
         t0 = time.perf_counter()
-        pipe.process_frame(img, t)
+        _, n, captured = counted_syncs(lambda: pipe.process_frame(img, t))
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
+        frame_syncs.append((n, captured))
         if k + 1 < len(frames) and pipe.kf is not None:
+            rungs = c["event_scalar_host_reads"]
             t0 = time.perf_counter()
-            T = pipe.process_events(packets[k])
+            T, n, captured = counted_syncs(
+                lambda: pipe.process_events(packets[k]))
             torch.cuda.synchronize()
             packet_s.append((k, time.perf_counter() - t0))
+            packet_syncs.append((n, c["event_scalar_host_reads"] - rungs,
+                                 captured))
             usable.append(T is not None)
             poses.append(None if T is None else torch.cat(
                 [T.R.reshape(-1), T.t]).cpu().numpy())
@@ -862,10 +1124,16 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
                 ev_gt.append(seq.pose_at(k + 0.5).inverse().t.cpu().numpy())
             if after_packet is not None:
                 after_packet(pipe, T)
+        if window is not None and k == PIPE_WARMUP + PROFILE_FRAMES - 1:
+            window.stop()
     launches = {"pattern_sample": pattern_sample.launches,
                 "rasterize_bilinear": rasterize_bilinear.launches}
+    # the launches of the warm-ups of programs first captured in this run
+    warmups = {k: graphs.CACHE.warmups[k] - warm0[k] for k in launches}
     return dict(pipe=pipe, seq=seq, frames=frames, packets=packets,
-                launches=launches, frame_s=frame_s, packet_s=packet_s,
+                launches=launches, warmup_launches=warmups,
+                frame_s=frame_s, packet_s=packet_s, frame_syncs=frame_syncs,
+                packet_syncs=packet_syncs,
                 usable=usable, poses=poses, ev_pos=ev_pos, ev_gt=ev_gt)
 
 
@@ -879,16 +1147,95 @@ def event_cell_ates(run):
     return ate, ev_ate
 
 
-def host_reads_per_packet(counters):
-    n_pk = max(counters["event_packets"], 1)
-    return {name: counters[f"event_{name}_host_reads"] / n_pk
-            for name in ("lm", "gate", "scalar")}
+def measured_reads(run):
+    """Host reads per packet and per frame of a ``run_event_cell`` result,
+    measured (``counted_syncs``) over the calls that captured no program,
+    with the rungs per packet and the number of calls measured and left
+    out."""
+    pk = [(n, r) for n, r, cap in run["packet_syncs"] if not cap]
+    fr = [n for n, cap in run["frame_syncs"] if not cap]
+    return {"per_packet": sum(n for n, _ in pk) / max(len(pk), 1),
+            "rungs_per_packet": sum(r for _, r in pk) / max(len(pk), 1),
+            "per_frame": sum(fr) / max(len(fr), 1),
+            "packets_measured": len(pk), "frames_measured": len(fr),
+            "capturing_packets": len(run["packet_syncs"]) - len(pk),
+            "capturing_frames": len(run["frame_syncs"]) - len(fr)}
+
+
+def check_reads(label, c, packet_syncs=()):
+    """The pipeline's telemetry: one read per packet and per retry of the
+    gate's ladder, none in the LM; and every packet of ``packet_syncs``
+    (``run_event_cell``) that captured no program read the host exactly
+    once per rung it took, measured."""
+    if c["event_scalar_host_reads"] != c["event_packets"] \
+            + c["event_retries"] or c["event_lm_host_reads"]:
+        fail(f"{label}: the telemetry's reads disagree ({dict(c)})")
+    off = [(k, n, r) for k, (n, r, cap) in enumerate(packet_syncs)
+           if not cap and n != r]
+    if off:
+        fail(f"{label}: packets whose host reads (measured) differ from the "
+             f"rungs they took, as (packet, reads, rungs): {off[:5]}")
+
+
+def packet_captured_checks(pipe, packets, label):
+    """Every rung's captured program of the pipeline's packet step,
+    replayed against the same program run eagerly, at the pipeline's state,
+    on two packets of different live counts (so a count frozen into the
+    program would show). Returns {rung: (max gap, bitwise)} and the counts."""
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.models import pipeline as pl
+    lim, iters, statics = pipe._packet_step_args()
+    big = max(range(len(packets)), key=lambda k: int(packets[k].n_valid))
+    small = min(range(len(packets)), key=lambda k: int(packets[k].n_valid))
+    out = {}
+    for k in (big, small):
+        x0 = pipe.packet_inputs(packets[k])
+        x = x0
+        for rung in range(pl.RUNGS):
+            program = pl._packet_rung_program(rung, pipe.cam, iters, lim,
+                                              statics)
+            gap, bitwise = replay_against_eager(
+                graphs.CACHE,
+                lambda: pipe._run_rung(rung, x, lim, iters, statics),
+                lambda: program(contiguous(x)), f"{label} rung {rung}")
+            prev = out.get(rung, (0.0, True))
+            out[rung] = (max(prev[0], gap), prev[1] and bitwise)
+            if rung == 0:
+                x = pl.retry_inputs(x0, program(x0)[0])
+    return {"rungs": {r: {"max_gap": g, "bitwise": b}
+                      for r, (g, b) in out.items()},
+            "n_valid": [int(packets[big].n_valid),
+                        int(packets[small].n_valid)]}
+
+
+def frame_captured_checks(pipe, img):
+    """The frame track's and the BA call's captured programs replayed
+    against the same functions run eagerly, at the window's state."""
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.models.window import (ba_program,
+                                                  track_frame_program)
+    win = pipe.window
+    x, static = win.track_inputs(img, pipe._last_pose)
+    track = replay_against_eager(
+        graphs.CACHE, lambda: win.run_track(x, static),
+        lambda: track_frame_program(contiguous(x), **static), "track_frame")
+    xb, kw = win.ba_inputs()
+    ba = replay_against_eager(graphs.CACHE, lambda: win.run_ba(xb, kw),
+                              lambda: ba_program(contiguous(xb), **kw),
+                              "ba_iterate")
+    return {"track_frame": {"max_gap": track[0], "bitwise": track[1]},
+            "ba_iterate": {"max_gap": ba[0], "bitwise": ba[1]}}
 
 
 def phase_eds(dev, label="eds"):
-    """The event cell on inputs made for this run; returns its launches,
+    """The event cell on inputs made for this run (under sync debug "error"
+    for every replay), a steady window of it under the profiler, then every
+    rung's captured program against its eager run; returns its launches,
     its counts and every packet's pose (None where rejected)."""
-    run = run_event_cell(dev, eds_config())
+    from slam_eds_tpu_torch import graphs
+    window = DeviceWindow()
+    with graphs.sync_check("error"):
+        run = run_event_cell(dev, eds_config(), window=window)
     pipe, frames, packets = run["pipe"], run["frames"], run["packets"]
     launches, usable, poses = run["launches"], run["usable"], run["poses"]
     frame_s, packet_s = run["frame_s"], run["packet_s"]
@@ -902,7 +1249,8 @@ def phase_eds(dev, label="eds"):
     min_solves = 0.8 * JAX_CPU_EDS["event_solves"]
     steady_pk = [s for k, s in packet_s if k >= PIPE_WARMUP]
     steady_s = sum(frame_s[PIPE_WARMUP:]) + sum(steady_pk)
-    reads = host_reads_per_packet(c)
+    reads = measured_reads(run)
+    captured = packet_captured_checks(pipe, packets, label)
     phase(label, frames=len(frames), packets_fed=len(usable),
           usable_solves=int(sum(usable)),
           usable_fraction=sum(usable) / max(len(usable), 1),
@@ -915,8 +1263,16 @@ def phase_eds(dev, label="eds"):
           packet_ms_median=1e3 * float(np.median(steady_pk)),
           packet_ms_max=1e3 * max(steady_pk),
           frame_ms_median=1e3 * float(np.median(frame_s[PIPE_WARMUP:])),
-          host_reads_per_packet=sum(reads.values()),
-          host_reads_per_packet_by_kind=reads,
+          host_reads_per_packet=reads["per_packet"],
+          host_reads_per_frame=reads["per_frame"], measured_reads=reads,
+          host_loop_reads_per_packet=HOST_LOOP_READS_PER_PACKET,
+          retries=c["event_retries"],
+          device_idle_share=window.idle_share,
+          profiled_frames=[PIPE_WARMUP, PIPE_WARMUP + PROFILE_FRAMES],
+          profiled_wall_s=window.wall_s, profiled_device_busy_s=window.busy_s,
+          captured_vs_eager=captured, graph_programs=len(
+              graphs.CACHE.programs), graph_replays=graphs.CACHE.replays(),
+          graph_capture_s=graphs.CACHE.capture_s,
           event_counters=dict(c), frame_counters=dict(fc),
           n_valid=[int(p.n_valid) for p in packets])
     if not fp._initialized or fp.window.next_id < 2:
@@ -931,6 +1287,12 @@ def phase_eds(dev, label="eds"):
         fail(f"{sum(usable)} usable event solves, fewer than {min_solves}")
     if min(launches.values()) <= 0:
         fail(f"a kernel was not launched on the event path: {launches}")
+    raster = launches["rasterize_bilinear"] \
+        - run["warmup_launches"]["rasterize_bilinear"]
+    if raster != c["event_packets"]:
+        fail(f"{raster} raster launches (beside the warm-ups') for "
+             f"{c['event_packets']} packets")
+    check_reads(label, c, run["packet_syncs"])
     if len(est) != len(frames) or not np.isfinite(est).all():
         fail(f"trajectory has {len(est)} entries or is not finite")
     off = [tuple(x.shape) for x in _event_tensors(pipe)
@@ -947,8 +1309,9 @@ def phase_eds(dev, label="eds"):
               "event_counters": dict(c), "frame_counters": dict(fc)}
     return {"launches": launches, "usable": "".join(
         "u" if u else "x" for u in usable), "counts": counts, "poses": poses,
-        "reads_per_packet": sum(reads.values()),
-        "packet_ms_median": 1e3 * float(np.median(steady_pk))}
+        "reads_per_packet": reads["per_packet"],
+        "packet_ms_median": 1e3 * float(np.median(steady_pk)),
+        "pipe": pipe, "packets": packets}
 
 
 class _Timed:
@@ -1050,8 +1413,8 @@ def phase_runner(dev, tmp):
         event_io_s=sec.get("event_io", 0.0),
         decode_and_event_io_share=io_s / wall,
         other_host_s=wall - sec["frame"] - sec["packet"] - io_s,
-        scalar_host_reads_per_packet=c["event_scalar_host_reads"]
-        / max(c["event_packets"], 1))
+        host_reads_per_packet=c["event_scalar_host_reads"]
+        / max(c["event_packets"], 1), retries=c["event_retries"])
     if not native:
         info["host_build_error"] = (eb.build_error() or "").strip(
             ).splitlines()[-1:]
@@ -1070,9 +1433,7 @@ def phase_runner(dev, tmp):
              f"(at least {RUNNER_MIN_SOLVES} wanted)")
     if min(launches.values()) <= 0:
         fail(f"a kernel was not launched on the runner's path: {launches}")
-    if c["event_scalar_host_reads"] != c["event_packets"]:
-        fail(f"{c['event_scalar_host_reads']} scalar host reads for "
-             f"{c['event_packets']} packets")
+    check_reads("runner", c)
     if not np.isfinite(res["positions"]).all():
         fail("the runner's trajectory is not finite")
     return launches, d
@@ -1174,8 +1535,11 @@ def phase_kernel_splat(dev):
     return kernel_entry(err, dev_us, plain_dev_us, ms, plain_ms, roof)
 
 
-def _refine_checks(label, run, per_packet):
-    """What every refinement cell must show; returns its counters."""
+def _refine_checks(label, run, splats):
+    """What every refinement cell must show; returns its counters. The
+    raster runs once per packet for the event frame and ``splats`` times in
+    each rung of the gate's ladder that the packet takes (the tail, with the
+    refinement, ends every rung)."""
     pipe = run["pipe"]
     fp = pipe.frame_pipe
     c = pipe.telemetry.counters
@@ -1185,42 +1549,51 @@ def _refine_checks(label, run, per_packet):
     if not np.isfinite(est).all() or not all(
             np.isfinite(p).all() for p in run["poses"] if p is not None):
         fail(f"{label}: a pose is not finite")
-    want = per_packet * c["event_packets"]
-    if run["launches"]["rasterize_bilinear"] != want or want <= 0:
-        fail(f"{label}: {run['launches']['rasterize_bilinear']} raster "
-             f"launches for {c['event_packets']} packets, not {per_packet} "
-             f"each")
+    want = c["event_packets"] + splats * (c["event_packets"]
+                                          + c["event_retries"])
+    got = run["launches"]["rasterize_bilinear"] \
+        - run["warmup_launches"]["rasterize_bilinear"]
+    if got != want or want <= 0:
+        fail(f"{label}: {got} raster launches (beside the warm-ups') for "
+             f"{c['event_packets']} packets and {c['event_retries']} "
+             f"retries, not {want}")
     if run["launches"]["pattern_sample"] <= 0:
         fail(f"{label}: the sampler kernel was never launched")
-    if c["event_scalar_host_reads"] != c["event_packets"]:
-        fail(f"{label}: {c['event_scalar_host_reads']} scalar host reads "
-             f"for {c['event_packets']} packets")
+    check_reads(label, c, run["packet_syncs"])
     return c
 
 
 def phase_eds_refine(dev, none_cell):
     """The event cell with ``model_klt`` at full width and depth, then
     ``klt_pyr`` and ``epiline`` over the first frames."""
-    run = run_event_cell(dev, tracker_config(track_refinement="model_klt"))
-    c = _refine_checks("model_klt", run, per_packet=2)
+    from slam_eds_tpu_torch import graphs
+    with graphs.sync_check("error"):
+        run = run_event_cell(dev,
+                             tracker_config(track_refinement="model_klt"))
+    c = _refine_checks("model_klt", run, splats=1)
+    captured = {"model_klt": packet_captured_checks(
+        run["pipe"], run["packets"], "model_klt")}
     pipe, usable = run["pipe"], run["usable"]
     fp = pipe.frame_pipe
     ate, ev_ate = event_cell_ates(run)
     ate_bound = max(0.05, 1.5 * JAX_CPU_REFINE["ate"])
     ev_bound = max(0.05, 1.5 * JAX_CPU_REFINE["event_ate"])
     min_solves = 0.8 * JAX_CPU_REFINE["event_solves"]
-    reads = host_reads_per_packet(c)
+    reads = measured_reads(run)
     steady_pk = [s for k, s in run["packet_s"] if k >= PIPE_WARMUP]
     short = {}
-    for mode, per_packet in (("klt_pyr", 3), ("epiline", 2)):
-        r = run_event_cell(dev, tracker_config(track_refinement=mode),
-                           stop=REFINE_SHORT_FRAMES)
-        cm = _refine_checks(mode, r, per_packet)
+    for mode, splats in (("klt_pyr", 2), ("epiline", 1)):
+        with graphs.sync_check("error"):
+            r = run_event_cell(dev, tracker_config(track_refinement=mode),
+                               stop=REFINE_SHORT_FRAMES)
+        cm = _refine_checks(mode, r, splats)
+        captured[mode] = packet_captured_checks(
+            r["pipe"], r["packets"][:REFINE_SHORT_FRAMES - 1], mode)
         short[mode] = {
             "frames": REFINE_SHORT_FRAMES, "packets": cm["event_packets"],
             "usable_solves": int(sum(r["usable"])),
             "kernel_launches": r["launches"],
-            "raster_launches_per_packet": per_packet,
+            "raster_splats_per_rung": splats, "retries": cm["event_retries"],
             "alive_points": int(r["pipe"].kf.mask.sum()),
             "kf_points_initial": int(r["pipe"].kf.n_initial),
             "packet_ms_median": 1e3 * float(np.median(
@@ -1230,14 +1603,14 @@ def phase_eds_refine(dev, none_cell):
           usable_by_packet="".join("u" if u else "x" for u in usable),
           event_kfs=pipe.num_event_kfs, keyframes=fp.window.next_id,
           marginalized=fp.window.marg_count, kernel_launches=run["launches"],
-          raster_launches_per_packet=2, ate=ate, ate_bound=ate_bound,
+          raster_splats_per_rung=1, retries=c["event_retries"], ate=ate,
+          ate_bound=ate_bound,
           event_ate=ev_ate, event_ate_bound=ev_bound, jax_cpu=JAX_CPU_REFINE,
           packet_ms_median=1e3 * float(np.median(steady_pk)),
           none_cell_packet_ms_median=none_cell["packet_ms_median"],
-          host_reads_per_packet=sum(reads.values()),
-          host_reads_per_packet_by_kind=reads,
+          host_reads_per_packet=reads["per_packet"], measured_reads=reads,
           none_cell_host_reads_per_packet=none_cell["reads_per_packet"],
-          short_cells=short)
+          short_cells=short, captured_vs_eager=captured)
     if sum(usable) < min_solves:
         fail(f"model_klt: {sum(usable)} usable solves, fewer than "
              f"{min_solves}")
@@ -1245,11 +1618,11 @@ def phase_eds_refine(dev, none_cell):
         fail(f"model_klt: frame ATE {ate} above the bound {ate_bound}")
     if not ev_ate <= ev_bound:
         fail(f"model_klt: event ATE {ev_ate} above the bound {ev_bound}")
-    # the refinement is device work: it adds no read to a packet. The LM's
-    # reads follow its iteration count, which the refined depths may move,
-    # so the totals are held to one read of each other
-    if sum(reads.values()) > none_cell["reads_per_packet"] + 1.0:
-        fail(f"model_klt: {sum(reads.values())} host reads per packet, the "
+    # the refinement is device work: it adds no read to a packet. A packet
+    # reads once per rung it takes, which the refined depths may move, so
+    # the totals are held to one read of each other
+    if reads["per_packet"] > none_cell["reads_per_packet"] + 1.0:
+        fail(f"model_klt: {reads['per_packet']} host reads per packet, the "
              f"cell without refinement {none_cell['reads_per_packet']}")
     return run["launches"]
 
@@ -1512,10 +1885,14 @@ def parallel_rank(group, args):
         n = u.numel()
         roof = roofline(n * 8 + n * 13 + sampler_texels(planes, u, v) * 4,
                         n * SAMPLER_OPS_PER_TAP, dev_us)
+        lib_call, lib_err = grid_sample_yardstick(planes, u, v)
         out["sampler"] = {"taps_shape": list(u.shape),
                           "planes_shape": list(planes.shape),
                           "max_abs_err": err, "device_us": dev_us,
                           "plain_device_us": plain_us,
+                          "library": "F.grid_sample([F,3,H,W] stack)",
+                          "library_device_us": device_us(lib_call),
+                          "library_max_abs_err_ok_taps": lib_err,
                           "bound_us": roof["bound_us"],
                           "bound_by": roof["bound_by"],
                           "share_of_bound": roof["share_of_bound"]}
@@ -1602,6 +1979,275 @@ def phase_parallel(dev):
             "sampler": sampler}
 
 
+def lane_sampler_entry(planes, u, v):
+    """The lane-axis sampler on the batched BA's taps (planes [B, F, H, W],
+    taps [B, P, F, K]): bitwise its plain version on ok taps, ``ok``
+    identical; device times of both, its bound (each lane's taps, outputs
+    and distinct texels) and ``F.grid_sample`` over the [B*F, 3, H, W]
+    stack as the library yardstick."""
+    from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
+    got = ps.pattern_sample_lanes_cuda(planes, u, v)
+    ref = ps.pattern_sample_lanes_reference(planes, u, v)
+    if not torch.equal(got[3], ref[3]):
+        fail("lane-axis sampler: ok masks differ from the plain version")
+    for a, b in zip(got[:3], ref[:3]):
+        if not (torch.isfinite(a).all() and torch.equal(a[ref[3]],
+                                                        b[ref[3]])):
+            fail("lane-axis sampler: not bitwise its plain version on ok "
+                 "taps")
+    B, P, F, K = u.shape
+    H, W = planes.shape[-2:]
+    dev_us = device_us(lambda: ps.pattern_sample_lanes_cuda(planes, u, v))
+    plain_us = device_us(
+        lambda: ps.pattern_sample_lanes_reference(planes, u, v))
+    # the [B*F] stack and the taps as one [P, B*F, K] problem
+    stack = torch.stack([planes.reshape(B * F, H, W)] * 3, -1)
+    uf = u.permute(1, 0, 2, 3).reshape(P, B * F, K)
+    vf = v.permute(1, 0, 2, 3).reshape(P, B * F, K)
+    n = u.numel()
+    texels = sampler_texels(stack, uf, vf)
+    roof = roofline(n * 8 + n * 13 + texels * 4, n * SAMPLER_OPS_PER_TAP,
+                    dev_us)
+    lib_call, _ = grid_sample_yardstick(stack, uf, vf)
+    ms = cuda_time_ms(lambda: ps.pattern_sample_lanes_cuda(planes, u, v), 200)
+    plain_ms = cuda_time_ms(
+        lambda: ps.pattern_sample_lanes_reference(planes, u, v), 50)
+    entry = kernel_entry(0.0, dev_us, plain_us, ms, plain_ms, roof,
+                         device_us(lib_call), cuda_time_ms(lib_call, 200))
+    entry.update(taps_shape=list(u.shape), planes_shape=list(planes.shape),
+                 distinct_texels=texels)
+    return entry
+
+
+def event_lane_reading(lane, single, ef, cam, pts, loss_scale):
+    """A batched event lane's state against its single solve's, in the LM's
+    12 coordinates (translation, the rotation vector of q_lane q_single^-1,
+    velocity), read against the LM's Gauss-Newton system H = J^T W J
+    (float64) at the single solve's state: H's eigenvalues, the gap's cost
+    d^T H d relative to the energy (what the gap adds to the energy, to
+    second order), its Rayleigh quotient relative to H's largest eigenvalue,
+    the share of |d|^2 on the eigendirections below EVENT_WEAK_SHARE of it
+    (the weak ones) and the norm of d on the others (the determined part)."""
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    from slam_eds_tpu_torch.utils import lie
+    r, J = et.event_residuals_and_jac(single, ef, cam, *pts)
+    w = et.huber_weight(r, torch.full((), float(loss_scale),
+                                      device=r.device)) * pts[4].float()
+    Hs = (J * w[:, None]).double().T @ J.double()
+    energy = float((w * r * r).sum())
+    dR = lie.quat_to_mat(lane.qx) @ lie.quat_to_mat(single.qx).T
+    d = torch.cat([lane.px - single.px, lie.so3_log(dR),
+                   lane.vx - single.vx]).double()
+    lam, V = torch.linalg.eigh(Hs)
+    c2 = (V.T @ d) ** 2
+    dd, cost = float(d @ d), float(d @ Hs @ d)
+    weak = lam < EVENT_WEAK_SHARE * lam[-1]
+    return {"gap_cost_rel": cost / energy,
+            "gap_rayleigh_rel": cost / dd / float(lam[-1]) if dd else 0.0,
+            "gap_weak_share": float(c2[weak].sum()) / dd if dd else 0.0,
+            "gap_determined": float(c2[~weak].sum()) ** 0.5,
+            "weak_dims": int(weak.sum()), "system_eigenvalues": lam.tolist()}
+
+
+def cpu_event_lane_gaps(states, efs, cam, pts, loss_scale, caps):
+    """The batched event lanes against their single solves on the CPU, from
+    the card's inputs: the largest translation, rotation and residual gap
+    over the lanes at each cap. Tells a gap of this problem from one of the
+    card."""
+    from slam_eds_tpu_torch import eval as ev
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    cpu = [x.cpu() for x in pts]
+    st = et.TrackerState(*(x.cpu() for x in states))
+    ef = efs.cpu()
+    out = {}
+    for k in caps:
+        got = ev.batched_event_solves(
+            st, ef, cam, *(torch.stack([a] * ef.shape[0]) for a in cpu),
+            max_iterations=k, loss_scale=loss_scale)
+        gap = {"px": 0.0, "qx": 0.0, "residuals": 0.0, "energy_rel": 0.0}
+        for b in range(ef.shape[0]):
+            one = et.optimize(ev._lane(st, b), ef[b], cam, *cpu,
+                              max_iterations=k, loss_scale=loss_scale)
+            lane = ev._lane(got, b)
+            for n in ("px", "qx"):
+                gap[n] = max(gap[n], float((getattr(lane.state, n)
+                                            - getattr(one.state, n)).abs()
+                                           .max()))
+            gap["residuals"] = max(gap["residuals"], float(
+                (lane.residuals - one.residuals).abs().max()))
+            gap["energy_rel"] = max(gap["energy_rel"], abs(
+                float(lane.energy) - float(one.energy)) / float(one.energy))
+        out[k] = gap
+    return out
+
+
+def phase_batched(dev, eds):
+    """The batched solver surface: ``batched_event_solves`` at B=4 on the
+    event cell's shapes (its last keyframe, the finest event frames of four
+    packets) and ``batched_ba_windows`` at B=2 on the BA cell (its window,
+    and one with idepths 1% larger on scaled and shifted planes), each one
+    ``torch.vmap``; every lane against its single solve.
+
+    The event lanes: the same pass count and, after 2, 5 and the cap's LM
+    passes, the pose within EVENT_LANE_POSE_TOL (at the cap
+    EVENT_LANE_CAP_POSE_TOL) along every direction the
+    cost determines (the eigendirections of the LM's 12x12 system at or
+    above EVENT_WEAK_SHARE of its largest eigenvalue; ``event_lane_reading``
+    prints the gap's share on the others, its cost and the spectrum); after
+    2 and 5 passes also the residuals within 2e-4 (the tracker tests'
+    bound), the energy within 1e-3 relative (the JAX package's
+    batched-against-single tolerance) and the gap's cost d^T H d within
+    1e-3 of the energy. The batched products sum in another order, and on
+    this problem (condition about 7e9 to 4e13 over the 11 non-null
+    directions) the LM carries that rounding along the 5 weak directions: on
+    the card the translation moves up to 4e-2 after 2 and 5 passes with the
+    gap's cost under 1e-5 of the energy, and at the cap of 10 one lane ends
+    0.75 apart along them with its energy 2.3% apart (printed, not held);
+    on the CPU, from the same inputs, the translation gaps are of the same
+    order (``cpu_event_lane_gaps``, printed).
+
+    The BA lanes within the card-against-CPU bounds of the card tests
+    (energy 1e-4 relative, frame deltas 1e-2 of their scale: another
+    summation order of the same ~1e8-conditioned system) and the idepths'
+    99th percentile within 1e-3 of their scale (the system leaves a few
+    points' idepths nearly free: their largest gap, printed, reached
+    1.8e-2 in a CPU rehearsal at this size, 2.6e-4 at the 99th percentile);
+    then the lane-axis sampler on the BA lanes' taps and planes. Times: the
+    batched call against the B single calls."""
+    from slam_eds_tpu_torch import eval as ev
+    from slam_eds_tpu_torch.models import pipeline as pl
+    from slam_eds_tpu_torch.ops import energy
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
+    pipe, packets = eds["pipe"], eds["packets"]
+    cam, kf, cfg = pipe.cam, pipe.kf, pipe.cfg
+    lim, iters, statics = pipe._packet_step_args()
+    head_kw = {k: statics[k] for k in pl.HEAD_STATICS}
+    B = 4
+    efs = []
+    for k in range(len(packets) - B, len(packets)):
+        x = pipe.packet_inputs(packets[k])
+        efs.append(pl._event_packet_head(
+            x["xs"], x["ys"], x["ts"], x["ps"], x["n_valid"], None,
+            kf.idepth, kf.mask, lim, **head_kw)[0][0])
+    efs = torch.stack(efs)
+    pts = (kf.norm_coord, kf.grad, kf.idepth, kf.weight, kf.mask)
+    states = et.TrackerState(*(torch.stack([f] * B)
+                               for f in pipe.tracker_state))
+
+    def batched_ev(cap):
+        return ev.batched_event_solves(
+            states, efs, cam, *(torch.stack([a] * B) for a in pts),
+            max_iterations=cap, loss_scale=pipe.loss_scale)
+
+    def singles_ev(cap):
+        return [et.optimize(pipe.tracker_state, efs[b], cam, *pts,
+                            max_iterations=cap, loss_scale=pipe.loss_scale)
+                for b in range(B)]
+
+    def gaps(cap):
+        got = no_sync(lambda: batched_ev(cap))
+        want = no_sync(lambda: singles_ev(cap))
+        out = []
+        for b in range(B):
+            lane = ev._lane(got, b)
+            d = {n: float((getattr(lane.state, n)
+                           - getattr(want[b].state, n)).abs().max())
+                 for n in ("px", "qx", "vx")}
+            d["residuals"] = float((lane.residuals
+                                    - want[b].residuals).abs().max())
+            d["energy_rel"] = abs(float(lane.energy)
+                                  - float(want[b].energy)) \
+                / abs(float(want[b].energy))
+            d["n_iter"] = [int(lane.n_iter), int(want[b].n_iter)]
+            d.update(event_lane_reading(lane.state, want[b].state, efs[b],
+                                        cam, pts, pipe.loss_scale))
+            out.append(d)
+        return out
+    cap = iters[0]
+    caps = sorted({*EVENT_LANE_ITERATIONS, cap})
+    ev_gaps = {k: gaps(k) for k in caps}
+    for k in caps:
+        for b, d in enumerate(ev_gaps[k]):
+            tol = EVENT_LANE_POSE_TOL if k in EVENT_LANE_ITERATIONS \
+                else EVENT_LANE_CAP_POSE_TOL
+            held = d["n_iter"][0] == d["n_iter"][1] \
+                and d["gap_determined"] <= tol
+            if k in EVENT_LANE_ITERATIONS:
+                held = held and d["residuals"] <= 2e-4 \
+                    and d["energy_rel"] <= 1e-3 and d["gap_cost_rel"] <= 1e-3
+            if not held:
+                fail(f"batched_event_solves lane {b} differs from its single "
+                     f"solve after {k} passes: {d}")
+    ev_cpu = cpu_event_lane_gaps(states, efs, cam, pts, pipe.loss_scale, caps)
+    ev_batched_s = wall_s(lambda: batched_ev(cap))
+    ev_singles_s = wall_s(lambda: singles_ev(cap))
+
+    state, imgs, H, W = build_ba_problem(dev)
+    planes1 = imgs[..., 0].contiguous()
+    lanes = [state, state._replace(p_idepth=state.p_idepth * 1.01)]
+    # lane 1 reads other planes (scaled and shifted): a kernel that read
+    # lane 0's planes for it, or ignored the lane stride, would differ
+    planes = torch.stack([planes1, planes1 * 0.9 + 7.0])
+    bstate = ev._stack(lanes)
+
+    def batched_ba():
+        return ev.batched_ba_windows(bstate, planes, H, W, iterations=6)
+
+    def singles_ba():
+        return [energy.ba_iterate(lanes[b], planes[b], H, W, iterations=6)
+                for b in range(2)]
+    ps.pattern_sample_lanes.launches = 0
+    bst, be = no_sync(batched_ba)
+    lane_launches = ps.pattern_sample_lanes.launches
+    if lane_launches != 7:
+        fail(f"batched_ba_windows launched the lane-axis sampler "
+             f"{lane_launches} times, not 6 GN passes + 1")
+    single = no_sync(singles_ba)
+    ba_gaps = []
+    for b in range(2):
+        st, e, _ = single[b]
+        d = {"energy_rel": abs(float(be[b]) - float(e)) / abs(float(e))}
+        for n in ("delta", "p_idepth"):
+            a, c = getattr(bst, n)[b], getattr(st, n)
+            d[n] = float((a - c).abs().max()) / float(c.abs().max())
+        gap = (bst.p_idepth[b] - st.p_idepth).abs() / st.p_idepth.abs().max()
+        d["p_idepth_q99"] = float(torch.quantile(gap, 0.99))
+        ba_gaps.append(d)
+        if not (d["energy_rel"] <= 1e-4 and d["delta"] <= 1e-2
+                and d["p_idepth_q99"] <= 1e-3):
+            fail(f"batched_ba_windows lane {b} differs from its single "
+                 f"solve: {d}")
+    ba_batched_s = wall_s(batched_ba)
+    ba_singles_s = wall_s(singles_ba)
+
+    taps = [record_taps(st_, planes[b], H, W) for b, st_ in enumerate(lanes)]
+    sampler = lane_sampler_entry(
+        planes, torch.stack([t[1] for t in taps]),
+        torch.stack([t[2] for t in taps]))
+    sampler["launches"] = lane_launches
+    phase("batched", event_lanes=B, event_iterations=caps,
+          event_pose_tol=[EVENT_LANE_POSE_TOL, EVENT_LANE_CAP_POSE_TOL],
+          event_lane_vs_single=ev_gaps,
+          event_lane_vs_single_cpu=ev_cpu,
+          event_batched_s=ev_batched_s,
+          event_singles_s=ev_singles_s, ba_lanes=2,
+          ba_lane_vs_single=ba_gaps, ba_batched_s=ba_batched_s,
+          ba_singles_s=ba_singles_s, lane_sampler=sampler)
+    return sampler
+
+
+def wall_s(fn):
+    """Host seconds of ``fn()`` to the end of its device work (after one
+    call to warm up)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def phase_history(first, last):
     """The event cell run first in the process and again after every other
     phase: the same usable string and counts, and every usable packet's
@@ -1630,6 +2276,7 @@ def main():
     phase_build("build-raster", built["rasterize"])
     phase_build_host(built["host"])
     first = phase_eds(dev, label="eds-first")
+    lanes = phase_batched(dev, first)
     kern = phase_kernel(dev)
     phase_ba(dev)
     frame_launches = phase_pipeline(dev)
@@ -1670,7 +2317,11 @@ def main():
          **{f"launches_{k}": v["rasterize_bilinear"]
             for k, v in cells.items()},
          "launches_parallel": par["rasterize_bilinear"],
-         "splat_shape": splat, **raster}]}))
+         "splat_shape": splat, **raster},
+        {"name": "pattern_sample_lanes", "route": "cuda",
+         "source": "slam_eds_tpu_torch/csrc/pattern_sample.cu",
+         "replaces": "slam_eds_tpu/ops/pallas/sample.py:84",
+         "path": "eval.batched_ba_windows (B=2, the BA cell)", **lanes}]}))
     print(gpu_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,13 @@
 // pairs, was slower on the card (PERF.md). The arithmetic follows
 // pattern_sample_reference term by term; built with --fmad=false it rounds
 // as that version does.
+//
+// Lane axis (the batched BA windows, eval.batched_ba_windows): taps
+// [B, P, F, K] of lane b read plane f of lane b, at planes + b * sB + f * sF
+// (a [B * F, H, W] stack when sB = F * sF); lane_taps = P * F * K. The lane
+// is blockIdx.y, so a thread finds its lane without a division, and the
+// tap's frame comes from its index within the lane in 32 bits: a single
+// problem (B = 1) does no more index work than before the lane axis.
 #include <cuda_runtime.h>
 
 namespace {
@@ -46,15 +53,20 @@ __device__ __forceinline__ float texel(const float* __restrict__ plane,
 }
 
 __global__ void pattern_sample_kernel(
-    const float* __restrict__ planes, long long sF, long long sH,
-    long long sW, int F, int H, int W, int K, long long N,
+    const float* __restrict__ planes, long long sB, long long sF,
+    long long sH, long long sW, int F, int H, int W, int K,
+    long long lane_taps,
     const float* __restrict__ u, const float* __restrict__ v,
     float* __restrict__ out_I, float* __restrict__ out_gx,
     float* __restrict__ out_gy, bool* __restrict__ out_ok) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int f = (int)((n / K) % F);
-  const float* plane = planes + (long long)f * sF;
+  // t: the tap within lane b = blockIdx.y (lane_taps < 2^31, so its index
+  // arithmetic is 32-bit); n: the tap's index in [B, P, F, K]
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (unsigned)lane_taps) return;
+  const long long b = blockIdx.y;
+  const long long n = b * lane_taps + t;
+  const int f = (int)((t / (unsigned)K) % (unsigned)F);
+  const float* plane = planes + b * sB + (long long)f * sF;
 
   float uc = u[n];
   float vc = v[n];
@@ -101,19 +113,22 @@ __global__ void pattern_sample_kernel(
 
 }  // namespace
 
-extern "C" int pattern_sample_launch(const float* planes, long long sF,
-                                     long long sH, long long sW, int F, int H,
-                                     int W, int K, long long N, const float* u,
+extern "C" int pattern_sample_launch(const float* planes, long long sB,
+                                     long long sF, long long sH, long long sW,
+                                     int F, int H, int W, int K, int lanes,
+                                     long long lane_taps, const float* u,
                                      const float* v, float* out_I,
                                      float* out_gx, float* out_gy,
                                      bool* out_ok, void* stream) {
-  if (N == 0) return 0;
+  if (lanes == 0 || lane_taps == 0) return 0;
+  if (lanes < 0 || lanes > 65535 || lane_taps < 0 || lane_taps > 2147483647)
+    return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  const long long blocks = (N + threads - 1) / threads;
-  pattern_sample_kernel<<<(unsigned)blocks, threads, 0,
-                          (cudaStream_t)stream>>>(planes, sF, sH, sW, F, H, W,
-                                                  K, N, u, v, out_I, out_gx,
-                                                  out_gy, out_ok);
+  const long long blocks = (lane_taps + threads - 1) / threads;
+  const dim3 grid((unsigned)blocks, (unsigned)lanes);
+  pattern_sample_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      planes, sB, sF, sH, sW, F, H, W, K, lane_taps, u, v, out_I, out_gx,
+      out_gy, out_ok);
   return (int)cudaGetLastError();
 }
 

@@ -3,13 +3,12 @@
 * ``evaluate_sequences`` runs every sequence through the full pipeline in
   one process (the kernels are built once) and reports per-sequence
   ATE-RMSE / RPE / rates plus aggregates.
-* ``batched_event_solves`` and ``batched_ba_windows`` keep the JAX
-  package's batched signatures (a leading batch axis B on every state
-  field and tensor). The JAX functions are ``jax.vmap`` of the solvers;
-  the port's solvers loop in Python with a host read per LM iteration,
-  which ``torch.vmap`` cannot carry, so here each lane is solved on its
-  own, one after the other: lane b equals the single solve of problem b
-  exactly, and the batch costs B times one solve.
+* ``batched_event_solves`` and ``batched_ba_windows`` are one ``torch.vmap``
+  each of the read-free solvers over a leading batch axis B, as the JAX
+  functions are ``jax.vmap``s: the B problems run as one batched program,
+  each lane on its own accept/reject and stopping mask. On the card the BA
+  lanes' taps go to the sampler kernel's lane axis in one launch per GN
+  pass (the operator's ``vmap`` rule).
 
 CLI:
     python -m slam_eds_tpu_torch.eval <seq_dir> [<seq_dir> ...]
@@ -59,42 +58,48 @@ def batched_event_solves(states: et.TrackerState, event_frames, cam: Pinhole,
                          norm_coord, grad, idp, weights, mask,
                          max_iterations: int = 20, loss_kind: str = "huber",
                          loss_scale=0.2, norm_event: bool = False):
-    """The event-to-model LM solve over a leading batch axis B.
+    """``torch.vmap`` of the event-to-model LM solve over a leading batch
+    axis B.
 
     states: TrackerState with fields [B, ...]; event_frames [B, H, W];
     keyframe tensors [B, P, ...]; loss_scale a scalar or [B]. Returns a
     TrackerResult with every field [B, ...]; each lane runs its own LM
-    trajectory, one lane after the other."""
+    trajectory (accept/reject and the stop are per lane, through the masked
+    loop's carry)."""
+    def one(state, ef, nc, g, d, w, m, ls):
+        return et.optimize(state, ef, cam, nc, g, d, w, m,
+                           max_iterations=max_iterations, loss_kind=loss_kind,
+                           loss_scale=ls, norm_event=norm_event)
+
     B = event_frames.shape[0]
-    ls = torch.as_tensor(loss_scale, dtype=torch.float32,
-                         device=event_frames.device)
+    ls = loss_scale
+    if not torch.is_tensor(ls):
+        ls = torch.full((), ls, dtype=torch.float32,
+                        device=event_frames.device)
     if ls.dim() == 0:
+        # a scalar applies to every lane: give vmap a mapped axis
         ls = ls.expand(B)
-    return _stack([
-        et.optimize(_lane(states, b), event_frames[b], cam, norm_coord[b],
-                    grad[b], idp[b], weights[b], mask[b],
-                    max_iterations=max_iterations, loss_kind=loss_kind,
-                    loss_scale=ls[b], norm_event=norm_event)
-        for b in range(B)])
+    return torch.vmap(one)(states, event_frames, norm_coord, grad, idp,
+                           weights, mask, ls)
 
 
 @torch.inference_mode()
 def batched_ba_windows(states, target_images, height: int, width: int,
                        iterations: int = 6, orth_from_iteration: int = 2):
-    """The keyframe-BA GN loop (``ops.energy.ba_iterate``) over a leading
-    batch axis B: B independent sliding windows, one after the other.
+    """``torch.vmap`` of the keyframe-BA GN loop (``ops.energy.ba_iterate``)
+    over a leading batch axis B: B independent sliding windows in one
+    batched program.
 
     states: BAState with every field [B, ...]; target_images [B, F, H, W]
     intensities or [B, F, H, W, 3] stacks. Returns (batched BAState,
     energies [B])."""
-    out, energies = [], []
-    for b in range(target_images.shape[0]):
-        st, e, _ = energy.ba_iterate(_lane(states, b), target_images[b],
-                                     height, width, iterations=iterations,
-                                     orth_from_iteration=orth_from_iteration)
-        out.append(st)
-        energies.append(e)
-    return _stack(out), torch.stack(energies)
+    def one(st, im):
+        st2, e, _ = energy.ba_iterate(st, im, height, width,
+                                      iterations=iterations,
+                                      orth_from_iteration=orth_from_iteration)
+        return st2, e
+
+    return torch.vmap(one)(states, target_images)
 
 
 # ---------------------------------------------------------------------------

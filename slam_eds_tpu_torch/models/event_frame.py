@@ -28,15 +28,16 @@ class EventFrame(NamedTuple):
         return SE3(self.T_w_ef_R, self.T_w_ef_t)
 
 
-def create_event_frame(xs, ys, ts, polarities, n_valid: int, height: int,
+def create_event_frame(xs, ys, ts, polarities, n_valid, height: int,
                        width: int, num_levels: int = 1,
                        fwd_maps=None, use_time_weights: bool = True,
                        blur_sigma: float = 0.5, blur_ksize: int = 3,
                        interpolation: str = "bilinear",
                        T_w_ef: Optional[SE3] = None) -> EventFrame:
     """EventFrame from a fixed-capacity packet whose first ``n_valid``
-    events are live. fwd_maps: optional (fwd_x, fwd_y) undistortion
-    tables."""
+    events are live (an int device scalar, or a Python int). fwd_maps:
+    optional (fwd_x, fwd_y) undistortion tables."""
+    n_valid = ev.live_count(n_valid, xs.device)
     if fwd_maps is not None:
         xs, ys = ev.undistort_events(xs, ys, fwd_maps[0], fwd_maps[1])
     frames, norms = ev.build_event_frame(
@@ -44,13 +45,12 @@ def create_event_frame(xs, ys, ts, polarities, n_valid: int, height: int,
         use_time_weights=use_time_weights, blur_sigma=blur_sigma,
         blur_ksize=blur_ksize, interpolation=interpolation)
     first = ts[0]
-    last = ts[max(int(n_valid) - 1, 0)]
+    last = ev.event_at(ts, n_valid - 1)
     if T_w_ef is None:
         T_w_ef = SE3.identity(frames.dtype, device=frames.device)
     return EventFrame(
         frames=frames, norms=norms,
         time=ev.median_event_time(ts, n_valid),
         first_time=first, last_time=last, delta_time=last - first,
-        n_events=torch.full((), int(n_valid), dtype=torch.int32,
-                            device=frames.device),
+        n_events=n_valid,
         T_w_ef_R=T_w_ef.R, T_w_ef_t=T_w_ef.t)

@@ -41,6 +41,7 @@ from . import keyframe as kfm
 from .event_frame import create_event_frame
 from .window import WindowManager
 from ..telemetry import Telemetry
+from ..graphs import CACHE, copy_out
 
 
 TRACK_REFINEMENTS = ("none", "klt", "klt_pyr", "model_klt", "epiline")
@@ -59,6 +60,10 @@ class FrameOnlyPipeline:
     # optional PhotometricCalib: its response-derivative table weights the
     # pixel selector's gradient maps
     photometric: object = None
+    # on a card, run the frame track and the BA call as captured CUDA
+    # graphs (``graphs``); False runs the same functions eagerly (the
+    # stage-by-stage profile)
+    capture: bool = True
 
     def __post_init__(self):
         if self.cfg.tracker.bootstrap not in BOOTSTRAPS:
@@ -97,7 +102,7 @@ class FrameOnlyPipeline:
         bgrad = (None if self.photometric is None
                  else self.photometric.b_grad_table())
         return WindowManager(self.cam, self.cfg, device=self.device,
-                             photometric_bgrad=bgrad)
+                             photometric_bgrad=bgrad, capture=self.capture)
 
     # ------------------------------------------------------------------
     def _full_reset(self):
@@ -333,23 +338,30 @@ class FrameOnlyPipeline:
             preds.append(SE3(T.R[s], T.t[s]))
         res = T_wc = None
         best = None
+        c = self.telemetry.counters
         for pred in preds:
             r, T = self.window.track_frame(img, pred)
-            if not bool(r.ok):
+            # one host read per hypothesis: its verdict and finest rms
+            ok_r0 = torch.stack([r.ok.to(torch.float32),
+                                 r.residuals[0]]).cpu().numpy()
+            c["track_hypotheses"] += 1
+            if not ok_r0[0] > 0.5:
                 if res is None:
                     res, T_wc = r, T
                 continue
-            r0 = float(r.residuals[0])
+            r0 = float(ok_r0[1])
             if best is None or r0 < best[2]:
                 best = (r, T, r0)
             if r0 <= 1.5 * self._last_rms:
                 break
+        track_ok = best is not None
         if best is not None:
             res, T_wc = best[0], best[1]
             # a fit whose rms sits near the robust cutoff aligned nothing
             if best[2] > 0.75 * self.cfg.coarse.coarse_cutoff_th:
-                res = res._replace(ok=torch.tensor(False, device=self.device))
-        track_ok = bool(res.ok)
+                res = res._replace(ok=torch.zeros((), dtype=torch.bool,
+                                                  device=self.device))
+                track_ok = False
         if track_ok:
             self._motion = T_wc.compose(self._last_pose.inverse())
             self._lost = False
@@ -374,10 +386,10 @@ class FrameOnlyPipeline:
         rms_doubled = (track_ok and self._first_rms is not None
                        and self._last_rms > 2.0 * self._first_rms
                        and self._last_rms > 4.0)
-        make_kf = (not self._lost) and (
-            self.window.need_new_kf(res)
-            or rms_doubled
-            or self._frames_since_kf >= self.cfg.bundles.min_frames)
+        make_kf = False
+        if not self._lost:
+            make_kf = (self.window.need_new_kf(res) or rms_doubled
+                       or self._frames_since_kf >= self.cfg.bundles.min_frames)
         if make_kf:
             self._add_keyframe(img, T_wc, time, res)
             self._frames_since_kf = 0
@@ -420,77 +432,75 @@ def _normalized_model(kf_nc, kf_grad, kf_idp, kf_mask, vx):
     return model / torch.sqrt(1e-3 + torch.sum(model * model))
 
 
-def _event_packet_fused(tracker_state, pose_filter, depth, cam,
-                        kf_pose_R, kf_pose_t, frame_pred_R, frame_pred_t,
-                        kf_uv, kf_nc, kf_grad, kf_idp, kf_weight, kf_mask,
-                        xs, ys, ts, ps, n_valid: int, fwd_maps,
-                        iters_per_level, loss_scale, lim, *,
-                        height, width, num_levels, use_time_weights,
-                        blur_ksize, interpolation, loss_kind, refinement,
-                        patch_radius, refine_levels, do_points_refinement,
-                        counters=None):
-    """The per-packet event step: event-frame rasterization -> coarse-to-fine
-    event-to-model solve -> solution-usability gate with the retry ladder ->
-    pose-filter push -> warp -> Vogiatzis depth update -> keyframe-need
-    statistics.
+# the packet step's static arguments, split between the event frame (head)
+# and the solve-and-tail rungs
+HEAD_STATICS = ("height", "width", "num_levels", "use_time_weights",
+                "blur_ksize", "interpolation")
+RUNG_STATICS = ("height", "width", "loss_kind", "refinement", "patch_radius",
+                "refine_levels", "do_points_refinement")
+# the gate's retry ladder: the first solve, the retry from the frame
+# tracker's prediction, the retry from the keyframe pose
+RUNGS = 3
 
-    The gate (Tracker.cpp:217-240) bounds the pose step since the previous
-    packet: translation relative to the keyframe's median depth, rotation
-    absolute. A failed solve is retried from the frame tracker's pose
-    prediction, then from the keyframe pose; the two retry decisions are host
-    reads (``counters["event_gate_host_reads"]``), as are the LM's
-    iterations (``counters["event_lm_host_reads"]``). Every state update is
-    selected back to its input when no solve passes (``torch.where``).
 
-    lim: {mu_range, min_depth, max_depth, px_noise, max_step_t, max_step_r,
-    activity_th, search_range, consistency_px} as floats. Returns (state, pose_filter, depth, mask,
-    tracks, residuals, scalars [usable, energy, loss_scale, n_iter, flow,
-    alive_count, ef_time, med_depth], T_w_ef_R, T_w_ef_t, vx)."""
-    if refinement not in TRACK_REFINEMENTS:
-        raise ValueError(f"unknown track_refinement {refinement!r}")
+def _event_packet_head(xs, ys, ts, ps, n_valid, fwd_maps, kf_idp, kf_mask,
+                       lim, *, height, width, num_levels, use_time_weights,
+                       blur_ksize, interpolation):
+    """The packet step's event frame (the raster kernel, blur, levels) and
+    the gate's median scene depth. ``n_valid`` is an int device scalar (or a
+    Python int). Returns (frames [L, H, W], time, med_depth)."""
     ef = create_event_frame(
         xs, ys, ts, ps, n_valid, height, width, num_levels=num_levels,
         fwd_maps=fwd_maps, use_time_weights=use_time_weights,
         blur_ksize=blur_ksize, interpolation=interpolation)
-    prev = tracker_state
     # median scene depth, clamped to the configured range: exploding depth
     # estimates must not void the translation gate
     med_depth = torch.clamp(
         masked_median(1.0 / torch.clamp(kf_idp, min=1e-6), kf_mask),
         lim["min_depth"], lim["max_depth"])
+    return ef.frames, ef.time, med_depth
 
-    def solve_from(st0):
-        return et._pyramid_fused(st0, ef.frames, cam, kf_nc, kf_grad, kf_idp,
-                                 kf_weight, kf_mask, iters_per_level,
-                                 loss_kind, loss_scale, False, counters)
 
-    def gate(res):
-        d_tau = et.pose_kf_ef(res.state).compose(
-            et.pose_kf_ef(prev).inverse()).log()
-        return (torch.isfinite(res.energy) & torch.isfinite(d_tau).all()
-                & (torch.linalg.vector_norm(d_tau[:3])
-                   < lim["max_step_t"] * med_depth)
-                & (torch.linalg.vector_norm(d_tau[3:]) < lim["max_step_r"]))
+def _event_packet_rung(rung: int, ef_frames, ef_time, med_depth,
+                       tracker_state, pose_filter, depth, cam,
+                       kf_pose_R, kf_pose_t, frame_pred_R, frame_pred_t,
+                       kf_uv, kf_nc, kf_grad, kf_idp, kf_weight, kf_mask,
+                       iters_per_level, loss_scale, lim, *, height, width,
+                       loss_kind, refinement, patch_radius, refine_levels,
+                       do_points_refinement):
+    """One rung of the gate's ladder and the step's tail: the coarse-to-fine
+    event-to-model solve from the rung's start (0: the tracker state, 1: the
+    frame tracker's prediction T_ef_kf = T_cw_frame o T_w_kf, 2: the
+    keyframe pose), the usability gate (Tracker.cpp:217-240: the pose step
+    since the previous packet, translation relative to the keyframe's median
+    depth, rotation absolute), the pose-filter push, the warp, the
+    configured track refinement, the Vogiatzis depth update and the
+    keyframe-need statistics. Every state update is selected back to its
+    input when the rung's solve fails the gate (``torch.where``).
 
-    def passed(usable):
-        if counters is not None:
-            counters["event_gate_host_reads"] += 1
-        return bool(usable)
-
-    res = solve_from(prev)
-    usable = gate(res)
-    # retry ladder: from the frame tracker's prediction
-    # (T_ef_kf = T_cw_frame o T_w_kf), then from the keyframe pose
-    if not passed(usable):
+    Returns (state, pose_filter, depth, mask, tracks, residuals, scalars
+    [usable, energy, loss_scale, n_iter, flow, alive_count, ef_time,
+    med_depth], T_w_ef_R, T_w_ef_t, vx)."""
+    prev = tracker_state
+    if rung == 0:
+        start = prev
+    elif rung == 1:
         pred_R = frame_pred_R @ kf_pose_R
         pred_t = frame_pred_R @ kf_pose_t + frame_pred_t
-        res = solve_from(prev._replace(px=pred_t, qx=lie.mat_to_quat(pred_R)))
-        usable = gate(res)
-        if not passed(usable):
-            res = solve_from(prev._replace(
-                px=torch.zeros_like(prev.px),
-                qx=lie.quat_identity(prev.qx.dtype, prev.qx.device)))
-            usable = gate(res)
+        start = prev._replace(px=pred_t, qx=lie.mat_to_quat(pred_R))
+    else:
+        start = prev._replace(
+            px=torch.zeros_like(prev.px),
+            qx=lie.quat_identity(prev.qx.dtype, prev.qx.device))
+    res = et._pyramid_fused(start, ef_frames, cam, kf_nc, kf_grad, kf_idp,
+                            kf_weight, kf_mask, iters_per_level, loss_kind,
+                            loss_scale, False)
+    d_tau = et.pose_kf_ef(res.state).compose(
+        et.pose_kf_ef(prev).inverse()).log()
+    usable = (torch.isfinite(res.energy) & torch.isfinite(d_tau).all()
+              & (torch.linalg.vector_norm(d_tau[:3])
+                 < lim["max_step_t"] * med_depth)
+              & (torch.linalg.vector_norm(d_tau[3:]) < lim["max_step_r"]))
 
     new_state = et._tree_where(usable, res.state, prev)
     pf_pushed = et.pose_filter_push(pose_filter, et.pose_kf_ef(res.state))
@@ -502,7 +512,7 @@ def _event_packet_fused(tracker_state, pose_filter, depth, cam,
     uv_ef, alive = et.warp_coords(res.state, cam, kf_nc, kf_idp, kf_mask)
     if refinement in ("klt", "klt_pyr"):
         delta, _ = et.refine_tracks_klt(
-            ef.frames[0], uv_ef, kf_grad, alive, patch_radius=patch_radius,
+            ef_frames[0], uv_ef, kf_grad, alive, patch_radius=patch_radius,
             num_levels=(refine_levels if refinement == "klt_pyr" else 1))
         uv_ef = uv_ef + delta
     elif refinement in ("model_klt", "epiline"):
@@ -510,11 +520,11 @@ def _event_packet_fused(tracker_state, pose_filter, depth, cam,
                                   res.state.vx)
         if refinement == "model_klt":
             delta, _ = et.refine_tracks_model_klt(
-                ef.frames[0], uv_ef, model, alive, patch_radius=patch_radius)
+                ef_frames[0], uv_ef, model, alive, patch_radius=patch_radius)
             uv_ef = uv_ef + delta
         else:
             uv_ef, alive = et.refine_tracks_epiline(
-                ef.frames[0], kf_uv, uv_ef, model, alive,
+                ef_frames[0], kf_uv, uv_ef, model, alive,
                 et.pose_kf_ef(res.state), cam, patch_radius=patch_radius,
                 search_range=lim["search_range"],
                 consistency_px=lim["consistency_px"])
@@ -525,7 +535,7 @@ def _event_packet_fused(tracker_state, pose_filter, depth, cam,
     mask_new = alive
     if do_points_refinement:
         # drop points without nearby event activity (pointsRefinement)
-        mask_new = mask_new & (kfm.event_activity(ef.frames[0], kf_uv)
+        mask_new = mask_new & (kfm.event_activity(ef_frames[0], kf_uv)
                                > lim["activity_th"])
     depth_out = et._tree_where(usable, depth_new, depth)
     mask_out = torch.where(usable, mask_new, kf_mask)
@@ -533,9 +543,97 @@ def _event_packet_fused(tracker_state, pose_filter, depth, cam,
     scalars = torch.stack([
         usable.to(f32), res.energy, res.loss_scale.to(f32),
         res.n_iter.to(f32), et.mean_flow_magnitude(uv_ef, kf_uv, alive),
-        mask_out.sum().to(f32), ef.time.to(f32), med_depth])
+        mask_out.sum().to(f32), ef_time.to(f32), med_depth])
     return (new_state, new_pf, depth_out, mask_out, tracks, res.residuals,
             scalars, T_w_ef.R, T_w_ef.t, res.state.vx)
+
+
+def _event_packet_fused(tracker_state, pose_filter, depth, cam,
+                        kf_pose_R, kf_pose_t, frame_pred_R, frame_pred_t,
+                        kf_uv, kf_nc, kf_grad, kf_idp, kf_weight, kf_mask,
+                        xs, ys, ts, ps, n_valid, fwd_maps,
+                        iters_per_level, loss_scale, lim, *,
+                        height, width, num_levels, use_time_weights,
+                        blur_ksize, interpolation, loss_kind, refinement,
+                        patch_radius, refine_levels, do_points_refinement):
+    """The whole per-packet event step, eagerly, with the JAX function's
+    arguments: ``gate_ladder`` over ``_packet_rung_program``, the
+    composition ``EDSPipeline.process_events`` runs.
+
+    lim: {mu_range, min_depth, max_depth, px_noise, max_step_t, max_step_r,
+    activity_th, search_range, consistency_px} as floats. Returns (the last
+    rung's outputs (``_event_packet_rung``), the number of rungs run)."""
+    if refinement not in TRACK_REFINEMENTS:
+        raise ValueError(f"unknown track_refinement {refinement!r}")
+    statics = dict(height=height, width=width, num_levels=num_levels,
+                   use_time_weights=use_time_weights, blur_ksize=blur_ksize,
+                   interpolation=interpolation, loss_kind=loss_kind,
+                   refinement=refinement, patch_radius=patch_radius,
+                   refine_levels=refine_levels,
+                   do_points_refinement=do_points_refinement)
+    x = {"xs": xs, "ys": ys, "ts": ts, "ps": ps, "n_valid": n_valid,
+         "fwd_maps": fwd_maps, "state": tracker_state, "pf": pose_filter,
+         "depth": depth, "kf_R": kf_pose_R, "kf_t": kf_pose_t,
+         "pred_R": frame_pred_R, "pred_t": frame_pred_t, "kf_uv": kf_uv,
+         "kf_nc": kf_nc, "kf_grad": kf_grad, "kf_idp": kf_idp,
+         "kf_weight": kf_weight, "kf_mask": kf_mask, "loss_scale": loss_scale}
+    out, _, rungs = gate_ladder(x, lambda rung, x: _packet_rung_program(
+        rung, cam, iters_per_level, lim, statics)(x))
+    return out, rungs
+
+
+def gate_ladder(x, run_rung):
+    """The packet step as JAX's ``lax.cond``s run the gate's ladder: the
+    first rung on ``x`` (``EDSPipeline.packet_inputs``), each retry only
+    where the rung before failed the gate, on ``retry_inputs``.
+    ``run_rung(rung, x)`` runs one rung's ``_packet_rung_program``
+    (replayed as its captured program, or eagerly). After each rung the
+    host reads the rung's scalar vector, event-frame pose and velocity in
+    one copy: the step's only host read.
+
+    Returns (the last rung's outputs, that read as numpy [scalars (8),
+    t_wef (3), R_wef (9), vx (6)], the number of rungs run)."""
+    for rung in range(RUNGS):
+        head, out = run_rung(rung, x)
+        if rung == 0:
+            x = retry_inputs(x, head)
+        scalars, R_wef, t_wef, vx = out[6], out[7], out[8], out[9]
+        host = torch.cat([scalars, t_wef, R_wef.reshape(-1),
+                          vx]).cpu().numpy()
+        if host[0] > 0.5 or rung == RUNGS - 1:
+            return out, host, rung + 1
+
+
+def retry_inputs(x, head):
+    """The retry rungs' inputs: the first rung's inputs with the packet
+    replaced by the event frame it made (``head``: frames, time,
+    med_depth)."""
+    x = {k: v for k, v in x.items()
+         if k not in ("xs", "ys", "ts", "ps", "n_valid", "fwd_maps")}
+    x.update(frames=head[0], time=head[1], med_depth=head[2])
+    return x
+
+
+def _packet_rung_program(rung: int, cam, iters, lim, statics):
+    """The captured form of one rung: the first rung holds the event frame
+    too; the retries take the first rung's event frame as inputs."""
+    head_kw = {k: statics[k] for k in HEAD_STATICS}
+    rung_kw = {k: statics[k] for k in RUNG_STATICS}
+
+    def program(x):
+        if rung == 0:
+            frames, time, med = _event_packet_head(
+                x["xs"], x["ys"], x["ts"], x["ps"], x["n_valid"],
+                x["fwd_maps"], x["kf_idp"], x["kf_mask"], lim, **head_kw)
+        else:
+            frames, time, med = x["frames"], x["time"], x["med_depth"]
+        out = _event_packet_rung(
+            rung, frames, time, med, x["state"], x["pf"], x["depth"], cam,
+            x["kf_R"], x["kf_t"], x["pred_R"], x["pred_t"], x["kf_uv"],
+            x["kf_nc"], x["kf_grad"], x["kf_idp"], x["kf_weight"],
+            x["kf_mask"], iters, x["loss_scale"], lim, **rung_kw)
+        return (frames, time, med), out
+    return program
 
 
 @dataclass
@@ -547,6 +645,9 @@ class EDSPipeline:
     cfg: EDSConfig = field(default_factory=EDSConfig)
     device: str = "cuda"
     photometric: object = None
+    # on a card, run the packet step (and the frame backend's track and BA)
+    # as captured CUDA graphs; False runs the same functions eagerly
+    capture: bool = True
 
     def __post_init__(self):
         if self.cfg.tracker.track_refinement not in TRACK_REFINEMENTS:
@@ -554,7 +655,8 @@ class EDSPipeline:
                              f"{self.cfg.tracker.track_refinement!r}")
         self.frame_pipe = FrameOnlyPipeline(self.cam, self.cfg,
                                             device=self.device,
-                                            photometric=self.photometric)
+                                            photometric=self.photometric,
+                                            capture=self.capture)
         self.device = self.frame_pipe.device
         self.kf: Optional[kfm.KeyFrame] = None
         self.depth: Optional[df.DepthFilterState] = None
@@ -712,14 +814,19 @@ class EDSPipeline:
         return self._psa
 
     def _upload(self, packet):
-        """The packet's (x, y, t, polarity) arrays as one [4, cap] float32
-        tensor on the device; on a card through pinned memory without a
-        synchronizing copy."""
+        """The packet's (x, y, t, polarity) arrays and its live count on the
+        device, the count as an int32 scalar (data, as in JAX: a captured
+        step serves every packet); on a card through pinned memory without
+        a synchronizing copy. Returns (xs, ys, ts, ps, n_valid)."""
         host = torch.from_numpy(np.stack([packet.xs, packet.ys, packet.ts,
                                           packet.polarity]).astype(np.float32))
+        n = torch.tensor([int(packet.n_valid)], dtype=torch.int32)
         if self.device.type == "cuda":
-            return host.pin_memory().to(self.device, non_blocking=True)
-        return host.to(self.device)
+            host = host.pin_memory().to(self.device, non_blocking=True)
+            n = n.pin_memory().to(self.device, non_blocking=True)
+        else:
+            host, n = host.to(self.device), n.to(self.device)
+        return (*host.unbind(0), n.reshape(()))
 
     @torch.inference_mode()
     def process_events(self, packet, fwd_maps=None):
@@ -730,39 +837,37 @@ class EDSPipeline:
         tables (``utils.cameras.forward_maps``); tensors already on the
         pipeline's device are used as they are.
 
-        One host read per packet of the 8-entry scalar vector with the
-        event-frame pose and the velocity (for the recorder), besides the
-        LM's and the retry ladder's reads inside the step (all counted in
-        ``telemetry.counters``)."""
+        The step runs rung by rung (``_event_packet_rung``): on the card
+        each rung is one captured program (``graphs``; the first rung holds
+        the event frame), on the CPU the same functions run eagerly, through
+        ``gate_ladder``. Host reads: 1 per packet plus 1 per retry
+        (``telemetry.counters``: ``event_scalar_host_reads`` counts them,
+        ``event_retries`` the retries; the LM reads nothing,
+        ``event_lm_host_reads`` stays 0)."""
         if self.kf is None:
             return None
-        if fwd_maps is not None:
-            fwd_maps = tuple(torch.as_tensor(m, dtype=torch.float32,
-                                             device=self.device)
-                             for m in fwd_maps)
         kf = self.kf
         c = self.telemetry.counters
         lim, iters, statics = self._packet_step_args()
-        pred = self.frame_pipe._last_pose
-        xs, ys, ts, ps = self._upload(packet).unbind(0)
-        (state, pf, depth, mask, tracks, residuals, scalars,
-         R_wef, t_wef, vx) = _event_packet_fused(
-            self.tracker_state, self.pose_filter, self.depth, self.cam,
-            kf.T_w_kf_R, kf.T_w_kf_t, pred.R, pred.t,
-            kf.uv, kf.norm_coord, kf.grad, kf.idepth, kf.weight, kf.mask,
-            xs, ys, ts, ps, int(packet.n_valid), fwd_maps, iters,
-            self.loss_scale, lim, counters=c, **statics)
-        # the packet's one host read: the scalars, the event-frame pose and
-        # the velocity in a single copy
-        host = torch.cat([scalars, t_wef, R_wef.reshape(-1), vx]).cpu().numpy()
-        sc = host[:8]
         c["event_packets"] += 1
-        c["event_scalar_host_reads"] += 1
+        c["event_lm_host_reads"] += 0
+        out, host, rungs = gate_ladder(
+            self.packet_inputs(packet, fwd_maps),
+            lambda rung, x: self._run_rung(rung, x, lim, iters, statics))
+        c["event_scalar_host_reads"] += rungs
+        c["event_retries"] += rungs - 1
+        (state, pf, depth, mask, tracks, residuals, _, R_wef, t_wef, _) = out
+        sc = host[:8]
         if not sc[0] > 0.5:
             # rejected solve: the step already selected every state back
             c["event_solve_rejected"] += 1
             self._pending_kf = True
             return None
+        # adopt copies: a captured program's outputs are overwritten by its
+        # next replay
+        (state, pf, depth, mask, tracks, residuals, R_wef, t_wef) = \
+            copy_out((state, pf, depth, mask, tracks, residuals, R_wef,
+                      t_wef))
         self.tracker_state = state
         self.pose_filter = pf
         self.depth = depth
@@ -792,3 +897,36 @@ class EDSPipeline:
                 * self._kf_n_initial:
             self._pending_kf = True
         return T_w_ef.inverse()
+
+    def packet_inputs(self, packet, fwd_maps=None):
+        """The first rung's inputs for ``packet`` at the pipeline's current
+        state: a dict of device tensors (the packet uploaded, its live count
+        an int32 device scalar, the loss scale a float32 one)."""
+        if fwd_maps is not None:
+            fwd_maps = tuple(torch.as_tensor(m, dtype=torch.float32,
+                                             device=self.device)
+                             for m in fwd_maps)
+        kf = self.kf
+        pred = self.frame_pipe._last_pose
+        xs, ys, ts, ps, n_valid = self._upload(packet)
+        return {"xs": xs, "ys": ys, "ts": ts, "ps": ps, "n_valid": n_valid,
+                "fwd_maps": fwd_maps, "state": self.tracker_state,
+                "pf": self.pose_filter, "depth": self.depth,
+                "kf_R": kf.T_w_kf_R, "kf_t": kf.T_w_kf_t, "pred_R": pred.R,
+                "pred_t": pred.t, "kf_uv": kf.uv, "kf_nc": kf.norm_coord,
+                "kf_grad": kf.grad, "kf_idp": kf.idepth,
+                "kf_weight": kf.weight, "kf_mask": kf.mask,
+                "loss_scale": torch.full((), self.loss_scale,
+                                         dtype=torch.float32,
+                                         device=self.device)}
+
+    def _run_rung(self, rung: int, x, lim, iters, statics):
+        """One rung of the packet step: replayed as its captured program on
+        the card (``capture``), run eagerly otherwise. Returns ((frames,
+        time, med_depth), the rung's outputs)."""
+        program = _packet_rung_program(rung, self.cam, iters, lim, statics)
+        if self.device.type == "cuda" and self.capture:
+            key = ("event_packet", rung, tuple(self.cam), tuple(iters),
+                   tuple(sorted(lim.items())), tuple(sorted(statics.items())))
+            return CACHE.run(key, program, x)
+        return program(x)

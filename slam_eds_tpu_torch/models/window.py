@@ -4,7 +4,11 @@ activation, marginalization policy and coarse-template refresh.
 
 Control decisions (which slot, how many points) run in host numpy as in the
 JAX module; numerical work is torch on the window's device. The JAX
-module's jitted helpers are plain functions here, and its padded
+module's two one-dispatch programs, ``_track_frame_compiled`` (the
+relative-pose prefix, the coarse LM, the world pose) and the BA call, are
+captured CUDA graphs on the card (``graphs``; ``track_frame_program`` and
+``ba_program`` are the functions captured, and run eagerly on the CPU). Its
+other jitted helpers are plain functions here, and its padded
 ``.at[dst].set(..., mode="drop")`` activation commit writes only the real
 rows.
 """
@@ -16,6 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..graphs import CACHE, copy_out
 from ..config import EDSConfig
 from ..utils.cameras import Pinhole
 from ..utils.lie import SE3
@@ -41,6 +46,37 @@ def all_pairs(state: bs.BAState, K):
     Kt = torch.einsum("ij,thj->hti", K, t_th)
     a_rel, b_rel = energy.relative_affine(state, use_zero=False)
     return KRKi, Kt, torch.stack([a_rel, b_rel], -1)
+
+
+def track_frame_program(x, *, cams, max_iterations, huber_th, cutoff_th):
+    """``track_frame``'s whole device program (JAX
+    ``_track_frame_compiled``): the frame's pyramid, the relative-pose prefix
+    (refToNew from the window state), ``track_newest_coarse`` and the world
+    pose composition. x: {img [H, W], slot [1] int64, delta, T_eval_R,
+    T_eval_t, exposure, aff_eval (the window's frame fields), templates,
+    pose_R, pose_t, aff, exp_new}. Returns (TrackResult, T_wc)."""
+    L = len(cams)
+    pyr = image_ops.build_pyramid(x["img"], L)[0]
+    T = SE3.exp(x["delta"][:, :6]).compose(SE3(x["T_eval_R"], x["T_eval_t"]))
+    slot = x["slot"]
+    T_kf = SE3(T.R.index_select(0, slot)[0], T.t.index_select(0, slot)[0])
+    aff_kf = (x["aff_eval"] + x["delta"][:, 6:8]).index_select(0, slot)[0]
+    res = ct.track_newest_coarse(
+        x["templates"], pyr, cams,
+        SE3(x["pose_R"], x["pose_t"]).compose(T_kf.inverse()), x["aff"],
+        (x["exposure"].index_select(0, slot)[0], x["exp_new"]), aff_kf,
+        # abort thresholds disabled: the pipeline's hypothesis ladder uses
+        # the achieved residuals instead
+        torch.full((L,), 1e9, device=slot.device),
+        max_iterations=max_iterations, huber_th=huber_th,
+        cutoff_th=cutoff_th)
+    return res, res.pose.compose(T_kf)
+
+
+def ba_program(x, *, height, width, **kw):
+    """The BA call's device program: ``energy.ba_iterate`` on x = {state,
+    planes}. Returns (state, energy, lin)."""
+    return energy.ba_iterate(x["state"], x["planes"], height, width, **kw)
 
 
 def activate_commit(state: bs.BAState, images, dst, host, uv, idp,
@@ -142,6 +178,8 @@ class WindowManager:
     # maps are weighted by bg(I)^2 per level (setting_gammaWeightsPixelSelect)
     photometric_bgrad: object = None
     marg_count: int = 0
+    # on a card, track_frame and optimize replay captured CUDA graphs
+    capture: bool = True
 
     def __post_init__(self):
         F = self.cfg.caps.max_window_frames
@@ -436,18 +474,36 @@ class WindowManager:
         return n
 
     # ------------------------------------------------------------------
+    def _captured(self) -> bool:
+        return self.device.type == "cuda" and self.capture
+
+    def ba_inputs(self, iterations: Optional[int] = None):
+        """(x, kw) of the BA call at the window's state: ``ba_program``'s
+        inputs and static arguments."""
+        b = self.cfg.bundles
+        kw = dict(height=self.cam.height, width=self.cam.width,
+                  iterations=iterations or b.max_opt_iterations,
+                  lam=b.fix_lambda, huber_th=b.huber_th,
+                  outlier_th_sum=b.outlier_th_sum_component,
+                  orth_from_iteration=b.orthogonalize_x_from_it,
+                  min_iterations=b.min_opt_iterations,
+                  break_tol=b.opt_break_tol)
+        return {"state": self.state, "planes": self.intensity}, kw
+
+    def run_ba(self, x, kw):
+        """``ba_program(x, **kw)``: on a card the captured program (one per
+        (F, P, H, W, iterations)), whose outputs are copied out, else
+        eagerly."""
+        if not self._captured():
+            return ba_program(x, **kw)
+        out = CACHE.run(("ba", tuple(sorted(kw.items()))),
+                        lambda x: ba_program(x, **kw), x)
+        # copies: a program's outputs are overwritten by its next replay
+        return copy_out(out)
+
     def optimize(self, iterations: Optional[int] = None):
-        """Run the window BA (ba_iterate); returns (energy, lin)."""
-        H, W = self.cam.height, self.cam.width
-        self.state, e, lin = energy.ba_iterate(
-            self.state, self.intensity, H, W,
-            iterations=iterations or self.cfg.bundles.max_opt_iterations,
-            lam=self.cfg.bundles.fix_lambda,
-            huber_th=self.cfg.bundles.huber_th,
-            outlier_th_sum=self.cfg.bundles.outlier_th_sum_component,
-            orth_from_iteration=self.cfg.bundles.orthogonalize_x_from_it,
-            min_iterations=self.cfg.bundles.min_opt_iterations,
-            break_tol=self.cfg.bundles.opt_break_tol)
+        """Run the window BA (``run_ba``); returns (energy, lin)."""
+        self.state, e, lin = self.run_ba(*self.ba_inputs(iterations))
         self._update_energy_th(lin)
         return float(e), lin
 
@@ -572,36 +628,53 @@ class WindowManager:
 
     def track_frame(self, img, pose_init: SE3, aff_init=(0.0, 0.0),
                     exposure: float = 1.0):
-        """Coarse-track a frame against the newest keyframe.
-        Returns (TrackResult, T_wc of the frame)."""
-        pyr = self._pyramid(img)
-        L = self.cfg.coarse.pyr_levels
-        cams = [self.cam.pyramid_level(l) for l in range(L)]
-        st = self.state
-        slot = self.newest_slot
-        T = st.current_poses()
-        T_kf = SE3(T.R[slot], T.t[slot])
+        """Coarse-track a frame against the newest keyframe
+        (``run_track``). Returns (TrackResult, T_wc of the frame)."""
+        return self.run_track(*self.track_inputs(img, pose_init, aff_init,
+                                                 exposure))
+
+    def run_track(self, x, static):
+        """``track_frame_program(x, **static)``: on a card the captured
+        program (one per pyramid shape), whose outputs are copied out, else
+        eagerly."""
+        if not self._captured():
+            return track_frame_program(x, **static)
+        out = CACHE.run(
+            ("track_frame", tuple(sorted(static.items()))),
+            lambda x: track_frame_program(x, **static), x)
+        return copy_out(out)
+
+    def track_inputs(self, img, pose_init: SE3, aff_init=(0.0, 0.0),
+                     exposure: float = 1.0):
+        """(x, static) of ``track_frame_program`` for ``img`` at the
+        window's state."""
         dev = self.device
-        res = ct.track_newest_coarse(
-            self.coarse_templates, pyr, cams,
-            pose_init.compose(T_kf.inverse()),
-            torch.as_tensor(aff_init, dtype=torch.float32, device=dev),
-            (st.exposure[slot], torch.tensor(exposure, device=dev)),
-            st.current_aff()[slot],
-            # abort thresholds disabled: the pipeline's hypothesis ladder
-            # uses the achieved residuals instead
-            torch.full((L,), 1e9, device=dev),
-            max_iterations=tuple(self.cfg.coarse.max_iterations),
-            huber_th=self.cfg.coarse.huber_th,
-            cutoff_th=self.cfg.coarse.coarse_cutoff_th)
-        return res, res.pose.compose(T_kf)
+        st = self.state
+        L = self.cfg.coarse.pyr_levels
+        static = dict(cams=tuple(self.cam.pyramid_level(l) for l in range(L)),
+                      max_iterations=tuple(self.cfg.coarse.max_iterations),
+                      huber_th=self.cfg.coarse.huber_th,
+                      cutoff_th=self.cfg.coarse.coarse_cutoff_th)
+        x = {"img": torch.as_tensor(img, dtype=torch.float32, device=dev),
+             "slot": torch.full((1,), self.newest_slot, dtype=torch.int64,
+                                device=dev),
+             "delta": st.delta, "T_eval_R": st.T_eval.R,
+             "T_eval_t": st.T_eval.t, "exposure": st.exposure,
+             "aff_eval": st.aff_eval, "templates": self.coarse_templates,
+             "pose_R": pose_init.R, "pose_t": pose_init.t,
+             "aff": (aff_init.to(torch.float32) if torch.is_tensor(aff_init)
+                     else torch.stack([torch.full((), float(a), device=dev)
+                                       for a in aff_init])),
+             "exp_new": torch.full((), exposure, dtype=torch.float32,
+                                   device=dev)}
+        return x, static
 
     def need_new_kf(self, track_res) -> bool:
         """DSO keyframe decision from flow indicators + affine change."""
         w, h = self.cam.width, self.cam.height
         cfg = self.cfg.bundles
-        fi = _np(track_res.flow_indicators)
-        a = _np(track_res.aff)
+        fa = _np(torch.cat([track_res.flow_indicators, track_res.aff]))
+        fi, a = fa[:3], fa[3:]
         norm = (640 + 480) / (w + h)
         score = cfg.kf_global_weight * (
             cfg.max_shift_weight_t * norm * np.sqrt(max(fi[0], 0.0))

@@ -1,10 +1,11 @@
 """Coarse-to-fine direct image alignment (frame -> newest keyframe) — port
 of ``slam_eds_tpu.ops.coarse_tracker`` (DSO's CoarseTracker).
 
-The per-level LM ``lax.while_loop``s are Python loops; the only host reads
-are the ones the JAX loop conditions make (the saturation test of the
-cutoff escalation, the ``it < max & ~done`` test of the LM loop). Template
-packing is a stable descending sort, matching ``lax.top_k``'s order.
+The per-level ``lax.while_loop``s (the cutoff escalation and the LM) are
+fixed counts of masked passes that carry the JAX loops' state, so a level
+reads nothing back to the host and ``track_newest_coarse`` can be captured
+in a CUDA graph. Template packing is a stable descending sort, matching
+``lax.top_k``'s order.
 """
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ from ..utils.interp import bilinear_3
 from ..utils.scatter import order_free_index_add
 from ..utils.stats import huber_weight
 
+# masked doublings of the robust cutoff: ceil(log2(50)), enough to reach the
+# escalation's 50x bound from any start
+CUTOFF_DOUBLINGS = 6
 
 class LevelTemplate(NamedTuple):
     u: torch.Tensor       # [N]
@@ -237,34 +241,43 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
     def rel_aff(aff):
         return aff_from_to(exp_ref, aff_ref, exp_new, aff)
 
-    # cutoff escalation: double while > 60% saturate (one host read per
-    # test, as the JAX while_loop condition)
+    # cutoff escalation: double while > 60% saturate, as JAX's while_loop,
+    # in ceil(log2(50)) = 6 masked passes (20 -> 1280 takes 6 doublings)
     _, _, sat, _ = calc_res(tpl, dI, cam, pose0, rel_aff(aff0), huber_th,
                             cutoff_th)
-    cutoff = torch.tensor(cutoff_th, dtype=torch.float32, device=dev)
-    while bool((sat > 0.6) & (cutoff < cutoff_th * 50.0)):
-        cutoff = cutoff * 2.0
-        _, _, sat, _ = calc_res(tpl, dI, cam, pose0, rel_aff(aff0), huber_th,
-                                cutoff)
+    cutoff = torch.full((), cutoff_th, dtype=torch.float32, device=dev)
+    for _ in range(CUTOFF_DOUBLINGS):
+        grow = (sat > 0.6) & (cutoff < cutoff_th * 50.0)
+        c2 = cutoff * 2.0
+        _, _, sat2, _ = calc_res(tpl, dI, cam, pose0, rel_aff(aff0),
+                                 huber_th, c2)
+        cutoff = torch.where(grow, c2, cutoff)
+        sat = torch.where(grow, sat2, sat)
 
     E0, n0, _, buf0 = calc_res(tpl, dI, cam, pose0, rel_aff(aff0), huber_th,
                                cutoff)
     H, b = calc_gs(buf0, cam, rel_aff(aff0), b0_ref)
-    S = torch.tensor([1, 1, 1, 1, 1, 1, scale_a, scale_b], dtype=dtype,
-                     device=dev)
+    S = torch.ones(8, dtype=dtype, device=dev)
+    if scale_a != 1.0 or scale_b != 1.0:
+        S = torch.cat([S[:6], torch.full((1,), scale_a, dtype=dtype,
+                                         device=dev),
+                       torch.full((1,), scale_b, dtype=dtype, device=dev)])
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye8 = torch.eye(8, dtype=dtype, device=dev)
+
+    def solve(A, rhs):
+        return torch.linalg.solve_ex(A, rhs[:, None],
+                                     check_errors=False)[0][:, 0]
 
     def solve_inc(H, b, lam):
         Hl = H + lam * torch.diag(torch.diagonal(H))
         Hs = Hl * S[None, :] * S[:, None]
         bs = b * S
         if fix_a and fix_b:
-            inc = torch.cat([torch.linalg.solve(Hs[:6, :6] + 1e-12 * eye6,
-                                                -bs[:6]),
+            inc = torch.cat([solve(Hs[:6, :6] + 1e-12 * eye6, -bs[:6]),
                              torch.zeros(2, dtype=dtype, device=dev)])
         else:
-            inc = torch.linalg.solve(Hs + 1e-12 * eye8, -bs)
+            inc = solve(Hs + 1e-12 * eye8, -bs)
             if fix_a:
                 inc = torch.cat([inc[:6], inc.new_zeros(1), inc[7:]])
             if fix_b:
@@ -274,20 +287,25 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
     n_tpl = torch.sum(tpl.mask)
     n_floor = torch.clamp(0.2 * n_tpl.to(torch.float32), min=10).to(
         n_tpl.dtype)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
 
     def mean_E(E, n):
         return torch.where(n >= n_floor, E / torch.clamp(n, min=1), inf)
 
+    # the LM as JAX's while_loop (it < max_iterations) & ~done, in
+    # max_iterations masked passes; done is ||inc|| <= 1e-3
     pose, aff = pose0, aff0
-    lam = torch.tensor(lambda_init, dtype=torch.float32, device=dev)
+    lam = torch.full((), lambda_init, dtype=torch.float32, device=dev)
+    extrap_limit = torch.full((), lambda_extrap_limit, dtype=torch.float32,
+                              device=dev)
     res_old = torch.stack([E0, n0.to(E0.dtype)])
+    done = torch.zeros((), dtype=torch.bool, device=dev)
     for _ in range(max_iterations):
+        active = ~done
         inc = solve_inc(H, b, lam)
-        extrap = torch.where(
-            lam < lambda_extrap_limit,
-            torch.sqrt(torch.sqrt(lam.new_tensor(lambda_extrap_limit) / lam)),
-            torch.ones_like(lam))
+        extrap = torch.where(lam < lambda_extrap_limit,
+                             torch.sqrt(torch.sqrt(extrap_limit / lam)),
+                             torch.ones_like(lam))
         inc = inc * extrap
         inc = torch.where(torch.isfinite(inc), inc, torch.zeros_like(inc))
         pose_new = SE3.exp(inc[:6]).compose(pose)
@@ -297,17 +315,18 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
         accept = mean_E(E_new, n_new) < mean_E(res_old[0],
                                                res_old[1].to(n_new.dtype))
         H_new, b_new = calc_gs(buf, cam, rel_aff(aff_new), b0_ref)
-        pose = SE3(torch.where(accept, pose_new.R, pose.R),
-                   torch.where(accept, pose_new.t, pose.t))
-        aff = torch.where(accept, aff_new, aff)
-        H = torch.where(accept, H_new, H)
-        b = torch.where(accept, b_new, b)
-        res_old = torch.where(accept, torch.stack(
+        take = active & accept
+        pose = SE3(torch.where(take, pose_new.R, pose.R),
+                   torch.where(take, pose_new.t, pose.t))
+        aff = torch.where(take, aff_new, aff)
+        H = torch.where(take, H_new, H)
+        b = torch.where(take, b_new, b)
+        res_old = torch.where(take, torch.stack(
             [E_new, n_new.to(E_new.dtype)]), res_old)
-        lam = torch.where(accept, lam * 0.5,
-                          torch.clamp(lam * 4.0, min=lambda_extrap_limit))
-        if bool(torch.linalg.vector_norm(inc) <= 1e-3):
-            break
+        lam = torch.where(active, torch.where(
+            accept, lam * 0.5,
+            torch.clamp(lam * 4.0, min=lambda_extrap_limit)), lam)
+        done = done | (torch.linalg.vector_norm(inc) <= 1e-3)
     rms = torch.sqrt(res_old[0] / torch.clamp(res_old[1], min=1.0))
     _, n_fin, sat, _ = calc_res(tpl, dI, cam, pose, rel_aff(aff), huber_th,
                                 cutoff)
@@ -329,9 +348,9 @@ def track_newest_coarse(templates: Sequence[LevelTemplate],
     n_levels = n_levels or len(templates)
     dev = pose_init.R.device
     pose = pose_init
-    aff = torch.as_tensor(aff_init, dtype=torch.float32, device=dev)
-    ok = torch.tensor(True, device=dev)
-    per_level_rms = [torch.tensor(0.0, device=dev)] * n_levels
+    aff = aff_init.to(torch.float32)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    per_level_rms = [torch.zeros((), device=dev)] * n_levels
 
     for lvl in range(n_levels - 1, -1, -1):
         p_new, a_new, rms, _, visible = track_level(

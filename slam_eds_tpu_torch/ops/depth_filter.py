@@ -60,11 +60,8 @@ def init_from_prior(inv_depth, min_depth: float, max_depth: float,
 
 
 def _K(cam: Pinhole, like):
-    """cam.K() built by fills on ``like``'s device (no host-to-device
-    copy)."""
-    K = torch.eye(3, dtype=like.dtype, device=like.device)
-    K[0, 0], K[1, 1], K[0, 2], K[1, 2] = cam.fx, cam.fy, cam.cx, cam.cy
-    return K
+    """cam.K() on ``like``'s device and type."""
+    return cam.K(like.dtype, device=like.device)
 
 
 def triangulate_inv_depth(x_kf, x_ef, cam: Pinhole, T_kf_ef: SE3):

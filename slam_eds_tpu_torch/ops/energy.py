@@ -6,16 +6,23 @@ tensor algebra: ``linearize`` -> ``assemble`` -> ``solve_delta`` ->
 Differences from the JAX module are of form only:
 
 * ``_host_select`` one-hot dots become index gathers ``table[p_host]``;
-* the tap sampler is ``ops.kernels.pattern_sample`` (the CUDA kernel for a
-  CUDA tensor, the plain torch gather for a CPU tensor);
-* ``ba_iterate``'s ``lax.while_loop`` is a Python loop with one host read
-  of the device-side ``done`` flag per GN iteration;
+* the tap sampler is ``ops.kernels.pattern_sample.sample`` (the CUDA
+  kernel for a CUDA tensor, the plain torch gather for a CPU tensor; under
+  ``torch.vmap`` the kernel's lane axis, through the sampler's operator);
+* ``ba_iterate``'s ``lax.while_loop`` (``break_tol > 0``) is ``iterations``
+  masked GN passes carrying the same ``done`` flag, so the loop reads
+  nothing back to the host;
 * ``orthogonalize`` solves its 7x7 Gram system with LU
-  (``torch.linalg.solve``) where JAX uses a Cholesky factorization: the
+  (``torch.linalg.solve_ex``) where JAX uses a Cholesky factorization: the
   same projector on a well-conditioned gauge basis, finite on a
   rank-deficient one.
 
 The reduced solve keeps LU, as the JAX code does (the docs say Cholesky).
+The solves skip the ``info`` check (``check_errors=False``), a host read on
+a card; a singular system gives non-finite entries, as in JAX. Every block
+is assembled with ``torch.cat``/``torch.where`` instead of writes into a
+zeroed tensor, so ``torch.vmap`` carries the whole GN loop
+(``eval.batched_ba_windows``).
 """
 from __future__ import annotations
 
@@ -26,11 +33,39 @@ import torch
 from ..models.ba_state import BAState, CPARS, PT_ACTIVE, PT_MARGINALIZE
 from ..utils.lie import SE3
 from ..utils.image import PATTERN_DSO8
-from .kernels.pattern_sample import pattern_sample
+from .kernels.pattern_sample import sample
 
 
 def _hosts(state: BAState):
     return state.p_host.long()
+
+
+def _pattern_offsets(dtype, device):
+    """PATTERN_DSO8 [K, 2] on ``device``, uploaded once per device and type
+    (a host-to-device copy cannot run inside a captured program)."""
+    key = (dtype, str(device))
+    offs = _PATTERN_CACHE.get(key)
+    if offs is None:
+        offs = torch.as_tensor(PATTERN_DSO8, dtype=dtype, device=device)
+        _PATTERN_CACHE[key] = offs
+    return offs
+
+
+_PATTERN_CACHE = {}
+
+
+def _one_hot(idx, n: int, dtype):
+    """one_hot(idx, n) as a comparison: no range check (a host read on a
+    card), and mappable by ``torch.vmap``."""
+    return (idx[:, None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _block_diag_pairs(diag_blocks, F: int):
+    """[F, F, a, b] with ``diag_blocks[f]`` on the pair diagonal, 0 off it."""
+    eye = torch.eye(F, dtype=torch.bool, device=diag_blocks.device)
+    return torch.where(eye[:, :, None, None], diag_blocks[:, None],
+                       torch.zeros((), dtype=diag_blocks.dtype,
+                                   device=diag_blocks.device))
 
 
 class Linearization(NamedTuple):
@@ -69,15 +104,20 @@ def pair_adjoints(state: BAState):
     F = state.num_frames
     dt, dev = state.delta.dtype, state.delta.device
     adj = _pairs(state.T_eval).adjoint()                 # [F, F, 6, 6]
-    AH = torch.zeros((F, F, 8, 8), dtype=dt, device=dev)
-    AT = torch.zeros((F, F, 8, 8), dtype=dt, device=dev)
-    AH[:, :, :6, :6] = -adj
-    AT[:, :, :6, :6] = torch.eye(6, dtype=dt, device=dev)
-    a_rel0, _ = relative_affine(state, use_zero=True)
-    AH[:, :, 6, 6] = a_rel0
-    AH[:, :, 7, 7] = a_rel0
-    AT[:, :, 6, 6] = -a_rel0
-    AT[:, :, 7, 7] = -1.0
+    a_rel0, _ = relative_affine(state, use_zero=True)    # [F, F]
+    z62 = torch.zeros((F, F, 6, 2), dtype=dt, device=dev)
+    z26 = torch.zeros((F, F, 2, 6), dtype=dt, device=dev)
+    zero = torch.zeros_like(a_rel0)
+    ab_h = torch.stack([torch.stack([a_rel0, zero], -1),
+                        torch.stack([zero, a_rel0], -1)], -2)
+    ab_t = torch.stack([torch.stack([-a_rel0, zero], -1),
+                        torch.stack([zero, torch.full_like(a_rel0, -1.0)],
+                                    -1)], -2)
+    eye6 = torch.eye(6, dtype=dt, device=dev).expand(F, F, 6, 6)
+    AH = torch.cat([torch.cat([-adj, z62], -1),
+                    torch.cat([z26, ab_h], -1)], -2)
+    AT = torch.cat([torch.cat([eye6, z62], -1),
+                    torch.cat([z26, ab_t], -1)], -2)
     return AH, AT
 
 
@@ -157,7 +197,7 @@ def linearize(state: BAState, target_images, height: int, width: int,
     ], -2)
 
     # ---- pattern projection at the current state
-    offs = torch.as_tensor(PATTERN_DSO8, dtype=dtype, device=dev)
+    offs = _pattern_offsets(dtype, dev)
     pat = torch.stack([(u_pt[:, None] + offs[None, :, 0] - cx) / fx,
                        (v_pt[:, None] + offs[None, :, 1] - cy) / fy,
                        torch.ones((P, K), dtype=dtype, device=dev)], -1)
@@ -169,19 +209,20 @@ def linearize(state: BAState, target_images, height: int, width: int,
     pat_ok = (ptp[..., 2] > 1e-6) & (Ku > 1.1) & (Kv > 1.1) \
         & (Ku < width - 3) & (Kv < height - 3)
 
-    I_t, gx, gy, in_tile = pattern_sample(target_images, Ku.contiguous(),
-                                          Kv.contiguous())
+    I_t, gx, gy, in_tile = sample(target_images, Ku.contiguous(),
+                                  Kv.contiguous())
 
     color = state.p_color[:, None, :]
     residual = I_t - (a_rel_p[..., None] * color + b_rel_p[..., None])
     finite = in_tile & torch.isfinite(I_t)
     drdA = color - b0_p[:, None, None]
-    w_grad = torch.sqrt(gx.new_tensor(outlier_th_sum)
+    w_grad = torch.sqrt(torch.full((), outlier_th_sum, dtype=dtype,
+                                   device=dev)
                         / (outlier_th_sum + gx * gx + gy * gy))
     w = 0.5 * (w_grad + state.p_weight[:, None, :])
     abs_r = torch.abs(residual)
     hw_e = torch.where(abs_r < huber_th, torch.ones_like(abs_r),
-                       abs_r.new_tensor(huber_th)
+                       torch.full((), huber_th, dtype=dtype, device=dev)
                        / torch.clamp(abs_r, min=1e-12))
     energy_k = w * w * hw_e * residual * residual * (2.0 - hw_e)
     hw = torch.where(hw_e < 1.0, torch.sqrt(hw_e), hw_e) * w
@@ -244,7 +285,7 @@ def assemble(state: BAState, lin: Linearization, point_mask=None,
         vmask = lin.valid
 
     AH, AT = pair_adjoints(state)
-    oh = torch.nn.functional.one_hot(_hosts(state), F).to(dtype)   # [P, F_h]
+    oh = _one_hot(_hosts(state), F, dtype)             # [P, F_h]
 
     Jrel_pose = torch.einsum("pfkg,pfgx->pfkx", lin.JIdx, lin.Jpdxi)
     calib4 = torch.einsum("pfkg,pfgc->pfkc", lin.JIdx, lin.Jpdc)
@@ -266,9 +307,7 @@ def assemble(state: BAState, lin: Linearization, point_mask=None,
     H_hh = torch.einsum("hfxa,hfxy,hfyb->hab", AH, GJJ, AH)
     H_tt = torch.einsum("hfxa,hfxy,hfyb->fab", AT, GJJ, AT)
     H_ht = torch.einsum("hfxa,hfxy,hfyb->hfab", AH, GJJ, AT)
-    Hff = torch.zeros((F, F, 8, 8), dtype=dtype, device=dev)
-    diag = torch.arange(F, device=dev)
-    Hff[diag, diag] = Hff[diag, diag] + H_hh + H_tt
+    Hff = _block_diag_pairs(H_hh + H_tt, F)
     Hff = Hff + H_ht + H_ht.transpose(0, 1).transpose(2, 3)
 
     H_cc = torch.einsum("hfab->ab", QH[..., C, C])
@@ -281,12 +320,11 @@ def assemble(state: BAState, lin: Linearization, point_mask=None,
     b_t = torch.einsum("hfx,hfxa->fa", GJr, AT)
     b_f = b_h + b_t
 
-    H = torch.zeros((D, D), dtype=dtype, device=dev)
     H_cf_flat = H_cf.permute(1, 0, 2).reshape(CPARS, 8 * F)
-    H[:CPARS, :CPARS] = H_cc
-    H[:CPARS, CPARS:] = H_cf_flat
-    H[CPARS:, :CPARS] = H_cf_flat.T
-    H[CPARS:, CPARS:] = Hff.permute(0, 2, 1, 3).reshape(8 * F, 8 * F)
+    H = torch.cat([
+        torch.cat([H_cc, H_cf_flat], 1),
+        torch.cat([H_cf_flat.T,
+                   Hff.permute(0, 2, 1, 3).reshape(8 * F, 8 * F)], 1)], 0)
     b = torch.cat([b_c, b_f.reshape(8 * F)])
 
     # point Schur pieces
@@ -320,8 +358,8 @@ def nullspaces(state: BAState):
     cols = torch.cat([-A, scale_col[..., None]], -1)     # [F, 6, 7]
     cols = torch.where(state.frame_valid[:, None, None], cols,
                        torch.zeros((), dtype=dtype, device=dev))
-    N = torch.zeros((F, 8, 7), dtype=dtype, device=dev)
-    N[:, :6] = cols
+    N = torch.cat([cols, torch.zeros((F, 2, 7), dtype=dtype, device=dev)],
+                  1)
     N = torch.cat([torch.zeros((CPARS, 7), dtype=dtype, device=dev),
                    N.reshape(8 * F, 7)], 0)
     norms = torch.linalg.vector_norm(N, dim=0)
@@ -332,7 +370,8 @@ def orthogonalize(x, N):
     """Project x off span(N): x - N (N^T N + eps I)^-1 N^T x (7x7 LU)."""
     G = N.T @ N + 1e-10 * torch.eye(N.shape[1], dtype=x.dtype,
                                     device=x.device)
-    return x - N @ torch.linalg.solve(G, N.T @ x)
+    return x - N @ torch.linalg.solve_ex(G, (N.T @ x)[:, None],
+                                         check_errors=False)[0][:, 0]
 
 
 class SolveResult(NamedTuple):
@@ -397,8 +436,9 @@ def solve_delta(state: BAState, asm: Assembled, lam: float = 1e-5,
     svec_i = 1.0 / torch.sqrt(torch.abs(torch.diagonal(H_f)) + 10.0)
     Hs = H_f * svec_i[:, None] * svec_i[None, :]
     bs = b_f * svec_i
-    x = svec_i * torch.linalg.solve(
-        Hs + 1e-10 * torch.eye(D, dtype=dtype, device=dev), bs)
+    x = svec_i * torch.linalg.solve_ex(
+        Hs + 1e-10 * torch.eye(D, dtype=dtype, device=dev), bs[:, None],
+        check_errors=False)[0][:, 0]
     x = torch.where(act, x, zf)
 
     if use_orth:
@@ -432,8 +472,10 @@ def ba_iterate(state: BAState, target_images, height: int, width: int,
     (state, last pre-step energy, None).
 
     break_tol > 0 stops between min_iterations and iterations once the
-    relative energy improvement falls below break_tol; the decision is a
-    device-side flag read once per iteration."""
+    relative energy improvement falls below break_tol, as JAX's
+    ``while_loop``: every one of the ``iterations`` passes runs, and a pass
+    after the stop selects the state and energy it was given, so nothing is
+    read back to the host."""
     def gn(it, st):
         lin = linearize(st, target_images, height, width,
                         huber_th=huber_th, outlier_th_sum=outlier_th_sum)
@@ -443,16 +485,21 @@ def ba_iterate(state: BAState, target_images, height: int, width: int,
         return apply_step(st, sol), torch.sum(lin.energy)
 
     dev = state.delta.device
-    e_last = torch.tensor(float("inf"), device=dev)
+    e_last = torch.full((), float("inf"), device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
     for it in range(iterations):
-        e_prev = e_last
-        state, e_last = gn(it, state)
-        if break_tol > 0.0:
-            rel = torch.abs(e_prev - e_last) / torch.clamp(e_prev, min=1e-12)
-            done = (it + 1 >= min_iterations) & (rel < break_tol) \
-                & torch.isfinite(e_last)
-            if bool(done):
-                break
+        new_state, e = gn(it, state)
+        if break_tol <= 0.0:
+            state, e_last = new_state, e
+            continue
+        active = ~done
+        state = state._replace(**{
+            k: torch.where(active, getattr(new_state, k), getattr(state, k))
+            for k in ("delta", "c_delta", "p_idepth")})
+        rel = torch.abs(e_last - e) / torch.clamp(e_last, min=1e-12)
+        if it + 1 >= min_iterations:
+            done = done | (active & (rel < break_tol) & torch.isfinite(e))
+        e_last = torch.where(active, e, e_last)
 
     if not final_linearize:
         return state, e_last, None
@@ -537,8 +584,9 @@ def marginalize_frame(state: BAState, slot: int) -> BAState:
 
     Hbb = Hs[i0:i0 + 8, i0:i0 + 8]
     Hbb = 0.5 * (Hbb + Hbb.T)
-    Hbb_inv = torch.linalg.inv(Hbb + 1e-8 * torch.eye(8, dtype=dtype,
-                                                      device=dev))
+    Hbb_inv = torch.linalg.inv_ex(
+        Hbb + 1e-8 * torch.eye(8, dtype=dtype, device=dev),
+        check_errors=False)[0]
     Hxb = Hs[:, i0:i0 + 8]
     Hs_new = Hs - Hxb @ Hbb_inv @ Hxb.T
     bs_new = bs - Hxb @ (Hbb_inv @ bs[i0:i0 + 8])

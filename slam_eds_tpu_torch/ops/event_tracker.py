@@ -11,8 +11,11 @@ the raw frame with the sampled values normalized by their own norm).
 State: translation px, unit quaternion qx [w, x, y, z], unit-norm 6-dof
 velocity vx. The LM runs over the 12-dof local increment with the analytic
 Jacobian (``event_residuals_and_jac``). Where the JAX module loops with
-``lax.while_loop``/``lax.scan``, this one loops in Python: one host read of
-the LM's ``done`` flag per iteration, counted in ``counters`` when given.
+``lax.while_loop``, this one runs a fixed count of masked iterations that
+carry the same ``(state, lam, energy, it, done)``: the loop condition stays
+on the device, so the solve reads nothing back to the host and can be
+captured in a CUDA graph (``graphs``) or mapped with ``torch.vmap``
+(``eval.batched_event_solves``).
 
 Track refinement (``refine_tracks_klt`` / ``_model_klt`` / ``_epiline``)
 refines the warp-predicted tracks against the event frame before they feed
@@ -221,16 +224,18 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
               norm_coord, grad, idp, weights, mask,
               max_iterations: int, loss_kind: str, loss_scale,
               function_tolerance: float, norm_event: bool,
-              counters=None, reduce=None, gather=None) -> TrackerResult:
+              reduce=None, gather=None) -> TrackerResult:
     """LM loop shared by ``optimize``, ``_pyramid_fused`` and
-    ``parallel.sharded_event_tracker.optimize_sharded``: at most
-    ``max_iterations`` iterations, leaving early once an accepted step moves
-    the energy by less than ``function_tolerance`` (relative). One host
-    read per iteration (``counters["event_lm_host_reads"]``).
+    ``parallel.sharded_event_tracker.optimize_sharded``: JAX's
+    ``lax.while_loop`` over ``(state, lam, energy, it, done)`` as
+    ``max_iterations`` masked passes. A pass updates the carry only while
+    ``~done`` (``it < max_iterations`` holds on every pass), so the result,
+    ``n_iter`` included, is the early-exit loop's: the passes after ``done``
+    select the carry they were given. Nothing is read back to the host.
 
     With the points split over ranks, ``reduce`` sums a tensor over the
     ranks (the norms, the [12, 12] system and the energies, so the LM
-    control and the early stop are the same on every rank) and ``gather``
+    control and ``done`` are the same on every rank) and ``gather``
     concatenates each rank's [P/n] block in rank order (the residuals and
     the mask for one global MAD); the returned residuals are the rank's
     own."""
@@ -258,8 +263,10 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
     eye = torch.eye(12, dtype=dtype, device=dev)
     lam = torch.full((), 1e-4, dtype=dtype, device=dev)
     energy = energy_of(residuals(state))
-    it = 0
-    while it < max_iterations:
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(max_iterations):
+        active = ~done
         r, J = event_residuals_and_jac(state, event_frame, cam, norm_coord,
                                        grad, idp, weights, mask,
                                        norm_event=norm_event, reduce=reduce)
@@ -269,24 +276,21 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
         if reduce is not None:
             H, g = reduce(H), reduce(g)
         Hl = H + lam * torch.diag(torch.diagonal(H)) + 1e-10 * eye
-        delta = -torch.linalg.solve_ex(Hl, g[:, None])[0][:, 0]
+        delta = -torch.linalg.solve_ex(Hl, g[:, None],
+                                       check_errors=False)[0][:, 0]
         delta = torch.where(torch.isfinite(delta), delta,
                             torch.zeros_like(delta))
         new_state = _apply_local(state, delta)
         e_new = energy_of(residuals(new_state))
         accept = e_new < energy
-        state = _tree_where(accept, new_state, state)
-        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0),
-                          1e-7, 1e5)
+        state = _tree_where(active & accept, new_state, state)
+        lam = torch.where(active, torch.clamp(
+            torch.where(accept, lam * 0.5, lam * 4.0), 1e-7, 1e5), lam)
         e_next = torch.where(accept, e_new, energy)
         rel = torch.abs(energy - e_next) / torch.clamp(energy, min=1e-12)
-        energy = e_next
-        it += 1
-        done = accept & (rel < function_tolerance)
-        if counters is not None:
-            counters["event_lm_host_reads"] += 1
-        if bool(done):
-            break
+        energy = torch.where(active, e_next, energy)
+        it = it + active.to(torch.int32)
+        done = done | (active & accept & (rel < function_tolerance))
 
     r_final = residuals(state)
     # MAD re-estimation of the robust scale for the next solve
@@ -295,8 +299,7 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
     else:
         mad, _ = masked_mad(gather(r_final), gather(mask))
     return TrackerResult(state=state, residuals=r_final, energy=energy,
-                         n_iter=torch.full((), it, dtype=torch.int32,
-                                           device=dev),
+                         n_iter=it,
                          loss_scale=torch.clamp(HUBER_K * mad, min=1e-6))
 
 
@@ -314,15 +317,21 @@ def optimize(state: TrackerState, event_frame, cam: Pinhole,
 def _pyramid_fused(state: TrackerState, event_frames, cam: Pinhole,
                    norm_coord, grad, idp, weights, mask,
                    iters_per_level, loss_kind: str, loss_scale,
-                   norm_event: bool, counters=None) -> TrackerResult:
+                   norm_event: bool) -> TrackerResult:
     """Coarse-to-fine solve over all levels (stored fine-first), chaining the
     pose state and the MAD loss scale; the function tolerance is fixed at
-    1e-6 as in the JAX module. Returns the finest level's result."""
+    1e-6 as in the JAX module. Returns the finest level's result.
+
+    ``iters_per_level`` is a sequence of Python ints, one cap per level. JAX
+    traces it as data and scans the levels, each ``while_loop`` bounded by
+    its traced cap; here each level runs its own cap's count of masked
+    passes, so the caps are static: they fix the shape of the captured
+    program and key its graph, as the level count does."""
     scale = loss_scale
     for lvl in reversed(range(event_frames.shape[0])):
         res = _lm_solve(state, event_frames[lvl], cam, norm_coord, grad,
-                        idp, weights, mask, int(iters_per_level[lvl]),
-                        loss_kind, scale, 1e-6, norm_event, counters)
+                        idp, weights, mask, iters_per_level[lvl],
+                        loss_kind, scale, 1e-6, norm_event)
         state, scale = res.state, res.loss_scale
     return res
 
@@ -334,7 +343,7 @@ def optimize_pyramid(state: TrackerState, event_frames, cam: Pinhole,
     """Coarse-to-fine over the event-frame levels, with the per-level
     iteration caps (the last entry repeats for deeper levels)."""
     n = len(iterations_per_level)
-    its = [iterations_per_level[min(lvl, n - 1)]
+    its = [int(iterations_per_level[min(lvl, n - 1)])
            for lvl in range(event_frames.shape[0])]
     return _pyramid_fused(state, event_frames, cam, norm_coord, grad, idp,
                           weights, mask, its, loss_kind, loss_scale,

@@ -26,8 +26,14 @@ class Pinhole(NamedTuple):
     height: int
 
     def K(self, dtype=torch.float32, *, device):
-        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy],
-                             [0.0, 0.0, 1.0]], dtype=dtype, device=device)
+        # fills, not a host-to-device copy (a scalar assignment copies a
+        # host tensor), so a captured CUDA graph can build it
+        K = torch.zeros((3, 3), dtype=dtype, device=device)
+        for (i, j), v in (((0, 0), self.fx), ((0, 2), self.cx),
+                          ((1, 1), self.fy), ((1, 2), self.cy),
+                          ((2, 2), 1.0)):
+            K[i, j].fill_(v)
+        return K
 
     def scaled(self, out_w: int, out_h: int) -> "Pinhole":
         """Intrinsics for a resized image: fx*sx, fy*sy, (cx+0.5)*sx-0.5."""

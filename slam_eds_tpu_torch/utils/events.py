@@ -16,14 +16,23 @@ from .scatter import order_free_index_add
 from ..ops.kernels.rasterize import rasterize_bilinear
 
 
-def event_time_weights(n_valid: int, capacity: int, dtype=torch.float32, *,
+def live_count(n_valid, device):
+    """The packet's live-event count as an int32 device scalar: a tensor is
+    taken as it is (it is data, as in JAX, so a captured step serves every
+    packet), a Python int is filled in on the device."""
+    if torch.is_tensor(n_valid):
+        return n_valid.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), int(n_valid), dtype=torch.int32, device=device)
+
+
+def event_time_weights(n_valid, capacity: int, dtype=torch.float32, *,
                        device):
     """Gaussian time-ordering weights exp(-0.5 ((i/N - 1/2) / (1/6))^2), a
-    bell centred mid-packet (``expWeight``). N is a device scalar, so the
-    division is a true one (a host scalar divides by its reciprocal on the
-    card)."""
+    bell centred mid-packet (``expWeight``), N = max(n_valid, 1). N is a
+    device scalar, so the division is a true one (a host scalar divides by
+    its reciprocal on the card)."""
     idx = torch.arange(capacity, dtype=dtype, device=device)
-    n = torch.full((), float(max(int(n_valid), 1)), dtype=dtype, device=device)
+    n = torch.clamp(live_count(n_valid, device), min=1).to(dtype)
     z = (idx / n - 0.5) * 6.0
     return torch.exp(-0.5 * z * z)
 
@@ -70,6 +79,7 @@ def build_event_frame(xs, ys, polarities, n_valid, height: int, width: int,
 
     Returns (frames [L, H, W], norms [L])."""
     capacity = xs.shape[0]
+    n_valid = live_count(n_valid, xs.device)
     mask = torch.arange(capacity, device=xs.device) < n_valid
     values = polarities.to(torch.float32)
     if use_time_weights:
@@ -87,6 +97,12 @@ def build_event_frame(xs, ys, polarities, n_valid, height: int, width: int,
     return stacked / norms[:, None, None], norms
 
 
+def event_at(ts, index):
+    """ts[index] for an int device scalar ``index`` (clamped at 0): a gather,
+    where indexing with a 0-d tensor would read it back to the host."""
+    return ts.gather(0, torch.clamp(index, min=0).long().reshape(1))[0]
+
+
 def median_event_time(ts, n_valid):
     """Packet timestamp = time of the middle event (events time-ordered)."""
-    return ts[max(int(n_valid) // 2, 0)]
+    return event_at(ts, live_count(n_valid, ts.device) // 2)

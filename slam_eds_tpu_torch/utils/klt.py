@@ -168,7 +168,7 @@ def match_template(img_ref, img_new, uv0, radius: int = 3,
 
 def fundamental_from_pose(T_21, K):
     """F = K^-T [t]x R K^-1 for the relative pose T_21 (target <- ref)."""
-    Kinv = torch.linalg.inv(K)
+    Kinv = torch.linalg.inv_ex(K)[0]    # no info check: no host read
     return Kinv.T @ (hat(T_21.t) @ T_21.R) @ Kinv
 
 

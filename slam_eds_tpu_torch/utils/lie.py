@@ -142,7 +142,7 @@ class SE3(NamedTuple):
         """[..., 4, 4] homogeneous matrix."""
         top = torch.cat([self.R, self.t[..., None]], -1)
         bot = torch.zeros_like(top[..., :1, :])
-        bot[..., 0, 3] = 1.0
+        bot[..., 0, 3].fill_(1.0)
         return torch.cat([top, bot], -2)
 
     @staticmethod
@@ -156,7 +156,9 @@ class SE3(NamedTuple):
 
 def quat_identity(dtype, device):
     q = torch.zeros(4, dtype=dtype, device=device)
-    q[0] = 1.0           # a fill, not a host-to-device copy
+    # fill_, not ``q[0] = 1.0``: a scalar assignment copies a host tensor,
+    # which a captured CUDA graph cannot hold
+    q[0].fill_(1.0)
     return q
 
 

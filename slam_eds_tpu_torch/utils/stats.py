@@ -30,8 +30,10 @@ def masked_quantile_index(x, mask, k):
     big = torch.finfo(x.dtype).max
     xs = torch.sort(torch.where(mask, x, torch.full_like(x, big))).values
     n = torch.sum(mask.to(torch.int64))
-    k = torch.minimum(torch.clamp(torch.as_tensor(k, device=x.device), min=0),
-                      torch.clamp(n - 1, min=0))
+    if not torch.is_tensor(k):
+        # a fill, not a host-to-device copy (none may run in a captured step)
+        k = torch.full((), int(k), dtype=torch.int64, device=x.device)
+    k = torch.minimum(torch.clamp(k, min=0), torch.clamp(n - 1, min=0))
     # gather with the device index: no host read of k
     return torch.where(n > 0, xs.gather(0, k.reshape(1))[0],
                        torch.zeros((), dtype=x.dtype, device=x.device))
@@ -61,7 +63,8 @@ def huber_scale_std(residuals, mask):
 def huber_weight(r, k):
     """Huber IRLS weight: 1 if |r| < k else k / |r|."""
     a = torch.abs(r)
-    kk = torch.as_tensor(k, dtype=a.dtype, device=a.device)
+    kk = (k.to(a.dtype) if torch.is_tensor(k)
+          else torch.full((), k, dtype=a.dtype, device=a.device))
     return torch.where(a < k, torch.ones_like(a),
                        kk / torch.clamp(a, min=1e-12))
 

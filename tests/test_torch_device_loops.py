@@ -1,0 +1,473 @@
+"""The port's read-free loops against the JAX package's ``while_loop``s on
+the CPU, each run again under ``torch_guard.no_host_reads`` (no tensor is
+read back to the host, none is made from host data): the proof here that the
+same functions run on a card without a synchronisation and can be captured.
+
+* The event LM (``_lm_solve`` through ``optimize`` and ``_pyramid_fused``)
+  at caps that bind: ``n_iter`` equal, the state within 1e-4, the energy and
+  loss scale within 1e-3 (``test_torch_event_tracker``'s tolerances); and a
+  cap far above the stop gives bitwise the solve capped at its own stop (the
+  passes after ``done`` select the carry).
+* ``track_newest_coarse`` (the cutoff escalation and the level LM): pose
+  and affine within 1e-4, the per-level rms within 1e-3
+  (``test_torch_frontend``'s), at the default cutoff and at one low enough
+  that the escalation doubles.
+* ``ba_iterate`` with ``break_tol > 0`` against JAX's ``while_loop`` branch:
+  energy within 1e-4 relative, the state within 1e-2 of its scale
+  (``test_torch_energy``'s), at a tolerance that stops the loop early.
+* One packet step whose live count changes between two calls of the same
+  program: each call agrees with JAX's fused step at that count, so a count
+  frozen into the program would show.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+from torch.utils._pytree import tree_leaves
+
+from slam_eds_tpu.config import load_config as jload
+from slam_eds_tpu.io.dataset import SyntheticSequence
+from slam_eds_tpu.models import keyframe as jkf
+from slam_eds_tpu.models import pipeline as jpl
+from slam_eds_tpu.ops import coarse_tracker as jct
+from slam_eds_tpu.ops import depth_filter as jdf
+from slam_eds_tpu.ops import energy as jen
+from slam_eds_tpu.ops import event_tracker as jet
+from slam_eds_tpu.ops import pixel_selector as jps
+from slam_eds_tpu.utils import image as jimage
+from slam_eds_tpu.utils.cameras import Pinhole as JPinhole
+from slam_eds_tpu.utils.lie import SE3 as JSE3
+
+from slam_eds_tpu_torch.config import load_config
+from slam_eds_tpu_torch.models import keyframe as tkf
+from slam_eds_tpu_torch.models import pipeline as tpl
+from slam_eds_tpu_torch.ops import coarse_tracker as tct
+from slam_eds_tpu_torch.ops import depth_filter as tdf
+from slam_eds_tpu_torch.ops import energy as ten
+from slam_eds_tpu_torch.ops import event_tracker as tet
+from slam_eds_tpu_torch.utils.cameras import Pinhole as TPinhole
+from slam_eds_tpu_torch.utils.lie import SE3 as TSE3
+from test_torch_energy import build_world, to_torch
+from test_torch_event_tracker import _args, _states, world  # noqa: F401
+from torch_guard import HostRead, count_host_reads, no_host_reads
+
+torch.set_num_threads(1)
+
+W, H = 128, 96
+JCAM = JPinhole(jnp.float32(110.0), jnp.float32(110.0),
+                jnp.float32(W / 2 - 0.5), jnp.float32(H / 2 - 0.5), W, H)
+TCAM = TPinhole(110.0, 110.0, W / 2 - 0.5, H / 2 - 0.5, W, H)
+
+
+def T(a):
+    return torch.as_tensor(np.array(a))
+
+
+def close(got, want, **kw):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **kw)
+
+
+def _np_dict(tup):
+    return {k: np.asarray(v) for k, v in tup._asdict().items()}
+
+
+def test_the_guard_catches_reads():
+    x = torch.ones(3)
+    with no_host_reads():
+        for read in (lambda: bool(x[0]), lambda: float(x[0]),
+                     lambda: x.sum().item(), lambda: x.tolist(),
+                     lambda: x.numpy(), lambda: torch.tensor(1.0),
+                     lambda: x.new_tensor([1.0]),
+                     lambda: x.__setitem__(0, 2.0)):
+            with pytest.raises(HostRead):
+                read()
+        y = torch.as_tensor(x) + 1          # a tensor passes through
+    assert float(y[0]) == 2.0
+
+
+def test_the_counter_counts_reads():
+    """``count_host_reads`` counts what ``no_host_reads`` refuses, once per
+    read (``numpy`` after ``cpu`` reads nothing more), and restores the
+    methods."""
+    x = torch.ones(3)
+    with count_host_reads() as reads:
+        bool(x[0])
+        float(x[1])
+        x.sum().item()
+        x.cpu().numpy()
+        x + 1
+    assert reads.by_method == {"__bool__": 1, "__float__": 1, "item": 1,
+                               "cpu": 1}
+    assert reads.n == 4
+    bool(x[0])
+    assert reads.n == 4
+
+
+# ---------------------------------------------------------------------------
+# the event LM
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("caps", [(3,), (3, 2)])
+def test_event_lm_at_binding_caps(world, caps):
+    """``test_torch_event_tracker``'s world, from the identity pose."""
+    w = world
+    js, ts = _states(w, np.zeros(6), w["vx"])
+    jargs, targs = _args(w, "jax"), _args(w, "torch")
+    levels = np.stack([w["img"], 0.9 * w["img"] + 0.001])
+    if len(caps) == 1:
+        jr = jet.optimize(js, jnp.asarray(levels[0]), JCAM, *jargs,
+                          max_iterations=caps[0], loss_scale=0.2)
+        frame = T(levels[0])
+
+        def solve():
+            return tet.optimize(ts, frame, TCAM, *targs,
+                                max_iterations=caps[0], loss_scale=0.2)
+    else:
+        jr = jet._pyramid_fused(js, jnp.asarray(levels), JCAM, *jargs,
+                                jnp.asarray(caps, jnp.int32), "huber", 0.2,
+                                False)
+        frames = T(levels)
+
+        def solve():
+            return tet._pyramid_fused(ts, frames, TCAM, *targs, list(caps),
+                                      "huber", 0.2, False)
+    tr_ = solve()
+    with no_host_reads():
+        again = solve()
+    for a, b in zip(tree_leaves(again), tree_leaves(tr_)):
+        assert torch.equal(a, b)
+    assert int(tr_.n_iter) == int(jr.n_iter) == caps[0]
+    for name in ("px", "qx", "vx"):
+        close(getattr(tr_.state, name), getattr(jr.state, name), rtol=0,
+              atol=1e-4)
+    close(tr_.energy, jr.energy, rtol=1e-3, atol=1e-7)
+    close(tr_.loss_scale, jr.loss_scale, rtol=1e-3, atol=1e-7)
+
+
+def test_event_lm_passes_after_done_keep_the_carry(world):
+    """A cap far above the stop: the stop comes first, and the solve equals,
+    bitwise, the one capped at its own stop."""
+    w = world
+    _, ts = _states(w, np.zeros(6), w["vx"])
+    frame, targs = T(w["img"]), _args(w, "torch")
+
+    def solve(cap):
+        return tet._lm_solve(ts, frame, TCAM, *targs, cap, "huber", 0.2,
+                             1e-6, False)
+    long = solve(40)
+    n = int(long.n_iter)
+    assert 1 <= n < 40
+    short = solve(n)
+    assert int(short.n_iter) == n
+    for a, b in zip(tree_leaves(long), tree_leaves(short)):
+        assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the coarse tracker
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def coarse_scene():
+    seq = SyntheticSequence(JCAM, num_frames=4, events_per_packet=1024,
+                            motion_scale=0.35)
+    _, img0, depth0 = seq.frame(0)
+    _, img1, _ = seq.frame(2)
+    gx, gy = jimage.sobel(jnp.asarray(img0), 3)
+    uv, mask = jps.candidate_points_grid(jimage.gradient_magnitude(gx, gy),
+                                         patch=6, capacity=400)
+    uv, mask = np.asarray(uv), np.asarray(mask)
+    iy = np.clip(np.round(uv[:, 1]).astype(int), 0, H - 1)
+    ix = np.clip(np.round(uv[:, 0]).astype(int), 0, W - 1)
+    idp = (1.0 / np.asarray(depth0)[iy, ix]).astype(np.float32)
+    pyr0 = [np.asarray(l) for l in
+            jimage.build_pyramid(jnp.asarray(img0), 4)[0]]
+    pyr1 = [np.asarray(l) for l in
+            jimage.build_pyramid(jnp.asarray(img1), 4)[0]]
+    tj = jct.build_template(jnp.asarray(uv), jnp.asarray(idp),
+                            jnp.ones(len(idp), jnp.float32),
+                            jnp.asarray(mask), [jnp.asarray(l) for l in pyr0],
+                            (1024, 512, 256, 128))
+    tt = [tct.template_from_numpy(_np_dict(t), device="cpu") for t in tj]
+    return tj, tt, pyr1
+
+
+@pytest.mark.parametrize("cutoff_th", [20.0, 1.5])
+def test_track_newest_coarse_read_free(coarse_scene, cutoff_th):
+    tj, tt, pyr = coarse_scene
+    L, iters = 4, (10, 20, 30, 30)
+    abort = np.full(L, 1e9, np.float32)
+    rj = jct.track_newest_coarse(
+        tj, [jnp.asarray(l) for l in pyr],
+        [JCAM.pyramid_level(l) for l in range(L)], JSE3.identity(),
+        jnp.zeros(2, jnp.float32), (jnp.float32(1.0), jnp.float32(1.0)),
+        jnp.zeros(2, jnp.float32), jnp.asarray(abort), max_iterations=iters,
+        cutoff_th=cutoff_th)
+    tpyr, cams = [T(l) for l in pyr], [TCAM.pyramid_level(l) for l in range(L)]
+    pose0 = TSE3.identity(device="cpu")
+    one, zero2, tabort = torch.ones(()), torch.zeros(2), T(abort)
+
+    def track():
+        return tct.track_newest_coarse(
+            tt, tpyr, cams, pose0, zero2, (one, one), zero2, tabort,
+            max_iterations=iters, cutoff_th=cutoff_th)
+    rt = track()
+    with no_host_reads():
+        again = track()
+    for a, b in zip(tree_leaves(again), tree_leaves(rt)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    assert bool(rt.ok) == bool(rj.ok)
+    close(rt.pose.R, rj.pose.R, atol=1e-4)
+    close(rt.pose.t, rj.pose.t, atol=1e-4)
+    close(rt.aff, rj.aff, atol=1e-4)
+    close(rt.residuals, rj.residuals, rtol=1e-3, atol=1e-4)
+
+
+def test_cutoff_escalation_doubles(coarse_scene):
+    """At a low cutoff most residuals saturate: the masked escalation
+    doubles the cutoff as JAX's while_loop does, and stops at its bound."""
+    tj, tt, pyr = coarse_scene
+    lvl = 3
+    cam = TCAM.pyramid_level(lvl)
+    jcam_l = JCAM.pyramid_level(lvl)
+    one, zero2, img = torch.ones(()), torch.zeros(2), T(pyr[lvl])
+    pose0 = TSE3.identity(device="cpu")
+    pj, aj, rmsj, satj, visj = jct.track_level(
+        tj[lvl], jnp.asarray(pyr[lvl]), jcam_l, JSE3.identity(),
+        jnp.zeros(2, jnp.float32), (jnp.float32(1.0), jnp.float32(1.0)),
+        jnp.zeros(2, jnp.float32), max_iterations=5, huber_th=0.5,
+        cutoff_th=0.05)
+    with no_host_reads():
+        pt, at, rmst, satt, vist = tct.track_level(
+            tt[lvl], img, cam, pose0, zero2, (one, one), zero2,
+            max_iterations=5, huber_th=0.5, cutoff_th=0.05)
+    close(pt.R, pj.R, atol=1e-4)
+    close(pt.t, pj.t, atol=1e-4)
+    close(rmst, rmsj, rtol=1e-3)
+    close(satt, satj, atol=1e-6)
+    assert bool(vist) == bool(visj)
+
+
+# ---------------------------------------------------------------------------
+# the BA's break_tol loop
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ba_world():
+    jst, jimgs = build_world()
+    return jst, jimgs, to_torch(jst), T(jimgs)
+
+
+@pytest.mark.parametrize("break_tol", [5e-5, 0.2])
+def test_ba_break_tol_read_free(ba_world, break_tol):
+    jst, jimgs, tst, timgs = ba_world
+    Hw, Ww = timgs.shape[1:3]
+    sj, ej, _ = jen.ba_iterate(jst, jimgs, Hw, Ww, iterations=6,
+                               orth_from_iteration=0, break_tol=break_tol)
+
+    def run():
+        return ten.ba_iterate(tst, timgs, Hw, Ww, iterations=6,
+                              orth_from_iteration=0, break_tol=break_tol)
+    st_, et, _ = run()
+    with no_host_reads():
+        st2, e2, _ = run()
+    assert torch.equal(st2.delta, st_.delta) and torch.equal(e2, et)
+    assert abs(float(et) - float(ej)) <= 1e-4 * abs(float(ej))
+    for name in ("delta", "p_idepth"):
+        a, b = np.asarray(getattr(sj, name)), getattr(st_, name).numpy()
+        assert np.abs(b - a).max() <= 1e-2 * np.abs(a).max(), name
+    if break_tol >= 0.2:
+        # the loop stopped early: the state is that of fewer iterations
+        full, _, _ = ten.ba_iterate(tst, timgs, Hw, Ww, iterations=6,
+                                    orth_from_iteration=0)
+        assert not torch.equal(full.delta, st_.delta)
+
+
+# ---------------------------------------------------------------------------
+# the packet step's live count
+# ---------------------------------------------------------------------------
+
+CFG = {
+    "caps": {"max_points_per_kf": 256, "max_immature_per_kf": 256,
+             "max_window_frames": 6, "max_events": 4096},
+    "event_frame": {"num_levels": 2, "events_per_frame": 4096},
+    "tracker": {"max_iterations": [3, 2]},
+}
+
+
+@pytest.fixture(scope="module")
+def packet_world():
+    seq = SyntheticSequence(JCAM, num_frames=3, events_per_packet=4096,
+                            motion_scale=0.1)
+    _, img0, depth0 = seq.frame(0)
+    # the keyframe's depth seeded from the true depth on a 4-px grid
+    gy, gx = np.mgrid[2:H - 2:4, 2:W - 2:4]
+    uv = np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+    idp = (1.0 / np.asarray(depth0)[gy.ravel(), gx.ravel()]).astype(
+        np.float32)
+    kf = jkf.create_keyframe(
+        jnp.asarray(img0), JCAM, capacity=256,
+        depth_map=(jnp.asarray(uv), jnp.asarray(idp),
+                   jnp.ones(len(idp), bool)))
+    pk = seq.events_between(0, 1)
+    # the frame tracker's prediction: the true motion to mid-packet (the
+    # keyframe sits at the world origin)
+    pred = seq.pose_at(0.5).compose(seq.pose(0).inverse())
+    jpipe = jpl.EDSPipeline(JCAM, jload(CFG))
+    return kf, pk, pred, jpipe._packet_step_args(), jpipe.cfg
+
+
+def test_packet_step_live_count_is_data(packet_world):
+    """The first rung's program (event frame, solve, gate, tail) called twice
+    with the live count as an int32 tensor, changed between the calls. The
+    count acts on the event frame: at each count its frames, time and median
+    depth agree with JAX's event frame (``test_torch_events``' tolerance)
+    and with the port's own head given the count as a Python int (bitwise).
+    The step's verdict, LM passes, points alive and time equal JAX's fused
+    step; its energy, loss scale and flow statistic within 2e-3: on this
+    3-iteration world every rung fails the gate and the identity retry's LM
+    amplifies float32 rounding (the port before the masked loops gives
+    bitwise the same numbers)."""
+    from slam_eds_tpu.models.event_frame import create_event_frame as jcreate
+    kf, pk, pred, (jlim, jiters, jstat), jcfg = packet_world
+    n_full = int(pk.n_valid)
+    assert n_full > 400
+    js = jet.initial_tracker_state()
+    jpf = jet.pose_filter_init(jcfg.tracker.pose_filter_window)
+    jdepth = jdf.init_from_prior(kf.idepth, jcfg.mapping.min_depth,
+                                 jcfg.mapping.max_depth)
+    jev_args = [jnp.asarray(a) for a in (pk.xs, pk.ys, pk.ts, pk.polarity)]
+
+    lim, iters, statics = tpl.EDSPipeline(TCAM, load_config(CFG),
+                                          device="cpu")._packet_step_args()
+    head_kw = {k: statics[k] for k in tpl.HEAD_STATICS}
+    tk = tkf.from_numpy(_np_dict(kf), device="cpu")
+    program = tpl._packet_rung_program(0, TCAM, iters, lim, statics)
+    x = {"xs": T(pk.xs), "ys": T(pk.ys), "ts": T(pk.ts),
+         "ps": T(pk.polarity), "fwd_maps": None,
+         "state": tet.state_from_numpy(_np_dict(js), device="cpu"),
+         "pf": tet.pose_filter_from_numpy(_np_dict(jpf), device="cpu"),
+         "depth": tdf.from_numpy(_np_dict(jdepth), device="cpu"),
+         "kf_R": tk.T_w_kf_R, "kf_t": tk.T_w_kf_t, "pred_R": T(pred.R),
+         "pred_t": T(pred.t), "kf_uv": tk.uv, "kf_nc": tk.norm_coord,
+         "kf_grad": tk.grad, "kf_idp": tk.idepth, "kf_weight": tk.weight,
+         "kf_mask": tk.mask, "loss_scale": torch.full((), 0.2)}
+    heads = []
+    for i, n in enumerate((n_full, n_full // 3)):
+        x["n_valid"] = torch.full((), n, dtype=torch.int32)
+        if i == 0:
+            (frames, time, med), out = program(x)       # the warm-up
+        else:
+            with no_host_reads():
+                (frames, time, med), out = program(x)
+        heads.append((frames, time))
+        # the count as data and as a Python int: the same event frame
+        f_int, t_int, m_int = tpl._event_packet_head(
+            x["xs"], x["ys"], x["ts"], x["ps"], n, None, tk.idepth, tk.mask,
+            lim, **head_kw)
+        assert torch.equal(frames, f_int) and torch.equal(time, t_int)
+        assert torch.equal(med, m_int)
+        jef = jcreate(*jev_args, jnp.asarray(n), H, W,
+                      num_levels=jstat["num_levels"],
+                      use_time_weights=jstat["use_time_weights"],
+                      blur_ksize=jstat["blur_ksize"],
+                      interpolation=jstat["interpolation"])
+        jf = np.asarray(jef.frames)
+        np.testing.assert_allclose(frames.numpy(), jf, rtol=1e-5,
+                                   atol=1e-6 * np.abs(jf).max())
+        assert float(time) == float(jef.time)
+        # the whole step against JAX's
+        jout = jpl._event_packet_fused(
+            js, jpf, jdepth, JCAM, kf.pose.R, kf.pose.t, pred.R, pred.t,
+            kf.uv, kf.norm_coord, kf.grad, kf.idepth, kf.weight, kf.mask,
+            *jev_args, jnp.asarray(n), None, jiters, jnp.float32(0.2), jlim,
+            **jstat)
+        tout, _ = tpl._event_packet_fused(
+            x["state"], x["pf"], x["depth"], TCAM, tk.T_w_kf_R, tk.T_w_kf_t,
+            x["pred_R"], x["pred_t"], tk.uv, tk.norm_coord, tk.grad,
+            tk.idepth, tk.weight, tk.mask, x["xs"], x["ys"], x["ts"],
+            x["ps"], x["n_valid"], None, iters, 0.2, lim, **statics)
+        sc, jsc = tout[6].numpy(), np.asarray(jout[6])
+        np.testing.assert_array_equal(sc[[0, 3, 5, 6, 7]],
+                                      jsc[[0, 3, 5, 6, 7]])
+        np.testing.assert_allclose(sc[[1, 2, 4]], jsc[[1, 2, 4]], rtol=2e-3)
+        np.testing.assert_array_equal(tout[3].numpy(), np.asarray(jout[3]))
+    # the two counts made two different event frames and packet times
+    assert not torch.equal(heads[0][0], heads[1][0])
+    assert float(heads[0][1]) != float(heads[1][1])
+
+
+def _packet_inputs(packet_world):
+    kf, pk, pred, _, jcfg = packet_world
+    tk = tkf.from_numpy(_np_dict(kf), device="cpu")
+    depth = jdf.init_from_prior(kf.idepth, jcfg.mapping.min_depth,
+                                jcfg.mapping.max_depth)
+    return {"xs": T(pk.xs), "ys": T(pk.ys), "ts": T(pk.ts),
+            "ps": T(pk.polarity), "fwd_maps": None,
+            "n_valid": torch.full((), int(pk.n_valid), dtype=torch.int32),
+            "state": tet.initial_tracker_state("cpu"),
+            "pf": tet.pose_filter_init(jcfg.tracker.pose_filter_window,
+                                       "cpu"),
+            "depth": tdf.from_numpy(_np_dict(depth), device="cpu"),
+            "kf_R": tk.T_w_kf_R, "kf_t": tk.T_w_kf_t, "pred_R": T(pred.R),
+            "pred_t": T(pred.t), "kf_uv": tk.uv, "kf_nc": tk.norm_coord,
+            "kf_grad": tk.grad, "kf_idp": tk.idepth, "kf_weight": tk.weight,
+            "kf_mask": tk.mask, "loss_scale": torch.full((), 0.2)}
+
+
+@pytest.mark.parametrize("mode", ["none", "klt_pyr", "model_klt",
+                                  "epiline"])
+def test_every_rung_program_is_read_free(packet_world, mode):
+    """Each rung's program (the one captured on a card) at each track
+    refinement, under the guard after its warm-up, repeats the warm-up."""
+    cfg = dict(CFG, tracker=dict(CFG["tracker"], track_refinement=mode))
+    lim, iters, statics = tpl.EDSPipeline(TCAM, load_config(cfg),
+                                          device="cpu")._packet_step_args()
+    x0 = _packet_inputs(packet_world)
+    x = x0
+    for rung in range(tpl.RUNGS):
+        program = tpl._packet_rung_program(rung, TCAM, iters, lim, statics)
+        want = program(x)
+        with no_host_reads():
+            got = program(x)
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        if rung == 0:
+            x = tpl.retry_inputs(x0, want[0])
+
+
+def test_window_programs_are_read_free(coarse_scene, ba_world):
+    """The window's two captured functions: ``track_frame_program`` (the
+    pyramid, the relative-pose prefix, the coarse track, the world pose) on
+    the coarse scene's templates, and ``ba_program`` with ``break_tol`` on
+    the BA world."""
+    from slam_eds_tpu_torch.models.window import (ba_program,
+                                                  track_frame_program)
+    _, tt, _ = coarse_scene
+    seq = SyntheticSequence(JCAM, num_frames=4, events_per_packet=1024,
+                            motion_scale=0.35)
+    img = T(seq.frame(2)[1])
+    Fw = 3
+    x = {"img": img, "slot": torch.full((1,), 1, dtype=torch.int64),
+         "delta": torch.zeros(Fw, 8), "T_eval_R": torch.eye(3).expand(
+             Fw, 3, 3).contiguous(), "T_eval_t": torch.zeros(Fw, 3),
+         "exposure": torch.ones(Fw), "aff_eval": torch.zeros(Fw, 2),
+         "templates": tt, "pose_R": torch.eye(3), "pose_t": torch.zeros(3),
+         "aff": torch.zeros(2), "exp_new": torch.ones(())}
+    static = dict(cams=tuple(TCAM.pyramid_level(l) for l in range(4)),
+                  max_iterations=(10, 20, 30, 30), huber_th=9.0,
+                  cutoff_th=20.0)
+    want = track_frame_program(x, **static)
+    with no_host_reads():
+        got = track_frame_program(x, **static)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    _, _, tst, timgs = ba_world
+    xb = {"state": tst, "planes": timgs}
+    kw = dict(height=timgs.shape[1], width=timgs.shape[2], iterations=4,
+              break_tol=5e-5)
+    want = ba_program(xb, **kw)
+    with no_host_reads():
+        got = ba_program(xb, **kw)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)

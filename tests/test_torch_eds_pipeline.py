@@ -42,6 +42,7 @@ from slam_eds_tpu_torch.ops import event_tracker as tet
 from slam_eds_tpu_torch.ops.kernels import rasterize as tr
 from slam_eds_tpu_torch.utils.alignment import ate_rmse
 from slam_eds_tpu_torch.utils.cameras import Pinhole as TPinhole
+from torch_guard import count_host_reads
 
 torch.set_num_threads(1)
 
@@ -115,14 +116,15 @@ def _jax_step(inp, lim, iters, statics):
         jnp.float32(inp["loss_scale"]), lim, **statics)
 
 
-def _port_step(inp, iters, counters):
+def _port_step(inp, iters):
     """The same step in the port, from the JAX state carried over with the
-    numpy converters."""
+    numpy converters. Returns (the outputs, the rungs run, the host reads
+    the step made)."""
     kf = tkf.from_numpy(_np_dict(inp["kf"]), device="cpu")
     pk = inp["packet"]
     lim, _, statics = tpl.EDSPipeline(TCAM, load_config(CFG), \
                                        device="cpu")._packet_step_args()
-    return tpl._event_packet_fused(
+    args = (
         tet.state_from_numpy(_np_dict(inp["tracker"]), device="cpu"),
         tet.pose_filter_from_numpy(_np_dict(inp["pf"]), device="cpu"),
         tdf.from_numpy(_np_dict(inp["depth"]), device="cpu"), TCAM,
@@ -131,8 +133,10 @@ def _port_step(inp, iters, counters):
         torch.as_tensor(np.array(inp["pred"].t)),
         kf.uv, kf.norm_coord, kf.grad, kf.idepth, kf.weight, kf.mask,
         *(torch.as_tensor(a) for a in (pk.xs, pk.ys, pk.ts, pk.polarity)),
-        int(pk.n_valid), None, iters, inp["loss_scale"], lim,
-        counters=counters, **statics)
+        int(pk.n_valid), None, iters, inp["loss_scale"], lim)
+    with count_host_reads() as reads:
+        out, rungs = tpl._event_packet_fused(*args, **statics)
+    return out, rungs, reads
 
 
 @pytest.mark.parametrize("packet,iters", [("first", [15, 10]),
@@ -143,9 +147,8 @@ def test_one_packet_step_from_the_same_state(jax_packets, packet, iters):
     for the configured 15."""
     states, (lim, _, statics) = jax_packets
     jout = _jax_step(states[packet], lim, iters, statics)
-    counters = {"event_lm_host_reads": 0, "event_gate_host_reads": 0}
     launches = tr.rasterize_bilinear.launches
-    tout = _port_step(states[packet], iters, counters)
+    tout, rungs, reads = _port_step(states[packet], iters)
     # a CPU tensor takes the raster's plain version
     assert tr.rasterize_bilinear.launches == launches
     (state, pf, depth, mask, tracks, residuals, scalars, R, t, vx) = tout
@@ -154,8 +157,10 @@ def test_one_packet_step_from_the_same_state(jax_packets, packet, iters):
     assert sc[0] == jsc[0] == 1.0                 # both usable
     assert sc[3] == jsc[3]                        # LM iterations
     np.testing.assert_allclose(sc, jsc, rtol=1e-4, atol=1e-7)
-    assert counters["event_gate_host_reads"] == 1
-    assert counters["event_lm_host_reads"] == sum(iters)
+    # the first rung passed the gate: one host read, of its scalar vector;
+    # the LM reads nothing
+    assert rungs == 1
+    assert reads.by_method == {"cpu": 1}
     for got, want in ((state, jout[0]), (pf, jout[1])):
         for name, a, b in zip(got._fields, got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
@@ -188,7 +193,7 @@ def test_warm_packet_at_the_configured_caps(jax_packets):
     of points alive."""
     states, (lim, iters, statics) = jax_packets
     jsc = np.asarray(_jax_step(states["warm"], lim, iters, statics)[6])
-    sc = _port_step(states["warm"], [int(i) for i in iters], None)[6].numpy()
+    sc = _port_step(states["warm"], [int(i) for i in iters])[0][6].numpy()
     assert sc[0] == jsc[0] == 1.0 and sc[3] == jsc[3] == iters[0]
     np.testing.assert_array_equal(sc[5:], jsc[5:])
     np.testing.assert_allclose(sc[1:3], jsc[1:3], rtol=0.05)
@@ -221,11 +226,14 @@ def test_whole_event_loop(port_loop):
     assert len(est) == N_FRAMES and np.isfinite(est).all()
     ate = float(ate_rmse(est, gt[:len(est)]))
     assert ate < 0.05, ate
-    # host reads: one scalar read per packet, one per LM iteration, one per
-    # gate decision
-    assert c["event_scalar_host_reads"] == c["event_packets"] >= len(ev_pos)
-    assert c["event_lm_host_reads"] >= c["event_iters"] > 0
-    assert c["event_gate_host_reads"] >= c["event_packets"]
+    # host reads: one read of the scalar vector per packet and one per
+    # retry of the gate's ladder; the LM and the gate read nothing else
+    assert c["event_iters"] > 0
+    assert c["event_scalar_host_reads"] \
+        == c["event_packets"] + c["event_retries"]
+    assert c["event_packets"] >= len(ev_pos)
+    assert c["event_retries"] <= 2 * c["event_packets"]
+    assert c["event_lm_host_reads"] == 0
 
 
 def test_event_state_is_finite_and_on_the_pipeline_device(port_loop):

@@ -1,11 +1,17 @@
 """The port's evaluator, map export and viz against the JAX package on the
 CPU.
 
-* ``batched_event_solves`` / ``batched_ba_windows``: every lane equals the
-  port's single solve exactly (a lane is that solve), and JAX's ``vmap`` of
-  the same problems within 2e-4 on the pose and 1e-3 relative on the energy
-  (the JAX test's own tolerance between its batched and single programs),
-  the BA's state within the tolerances of ``test_torch_energy``.
+* ``batched_event_solves`` / ``batched_ba_windows`` (one ``torch.vmap``
+  each, run under the no-read guard): JAX's ``vmap`` of the same problems
+  within 2e-4 on the pose and 1e-3 relative on the energy (the JAX test's
+  own tolerance between its batched and single programs), the BA's state
+  within the tolerances of ``test_torch_energy``. Against the port's single
+  solve of the same problem: the batched products sum in another order than
+  the single ones, so a lane is not bitwise its single solve; the event
+  lanes stop at the same iteration and stay within JAX's 2e-4 / 1e-3 (the
+  8-iteration LM amplifies the rounding: 8.6e-5 at most, CPU); the BA lanes
+  within 2e-5 on the deltas (1.1e-6 measured, deltas up to 2.8e-3), 2e-4 on
+  the idepths (1.9e-5) and 2e-5 relative on the energy (4.9e-6).
 * ``evaluate_sequences`` on two tiny written datasets: the report's
   structure and counts, finite ATE / RPE, and the directory expansion.
 * ``_backproject_window``, ``radius_outlier_removal``: within 1e-5 / equal;
@@ -40,6 +46,7 @@ from slam_eds_tpu_torch.ops import event_tracker as tet
 from slam_eds_tpu_torch.utils import viz as tviz
 from slam_eds_tpu_torch.utils.cameras import Pinhole as TPinhole
 from slam_eds_tpu_torch.utils.lie import SE3 as TSE3
+from torch_guard import no_host_reads
 from torch_world import CX, CY, FX, FY, H, W, world_arrays
 
 torch.set_num_threads(1)
@@ -86,9 +93,10 @@ def test_batched_event_solves(scalar_scale):
         jstates, *(jnp.asarray(stacked[0]), JCAM),
         *(jnp.asarray(a) for a in stacked[1:]), max_iterations=8,
         loss_scale=jls)
-    tres = tev.batched_event_solves(
-        tstates, _t(stacked[0]), TCAM, *(_t(a) for a in stacked[1:]),
-        max_iterations=8, loss_scale=tls)
+    frames, args = _t(stacked[0]), [_t(a) for a in stacked[1:]]
+    with no_host_reads():
+        tres = tev.batched_event_solves(tstates, frames, TCAM, *args,
+                                        max_iterations=8, loss_scale=tls)
     assert isinstance(tres, tet.TrackerResult)
     assert tres.state.px.shape == (B, 3) and tres.residuals.shape == (B, 128)
     for b in range(B):
@@ -96,8 +104,14 @@ def test_batched_event_solves(scalar_scale):
                               _t(probs[b][0]), TCAM,
                               *(_t(probs[b][i]) for i in range(1, 6)),
                               max_iterations=8, loss_scale=0.2)
-        for got, want in zip(tck_leaves(_lane(tres, b)), tck_leaves(single)):
-            assert torch.equal(got, want)
+        lane = _lane(tres, b)
+        assert int(lane.n_iter) == int(single.n_iter)
+        for name in ("px", "qx", "vx"):
+            np.testing.assert_allclose(getattr(lane.state, name).numpy(),
+                                       getattr(single.state, name).numpy(),
+                                       atol=2e-4, err_msg=name)
+        np.testing.assert_allclose(float(lane.energy), float(single.energy),
+                                   rtol=1e-3)
         np.testing.assert_allclose(tres.state.px[b].numpy(),
                                    np.asarray(jres.state.px[b]), atol=2e-4)
         np.testing.assert_allclose(tres.state.qx[b].numpy(),
@@ -149,13 +163,19 @@ def test_batched_ba_windows():
     imgs = np.stack([im for _, im in lanes])
     jout, je = jev.batched_ba_windows(jstates, jnp.asarray(imgs), H, W,
                                       iterations=4)
-    tout, te = tev.batched_ba_windows(tstates, _t(imgs), H, W, iterations=4)
+    timgs = _t(imgs)
+    # the warm-up, as on the card: per-device constants are uploaded once
+    ten.linearize(tlanes[0], timgs[0], H, W)
+    with no_host_reads():
+        tout, te = tev.batched_ba_windows(tstates, timgs, H, W, iterations=4)
     assert te.shape == (B,) and tout.delta.shape == (B, F, 8)
     for b in range(B):
         st, e, _ = ten.ba_iterate(tlanes[b], _t(imgs[b]), H, W, iterations=4)
-        assert torch.equal(tout.delta[b], st.delta)
-        assert torch.equal(tout.p_idepth[b], st.p_idepth)
-        assert float(te[b]) == float(e)
+        np.testing.assert_allclose(tout.delta[b].numpy(), st.delta.numpy(),
+                                   atol=2e-5)
+        np.testing.assert_allclose(tout.p_idepth[b].numpy(),
+                                   st.p_idepth.numpy(), atol=2e-4)
+        np.testing.assert_allclose(float(te[b]), float(e), rtol=2e-5)
         np.testing.assert_allclose(float(te[b]), float(je[b]), rtol=1e-4)
         np.testing.assert_allclose(tout.p_idepth[b].numpy(),
                                    np.asarray(jout.p_idepth[b]), rtol=2e-3,

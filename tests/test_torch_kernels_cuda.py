@@ -368,3 +368,176 @@ def test_dryrun_on_the_card(card, tmp_path):
     rep = dryrun.dryrun_multichip(2, "cuda", store_dir=str(tmp_path))
     assert rep["backend"] == "gloo"
     assert min(rep["launches"]) > 0 and rep["launches_1"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the sampler's lane axis and operator; captured programs
+# ---------------------------------------------------------------------------
+
+def _contiguous(tree):
+    """A captured program's inputs as it holds them: contiguous copies (an
+    eager run on the same layouts is then bitwise the replay)."""
+    from torch.utils._pytree import tree_map
+    return tree_map(lambda t: None if t is None else t.contiguous(), tree)
+
+
+def _lanes(card, B=3, F=4, H=48, W=64, P=96, K=8, seed=5):
+    rng = np.random.default_rng(seed)
+    planes = torch.as_tensor(rng.uniform(0, 255, (B, F, H, W)).astype(
+        np.float32), device=card)
+    u = torch.as_tensor(rng.uniform(-3, W + 3, (B, P, F, K)).astype(
+        np.float32), device=card)
+    v = torch.as_tensor(rng.uniform(-3, H + 3, (B, P, F, K)).astype(
+        np.float32), device=card)
+    u[0, 0, :, 0] = float("nan")
+    return planes, u, v
+
+
+@pytest.mark.cuda
+def test_lane_axis_sampler_matches_plain(card):
+    """Taps [B, P, F, K] on planes [B, F, H, W]: one launch, ``ok`` equal to
+    the plain version's and the values bitwise on ok taps; each lane is
+    bitwise the single-problem kernel on its own planes."""
+    planes, u, v = _lanes(card)
+    before = ps.pattern_sample_lanes.launches
+    got = ps.pattern_sample_lanes(planes, u, v)
+    assert ps.pattern_sample_lanes.launches == before + 1
+    ref = ps.pattern_sample_lanes_reference(planes, u, v)
+    assert torch.equal(got[3], ref[3]) and int(ref[3].sum()) > 100
+    for a, b in zip(got[:3], ref[:3]):
+        assert torch.equal(a[ref[3]], b[ref[3]])
+        assert torch.isfinite(a).all()
+    for b in range(planes.shape[0]):
+        single = ps.pattern_sample(planes[b], u[b].contiguous(),
+                                   v[b].contiguous())
+        for a, s in zip(got, single):
+            assert torch.equal(a[b], s)
+
+
+@pytest.mark.cuda
+def test_sampler_operator_fake_and_vmap_rules(card):
+    planes, u, v = _lanes(card, B=2)
+    torch.library.opcheck(ps.sample_op, (planes[0], u[0].contiguous(),
+                                         v[0].contiguous()))
+    before = ps.pattern_sample_lanes.launches
+    mapped = torch.vmap(ps.sample_op)(planes, u, v)
+    assert ps.pattern_sample_lanes.launches == before + 1
+    lanes = ps.pattern_sample_lanes(planes, u, v)
+    for a, b in zip(mapped, lanes):
+        assert torch.equal(a, b)
+    # planes shared by every lane (not mapped)
+    shared = torch.vmap(ps.sample_op, in_dims=(None, 0, 0))(planes[0], u, v)
+    for b in range(2):
+        single = ps.pattern_sample(planes[0], u[b].contiguous(),
+                                   v[b].contiguous())
+        for a, s in zip(shared, single):
+            assert torch.equal(a[b], s)
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_kernel_launches(card):
+    from slam_eds_tpu_torch import graphs
+    planes, u, v = _lanes(card, B=1)
+    xs = torch.rand(4096, device=card) * 64
+    ys = torch.rand(4096, device=card) * 48
+    vals = torch.ones(4096, device=card)
+
+    def fn(x):
+        s = ps.pattern_sample(x["planes"], x["u"], x["v"])
+        img = rz.rasterize_bilinear(x["xs"], x["ys"], x["vals"], 48, 64)
+        return s[0] * 2.0, img + 1.0
+
+    cache = graphs.GraphCache()
+    x = {"planes": planes[0], "u": u[0].contiguous(), "v": v[0].contiguous(),
+         "xs": xs, "ys": ys, "vals": vals}
+    n0 = (ps.pattern_sample.launches, rz.rasterize_bilinear.launches)
+    first = cache.run("t", fn, x)       # warm-up, capture, then a replay
+    n1 = (ps.pattern_sample.launches, rz.rasterize_bilinear.launches)
+    assert n1 == (n0[0] + 2, n0[1] + 2)
+    assert cache.warmups == {"pattern_sample": 1, "pattern_sample_lanes": 0,
+                             "rasterize_bilinear": 1}
+    with graphs.sync_check("error"):
+        for k in range(3):
+            x2 = dict(x, xs=torch.rand(4096, device=card) * 64)
+            out = cache.run("t", fn, x2)
+            eager = fn(x2)
+            assert torch.equal(out[0], eager[0])
+            assert torch.equal(out[1], eager[1])
+    assert torch.equal(first[0], out[0])        # same taps
+    n2 = (ps.pattern_sample.launches, rz.rasterize_bilinear.launches)
+    # 3 replays and 3 eager calls
+    assert n2 == (n1[0] + 6, n1[1] + 6)
+    assert cache.replays() == 4
+
+
+@pytest.mark.cuda
+def test_ba_program_captured_is_bitwise_eager(card):
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.models.window import ba_program
+    st, im = port_world(card)
+    kw = dict(height=H, width=W, iterations=4, break_tol=5e-5)
+    cache = graphs.GraphCache()
+    x = {"state": st, "planes": im[..., 0].contiguous()}
+    cache.run("ba", lambda x: ba_program(x, **kw), x)
+    with graphs.sync_check("error"):
+        got = cache.run("ba", lambda x: ba_program(x, **kw), x)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            want = ba_program(_contiguous(x), **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    from torch.utils._pytree import tree_leaves
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_packet_program_replayed_on_two_live_counts(card):
+    """The first rung's captured program replayed on one packet at two live
+    counts: each replay bitwise the eager program at that count."""
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.config import EDSConfig
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.models import keyframe as kfm
+    from slam_eds_tpu_torch.models import pipeline as pl
+    from slam_eds_tpu_torch.ops import depth_filter as dfm
+    from slam_eds_tpu_torch.utils.cameras import Pinhole
+    from torch.utils._pytree import tree_leaves
+    cam = Pinhole(110.0, 110.0, 63.5, 47.5, 128, 96)
+    seq = SyntheticSequence(cam, num_frames=3, events_per_packet=4096,
+                            motion_scale=0.1, device=card)
+    _, img0, _ = seq.frame(0)[:3]
+    kf = kfm.create_keyframe(img0, cam, capacity=256, init_depth=2.0,
+                             device=card)
+    pk = seq.events_between(0, 1)
+    cfg = EDSConfig()
+    pipe = pl.EDSPipeline(cam, cfg, device=card)
+    lim, iters, statics = pipe._packet_step_args()
+    program = pl._packet_rung_program(0, cam, iters, lim, statics)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=card)  # noqa
+    x = {"xs": t(pk.xs), "ys": t(pk.ys), "ts": t(pk.ts),
+         "ps": t(pk.polarity), "fwd_maps": None,
+         "state": et.initial_tracker_state(card),
+         "pf": et.pose_filter_init(cfg.tracker.pose_filter_window, card),
+         "depth": dfm.init_from_prior(kf.idepth, cfg.mapping.min_depth,
+                                      cfg.mapping.max_depth, device=card),
+         "kf_R": kf.T_w_kf_R, "kf_t": kf.T_w_kf_t,
+         "pred_R": torch.eye(3, device=card),
+         "pred_t": torch.zeros(3, device=card), "kf_uv": kf.uv,
+         "kf_nc": kf.norm_coord, "kf_grad": kf.grad, "kf_idp": kf.idepth,
+         "kf_weight": kf.weight, "kf_mask": kf.mask,
+         "loss_scale": torch.full((), 0.2, device=card)}
+    cache = graphs.GraphCache()
+    n = int(pk.n_valid)
+    x["n_valid"] = torch.full((), n, dtype=torch.int32, device=card)
+    cache.run("packet", program, x)                       # warm-up
+    heads = []
+    for count in (n, n // 3):
+        x["n_valid"] = torch.full((), count, dtype=torch.int32, device=card)
+        with graphs.sync_check("error"):
+            got = cache.run("packet", program, x)
+        want = program(_contiguous(x))
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(a, b)
+        heads.append(got[0][0].clone())
+    assert not torch.equal(heads[0], heads[1])

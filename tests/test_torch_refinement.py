@@ -50,6 +50,7 @@ from slam_eds_tpu_torch.utils import klt as tklt
 from slam_eds_tpu_torch.utils.alignment import ate_rmse
 from slam_eds_tpu_torch.utils.cameras import Pinhole as TPinhole
 from slam_eds_tpu_torch.utils.lie import SE3 as TSE3
+from torch_guard import count_host_reads
 
 torch.set_num_threads(1)
 
@@ -362,8 +363,7 @@ def test_one_packet_step_per_mode(warm_state, mode):
     assert tstat == {k: (v if not hasattr(v, "item") else v.item())
                      for k, v in jstat.items()}
     assert tlim == pytest.approx({k: float(v) for k, v in jlim.items()})
-    counters = {"event_lm_host_reads": 0, "event_gate_host_reads": 0}
-    tout = tpl._event_packet_fused(
+    args = (
         tet.state_from_numpy(_np_dict(inp["tracker"]), device="cpu"),
         tet.pose_filter_from_numpy(_np_dict(inp["pf"]), device="cpu"),
         tdf.from_numpy(_np_dict(inp["depth"]), device="cpu"), TCAM,
@@ -371,10 +371,13 @@ def test_one_packet_step_per_mode(warm_state, mode):
         tkfr.uv, tkfr.norm_coord, tkfr.grad, tkfr.idepth, tkfr.weight,
         tkfr.mask,
         *(torch.as_tensor(a) for a in (pk.xs, pk.ys, pk.ts, pk.polarity)),
-        int(pk.n_valid), None, iters, inp["loss_scale"], tlim,
-        counters=counters, **tstat)
-    # the refinement adds no host read to the step
-    assert counters == {"event_lm_host_reads": 15, "event_gate_host_reads": 1}
+        int(pk.n_valid), None, iters, inp["loss_scale"], tlim)
+    with count_host_reads() as reads:
+        tout, rungs = tpl._event_packet_fused(*args, **tstat)
+    # the refinement adds no host read to the step: the first rung passed
+    # the gate, one read of its scalar vector, none in the LM
+    assert rungs == 1
+    assert reads.by_method == {"cpu": 1}
     jsc, sc = np.asarray(jout[6]), tout[6].numpy()
     assert sc[0] == jsc[0] == 1.0 and sc[3] == jsc[3]
     jmask, mask = np.asarray(jout[3]), tout[3].numpy()

@@ -7,19 +7,23 @@ on one card, on the main path's inputs.
 raster used a global int64 scratch and the sampler one thread per tap:
 ``rasterize_launch(xs, ys, vals, E, H, W, acc, out, stream)`` and
 ``pattern_sample_launch(planes, sF, sH, sW, F, H, W, K, N, u, v, I, gx, gy,
-ok, stream)``). Both are built with the port's nvcc flags.
+ok, stream)``). Both are built with the port's nvcc flags. ``--kernels
+sampler`` (or ``raster``) times one kernel only, for a parent whose other
+kernel has another interface.
 
 Inputs: the sampler's path taps (one ``energy.linearize`` call on
 ``chip_smoke.py``'s BA world: F=8, P=2048, K=8, 640x480), read from the
 [F, H, W, 3] stack's channel 0 in place and from a planar [F, H, W] copy;
-the raster's largest packet of the event cell (65,536 lanes, time weights
-and mask applied). Each version's device time per call comes from
+the sampler's taps of one rank of the sharded dry run ([2048, 8, 8] on an
+[8, 96, 128, 3] stack); the raster's largest packet of the event cell
+(65,536 lanes, time weights and mask applied). Each version's device time per call comes from
 ``torch.profiler`` (every device activity, summed), in the order earlier,
 current, current, earlier; the outputs of the two versions must be bitwise
 equal (the sampler's on ok taps). One JSON line per kernel and input, and
 the card's name and power limit. Imports no JAX.
 
-    python3 tools/kernel_bench.py [--parent DIR] [--out f.json]
+    python3 tools/kernel_bench.py [--parent DIR] [--kernels sampler|raster]
+        [--out f.json]
 """
 import argparse
 import ctypes
@@ -103,25 +107,59 @@ def timed(versions):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path)
+    ap.add_argument("--kernels", choices=("both", "sampler", "raster"),
+                    default="both")
     ap.add_argument("--out", help="also write every result to this JSON file")
     args = ap.parse_args()
+    do_sampler = args.kernels in ("both", "sampler")
+    do_raster = args.kernels in ("both", "raster")
     if not torch.cuda.is_available():
         sys.exit("kernel_bench: needs a CUDA device")
     dev = cs.phase_device()
     cs.build_kernels()
     old_ps = old_rz = None
-    if args.parent:
+    if args.parent and do_sampler:
         old_ps = parent_sampler(build_parent(args.parent, "pattern_sample"))
+    if args.parent and do_raster:
         old_rz = parent_raster(build_parent(args.parent, "rasterize"))
     results = {"gpu": cs.gpu_name_and_power_limit()}
+    if do_sampler:
+        bench_sampler(dev, old_ps, results)
+    if do_raster:
+        bench_raster(dev, old_rz, results)
+    print(results["gpu"])
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(results, indent=1))
 
+
+def rank_taps(dev, ranks=2):
+    """(the [F, H, W, 3] stack, Ku, Kv) of one ``linearize`` of rank 0's
+    block of the sharded dry run's world (``chip_smoke.py``'s per-rank
+    shape)."""
+    from slam_eds_tpu_torch.models import ba_state as bs
+    from slam_eds_tpu_torch.parallel import dryrun
+    from slam_eds_tpu_torch.parallel.sharded_ba import shard_state
+    world = dryrun.dryrun_world(ranks)
+    images = torch.as_tensor(world.pop("images"), device=dev)
+    state = bs.from_numpy({k: v for k, v in world.items()
+                           if not k.startswith("ev_")}, device=dev)
+    return cs.record_taps(shard_state(state, 0, ranks), images, dryrun.H,
+                          dryrun.W)
+
+
+def bench_sampler(dev, old_ps, results):
+    """The main path's taps on the [F, H, W, 3] stack and on the planar
+    intensity, then the per-rank taps."""
     planar, pu, pv = cs.linearize_taps(dev)
     stack = cs.build_ba_problem(dev)[1]             # the [F, H, W, 3] stack
-    n = pu.numel()
-    texels = cs.sampler_texels(stack, pu, pv)
-    nbytes = n * 8 + n * 13 + texels * 4
-    lib_call, _ = cs.grid_sample_yardstick(stack, pu, pv)
-    for layout, planes in (("stack", stack), ("planar", planar)):
+    rank = rank_taps(dev)
+    for layout, planes, pu, pv in (("stack", stack, pu, pv),
+                                   ("planar", planar, pu, pv),
+                                   ("per_rank", *rank)):
+        n = pu.numel()
+        texels = cs.sampler_texels(planes, pu, pv)
+        nbytes = n * 8 + n * 13 + texels * 4
         versions = {"current": lambda p=planes: ps.pattern_sample_cuda(
             p, pu, pv)}
         if old_ps:
@@ -137,14 +175,20 @@ def main():
         roof = cs.roofline(nbytes, n * cs.SAMPLER_OPS_PER_TAP,
                            t["current"]["device_us"])
         results[f"pattern_sample_{layout}"] = {
-            "taps": n, "distinct_texels": texels, **t, **roof,
+            "taps": n, "planes": list(planes.shape), "distinct_texels": texels,
+            **t, **roof,
             "share_of_bound_parent": (roof["bound_us"]
                                       / t["parent"]["device_us"]
                                       if "parent" in t else None)}
         print(json.dumps({f"pattern_sample_{layout}":
                           results[f"pattern_sample_{layout}"]}), flush=True)
+    lib_call, _ = cs.grid_sample_yardstick(stack, *cs.linearize_taps(dev)[1:])
     results["grid_sample_us"] = cs.device_us(lib_call)
+    print(json.dumps({"grid_sample_us": results["grid_sample_us"]}),
+          flush=True)
 
+
+def bench_raster(dev, old_rz, results):
     xs, ys, vals, H, W, _ = cs.raster_cases(dev, cs.eds_inputs(dev)[3])[
         "packet"]
     versions = {"current": lambda: rz.rasterize_bilinear_cuda(xs, ys, vals,
@@ -197,13 +241,8 @@ def main():
         **roof, "share_of_bound_parent": (roof["bound_us"]
                                           / t["parent"]["device_us"]
                                           if "parent" in t else None)}
-    print(json.dumps({"rasterize_bilinear": results["rasterize_bilinear"],
-                      "grid_sample_us": results["grid_sample_us"]}),
+    print(json.dumps({"rasterize_bilinear": results["rasterize_bilinear"]}),
           flush=True)
-    print(results["gpu"])
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(results, indent=1))
 
 
 if __name__ == "__main__":

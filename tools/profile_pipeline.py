@@ -11,7 +11,9 @@ the card's name and power limit):
 * ``ba_3_calls``      -- three 6-iteration ``ba_iterate`` calls under the
                          profiler (CUDA activity): wall, device busy time,
                          device idle share, event count, top device items;
-* ``stages``          -- one pipeline run with ``torch.cuda.synchronize()``
+* ``stages``          -- one pipeline run (``capture=False``: the eager
+                         functions, where a captured replay has no stages
+                         to time) with ``torch.cuda.synchronize()``
                          around every ``WindowManager`` stage: seconds and
                          calls per stage, every frame's wall time, counters;
 * ``pipeline_steady`` -- a second pipeline run, 8 frames after the smoke's
@@ -21,7 +23,8 @@ the card's name and power limit):
 With ``--eds``, two runs of the event path (``EDSPipeline`` on phase 8's
 32-frame sequence of ``chip_smoke.py``, 65,536-event packets):
 
-* ``eds_stages``  -- every packet step with ``torch.cuda.synchronize()``
+* ``eds_stages``  -- every packet step (``capture=False``, as above)
+                     with ``torch.cuda.synchronize()``
                      around each stage: raster (``scatter_accumulate``),
                      blur and levels (the rest of ``build_event_frame``),
                      the LM per pyramid level (first solve), the retry
@@ -114,7 +117,8 @@ def profile_stages(cam, frames, dev):
     for n in STAGES:
         setattr(wmod.WindowManager, n, timed(n, orig[n]))
     try:
-        pipe = FrameOnlyPipeline(cam, EDSConfig(), device=dev)
+        # eagerly: a captured program's replay runs no Python to time
+        pipe = FrameOnlyPipeline(cam, EDSConfig(), device=dev, capture=False)
         walls = []
         for t, img in frames:
             torch.cuda.synchronize()
@@ -244,7 +248,8 @@ def profile_eds_stages(cam, frames, packets, dev, cfg):
     for m, n, fn in patches:
         setattr(m, n, fn)
     try:
-        pipe = EDSPipeline(cam, cfg, device=dev)
+        # eagerly: a captured program's replay runs no Python to time
+        pipe = EDSPipeline(cam, cfg, device=dev, capture=False)
         _run_eds(pipe, frames, packets, on_packet)
     finally:
         for m, n, fn in saved:
@@ -258,7 +263,7 @@ def profile_eds_stages(cam, frames, packets, dev, cfg):
                               / max(len(steady), 1) for n in names},
             "host_reads_per_packet": {
                 k: c[f"event_{k}_host_reads"] / n_pk
-                for k in ("lm", "gate", "scalar")},
+                for k in ("lm", "scalar")},
             "event_counters": dict(c)}
 
 
