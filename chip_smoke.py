@@ -1,30 +1,52 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``slam_eds_tpu_torch``) on one GPU.
 
-Builds the hand-written ``sm_90a`` kernels (the pattern sampler and the
-event raster) from ``slam_eds_tpu_torch/csrc``, one ``nvcc`` each, started
-together; holds each against its plain PyTorch version; runs the keyframe BA
+Builds the hand-written ``sm_90a`` kernels (the pattern sampler, the
+event raster, the LU substitution and the IF node's condition kernel)
+from ``slam_eds_tpu_torch/csrc``, one ``nvcc`` each, started together;
+holds each against its plain PyTorch version; runs the keyframe BA
 at the reference operating point, the frame-only path
 (``FrameOnlyPipeline``), the event path (``EDSPipeline``), the on-disk
 runner (``runner.run_sequence``), the track-refinement modes, the ``dso``
 and ``midas`` bootstraps, checkpoint/resume and the evaluator with the map
 export, all at 640x480 with the default ``EDSConfig``. The event cell runs first and again last, and the two runs
-must agree packet for packet. On the card the packet step (one program per
-rung of the gate's ladder), the frame track and the BA call run as captured
-CUDA graphs (``slam_eds_tpu_torch/graphs.py``): every cell replays them
+must agree packet for packet. On the card the packet step (one program:
+the event frame, the first solve, the gate's retries as IF nodes, the tail
+once), the frame track, the BA call, the ``dso`` track and the keyframe
+programs run as captured CUDA graphs (``slam_eds_tpu_torch/graphs.py``)
+whose loops and retries branch on the device: every cell replays them
 under ``torch.cuda.set_sync_debug_mode("error")`` (a hidden host read
 raises), and each captured program is held against the same function run
-eagerly on the card from the same inputs (bitwise expected, else within
-``CAPTURED_TOL``), the eager run under the same sync check. Phases, one
-output line each:
+eagerly on the card from the same inputs, its loops and retries masked
+(bitwise expected, else within ``CAPTURED_TOL``), the eager run under the
+same sync check. Launches under an IF node are counted as slots by the
+kernels' Python counters; the launches that ran are counted over the whole
+frame cell and the event cell's last run (the main path of the kernels
+line, whose ``launches`` are those runs and ``launch_slots`` the counters)
+by ``graphs.launch_ledger`` (each IF node counts on the device the times
+its body ran), and over frames 4-6 of each also by the profiler, which may
+not count more (over whole runs of these graphs ``torch.profiler`` faulted
+the card). Phases, one output line each:
 
-1. device   -- card name and power limit, torch/CUDA versions, f32 numerics
-2. build, build-raster, build-host -- the nvcc builds of
-               csrc/pattern_sample.cu and csrc/rasterize.cu (ptxas
-               registers and spills) and the host C++ build of the
-               runner's csrc/host runtime, all started together (a failed
-               host build is reported, and the runner then takes its
+1. device   -- card name and power limit, torch/CUDA/driver versions,
+               whether torch has a conditional-node API (the card's 2.11
+               has none: ``csrc/graph_cond.cu`` builds the nodes)
+2. build, build-raster, build-lu, build-cond, build-host -- the nvcc
+               builds of csrc/pattern_sample.cu, csrc/rasterize.cu,
+               csrc/lu_solve.cu and csrc/graph_cond.cu (ptxas registers
+               and spills) and the host C++ build of the runner's
+               csrc/host runtime, all started together (a failed host
+               build is reported, and the runner then takes its
                pure-Python ring, reader and PNG path)
+2a. conditional -- the IF node: a captured ``graphs.while_loop`` bitwise
+               its eager masked run and ending at its stop (3 of 10, 7 of
+               a 50 cap, 10 of 10; its pass counter read back), a false
+               ``graphs.cond`` leaving its carry; the device time an IF
+               node adds to a live pass, a host ``if``'s; the loops' solve
+               (``utils.linalg.solve``) bitwise ``torch.linalg.solve_ex``
+               at every size and batch of the path, in float32 and
+               float64; the LU substitution kernel bitwise its plain
+               version (``torch.linalg.lu_solve``) and timed
 3. eds-first -- the event cell (phase 9) first in the process
 3a. batched -- ``eval.batched_event_solves`` at B=4 on the event cell's
                shapes and ``eval.batched_ba_windows`` at B=2 on phase 5's BA
@@ -48,14 +70,25 @@ output line each:
 5. ba       -- 6-iteration ``ba_iterate`` on the ``bench.py`` BA world
                (6 kernel launches per call), eagerly and as one captured
                program (bitwise its eager run, 6 launches counted per
-               replay; ms per call of both), then point and frame
-               marginalization (finite, symmetric HM)
-6. pipeline -- ``FrameOnlyPipeline`` over a ``SyntheticSequence``: bootstrap,
-               at least one marginalized frame, no full reset, kernel
-               launches, every window tensor on the card, ATE bound; host
-               reads per frame, the device idle share over frames 4-6
-               (profiler), and the captured ``track_frame`` and window BA
-               against their eager runs at the final state
+               replay and 6 run by the ledger and the profiler; ms per call
+               of both), then point and frame marginalization (finite,
+               symmetric HM)
+6. pipeline -- ``FrameOnlyPipeline`` over a ``SyntheticSequence``:
+               bootstrap, at least one marginalized frame, no full reset,
+               every window tensor on the card, ATE bound; host reads per
+               frame, per frame the coarse LM passes and cutoff doublings
+               run against their slots (fewer run than the slots on some
+               frame); every kernel of the path run, launches run (ledger)
+               at most the slots over the run; the device idle share and
+               the profiler's launches beside the ledger's over frames 4-6;
+               every window BA call's GN passes (an eager run with a host
+               ``if`` per pass), and the last call's again at the smallest
+               ``break_tol`` of 1e-2, 0.1 and 0.5 that stops before the
+               cap, against the sampler launches that ran in a replay
+               bitwise that eager run (passes + 1, by the ledger and the
+               profiler); the captured ``track_frame``, window BA and every
+               keyframe program (the last inputs of each) against their
+               eager runs
 7. kernel-raster -- raster kernel vs ``rasterize_bilinear_reference`` on the
                largest packet of phase 9's sequence (65,536 capacity, time
                weights and mask applied), 65,536 random fractional events at
@@ -90,19 +123,18 @@ output line each:
 8b. eds-refine -- the event cell with ``track_refinement="model_klt"`` at
                full width and depth: bootstrapped, no reset, usable solves
                >= 0.8 x the JAX CPU run's, frame and event ATE bounds,
-               raster launches exactly 1 per packet plus 1 splat per rung of
-               the gate's ladder taken (the tail, with the refinement, ends
-               every rung), host reads per packet no higher than the cell
-               without refinement (within one), ms per packet beside that
-               cell's; then ``klt_pyr`` and ``epiline`` over the first 12
-               frames: finite, no reset, 2 and 1 splats per rung, the
-               points left alive; each mode's rung programs against their
-               eager runs
+               raster launches exactly 1 per packet plus 1 splat (the tail
+               runs once per packet), exactly 1 host read per packet, ms
+               per packet beside the cell without refinement's; then
+               ``klt_pyr`` and ``epiline`` over the first 12 frames:
+               finite, no reset, 2 and 1 splats per packet, the points left
+               alive; each mode's packet program against its eager run
 8c. boot-dso, boot-midas -- ``FrameOnlyPipeline`` on the frame cell's
                sequence with ``bootstrap="dso"`` over 24 frames (snap and
                initialization frames within one of the JAX CPU run's, a BA
                run, no reset, keyframes within one, ATE bound; seconds in
-               ``set_first`` and per ``track_frame``, host reads) and with
+               ``set_first`` and per ``track_frame``, the initializer's
+               captured program against its eager run, host reads) and with
                ``bootstrap="midas"`` over 16 frames, fed frame 0's true
                depth as a dense map (initialized on frame 0, >= 16 seeded
                points, a BA run, no reset, ATE bound)
@@ -139,12 +171,14 @@ output line each:
                keyframes, usable solves, both kernels launched (the raster
                once per packet), every event and window tensor on the card,
                frame and event ATE bounds, host reads exactly 1 per packet
-               plus 1 per retry of the gate's ladder; frames/s, ms per
-               packet, host reads per packet and per frame beside the 52.5
-               of the loops that read on the host, the device idle share
-               over frames 4-6 (profiler), and
-               every rung's captured program against its eager run on the
-               largest and the smallest packet (two live counts)
+               whatever the retries; frames/s, ms per packet, host reads
+               per packet and per frame beside the 52.5 of the loops that
+               read on the host, the launches run against the slots over
+               the run and the device idle share over frames 4-6 (phase 3
+               has neither), and the
+               packet program against its eager run on the largest and the
+               smallest packet (two live counts) and with the gate shut
+               (both retries)
 10. history -- phases 3 and 9 agree: the same usable string and counts, and
                every usable packet's pose within 1e-6
 
@@ -163,6 +197,7 @@ import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -214,8 +249,9 @@ JAX_CPU_MIDAS = {"ate": 0.00010620228567859158, "frames": 16,
                  "ba_runs": 4, "marginalized": 0, "resets": 0,
                  "active_points": 2048}
 REFINE_SHORT_FRAMES = 12   # klt_pyr and epiline: smaller depth, same width
-# frames (with their packets) under the profiler: its post-processing takes
-# about 10 s per frame of captured programs (thousands of kernels each)
+# frames (with their packets) of the window whose device idle share is
+# printed: frames PIPE_WARMUP to PIPE_WARMUP + PROFILE_FRAMES, a profiler
+# session of their own
 PROFILE_FRAMES = 3
 # the batched event lanes against their single solves (``phase_batched``):
 # the residuals and the energy are held after 2 and 5 LM passes, the pose
@@ -240,6 +276,7 @@ RADTAN_ZERO_CALIB = ("cam0:\n  intrinsics: [400.0, 400.0, 319.5, 239.5]\n"
                      "  resolution: [640, 480]\n  distortion_model: radtan\n"
                      "  distortion_coeffs: [0, 0, 0, 0]\n")
 RASTER_TOL = 1e-5          # max |d| <= RASTER_TOL * max(1, max|ref|)
+
 POSE_TOL = 1e-6            # the two event-cell runs, per usable packet
 # the card's peaks for the bounds: NVIDIA's H100 SXM data sheet (dense,
 # 700 W): HBM bytes/s and float32 operations/s outside the tensor cores
@@ -441,31 +478,90 @@ def replay_against_eager(cache, run_captured, run_eager, label):
     return gap, bitwise
 
 
-class DeviceWindow:
-    """Device busy time over a window of a run (``torch.profiler``, CUDA
-    activity): ``start()``, ``stop()``; ``idle_share`` is 1 - busy / wall
-    (None when the profiler recorded no device time)."""
+def torch_guard():
+    """``tests/torch_guard.py`` of this checkout: the eager forms a captured
+    program is held against (``masked_branches``, ``skipped_passes``), the
+    same the CPU tests use."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_guard as guard
+    return guard
+
+
+def _ledger():
+    """``graphs.launch_ledger()`` per kernel of the port (``KERNEL_NAMES``),
+    the sampler's lane axis with the sampler (one device function)."""
+    from slam_eds_tpu_torch import graphs
+    torch.cuda.synchronize()
+    n = graphs.launch_ledger()
+    lanes = n.pop("pattern_sample_lanes")
+    n["pattern_sample"] = tuple(a + b for a, b in
+                                zip(n["pattern_sample"], lanes))
+    return n
+
+
+def _delta(before, after):
+    from slam_eds_tpu_torch import graphs
+    return graphs.ledger_delta(before, after)
+
+
+class ProfiledRun:
+    """Launches over a run and the device over a window of it. ``start()``
+    and ``stop()`` bound the run: ``launches`` holds per kernel of the port
+    the launch slots (the kernels' counters: a kernel inside an IF node
+    counts whether its body ran or not) and the launches that ran
+    (``graphs.launch_ledger``: each IF node counts on the device the times
+    its body ran); more runs than slots fails. ``window_start()`` /
+    ``window_stop()`` bound a window under ``torch.profiler`` (CUDA
+    activity): ``idle_share`` is 1 - busy / wall over it (None when no
+    device time was recorded), ``window`` holds per kernel the launches run
+    by the profiler's count (its kernel activities by name) beside the
+    ledger's over the same frames; the profiler's may not exceed the
+    ledger's. The profiler covers the window only: over whole runs of these
+    graphs it faulted the card (illegal address, NVIDIA H100 80GB HBM3,
+    torch 2.11+cu128)."""
 
     def __init__(self):
-        self.prof = None
         self.idle_share = self.busy_s = self.wall_s = None
+        self.launches = self.window = None
+        self.profile_s = 0.0
 
     def start(self):
+        self.l0 = _ledger()
+
+    def window_start(self):
         from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
+        self.w0 = _ledger()
         self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.prof.__enter__()
         self.t0 = time.perf_counter()
 
-    def stop(self):
+    def window_stop(self):
         torch.cuda.synchronize()
         self.wall_s = time.perf_counter() - self.t0
+        t = time.perf_counter()
         self.prof.__exit__(None, None, None)
-        busy = sum(e.self_device_time_total for e in self.prof.key_averages())
+        stats = self.prof.key_averages()
+        busy = sum(e.self_device_time_total for e in stats)
         self.busy_s = busy / 1e6
         self.idle_share = (1.0 - self.busy_s / self.wall_s) if busy > 0 \
             else None
-        self.prof = None
+        seen = kernel_counts(stats)
+        ledger = _delta(self.w0, _ledger())
+        self.window = {k: {"profiler": seen[k], **ledger[k]} for k in seen}
+        self.profile_s = time.perf_counter() - t
+        over = {k: v for k, v in self.window.items()
+                if v["profiler"] > v["run"]}
+        if over:
+            fail(f"the profiler saw more launches than the ledger: {over}")
+
+    def stop(self):
+        self.launches = _delta(self.l0, _ledger())
+        over = {k: v for k, v in self.launches.items()
+                if v["run"] > v["slots"]}
+        if over:
+            fail(f"more launches ran than were counted: {over}")
 
 
 # ---------------------------------------------------------------------------
@@ -476,22 +572,34 @@ def phase_device():
     from slam_eds_tpu_torch.device import set_numerics
     set_numerics()
     smi = gpu_name_and_power_limit()
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
     phase("device", nvidia_smi=smi, torch=torch.__version__,
-          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
+          cuda=torch.version.cuda, driver=driver,
+          torch_if_node_capture=hasattr(torch.cuda.CUDAGraph,
+                                        "begin_capture_to_if_node"),
+          name=torch.cuda.get_device_name(0),
           count=torch.cuda.device_count())
     return torch.device("cuda:0")
 
 
 def build_kernels():
-    """Both kernel libraries, one nvcc each, and the host runtime, started
-    together. Returns the kernels' build records and whether the host
-    runtime built."""
+    """The kernel libraries (the sampler, the raster, the LU substitution
+    and the IF node's condition kernel), one nvcc each, and the host
+    runtime, all started together. Returns the build records and whether
+    the host runtime built."""
+    from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.io import event_buffer as eb
     from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
     from slam_eds_tpu_torch.ops.kernels import rasterize as rz
-    with ThreadPoolExecutor(3) as ex:
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    with ThreadPoolExecutor(5) as ex:
         jobs = {"pattern_sample": ex.submit(ps.load),
                 "rasterize": ex.submit(rz.load),
+                "lu_solve": ex.submit(lu.load),
+                "graph_cond": ex.submit(graphs._cond_lib),
                 "host": ex.submit(eb.available)}
         return {name: job.result() for name, job in jobs.items()}
 
@@ -508,6 +616,187 @@ def phase_build_host(ok):
     err = (eb.build_error() or "").strip().splitlines()
     phase("build-host", host_runtime="native" if ok else "python",
           build_error_last_line=err[-1] if err else None)
+
+
+# the kernels of the port, by the name of their device function
+KERNEL_NAMES = {"pattern_sample": "pattern_sample_kernel",
+                "rasterize_bilinear": "raster_cluster_kernel",
+                "lu_substitute": "lu_substitute",
+                "set_condition": "set_condition"}
+
+
+def kernel_counts(stats):
+    """Device launches run per kernel of the port, from a profiler's
+    ``key_averages()`` (kernel activities, by name)."""
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    for e in stats:
+        for k, sub in KERNEL_NAMES.items():
+            if sub in e.key and e.self_device_time_total > 0:
+                out[k] += e.count
+    return out
+
+
+def phase_conditional(dev):
+    """The IF node (``graphs``): a captured ``while_loop`` bitwise its
+    eager masked run and ending at its stop (its pass counter read back),
+    a false branch leaving its carry as it was and a true one running, a
+    chained loop 50 passes deep; the cost of an IF node on a live pass and
+    of a stop; the loops' small solves (``utils.linalg.solve``, which a
+    body holds: torch's factorization and the ``lu_solve`` kernel) bitwise
+    ``torch.linalg.solve_ex`` at their sizes, single and batched as the
+    path batches them, and the kernel against its plain version. Returns
+    the kernels-line entries of the LU substitution and the IF node."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.utils.linalg import solve
+    gen = torch.Generator().manual_seed(3)
+    H12 = (torch.randn(12, 12, generator=gen) + 12 * torch.eye(12)).to(dev)
+
+    def loop(stop, cap, body=None):
+        def fn(x):
+            def pass_(_, c):
+                v, it, done = c
+                active = ~done
+                v = torch.where(active, body(v) if body else v + 1.0, v)
+                it = it + active.to(torch.int32)
+                return v, it, done | (it >= stop)
+            return graphs.while_loop(
+                lambda c: ~c[2], pass_,
+                (x["v"], torch.zeros((), dtype=torch.int32, device=dev),
+                 torch.zeros((), dtype=torch.bool, device=dev)), cap)
+        return fn
+
+    def solve_body(v):
+        return v + 1e-3 * solve(H12, v)
+    cache = graphs.GraphCache()
+    checks = {}
+    for name, stop, cap in (("stop_3_of_10", 3, 10), ("chain_7_of_50", 7, 50),
+                            ("cap_10_of_10", 99, 10)):
+        fn = loop(stop, cap, solve_body)
+        x = {"v": torch.randn(12, generator=gen).to(dev)}
+        gap, bitwise = replay_against_eager(
+            cache, lambda: cache.run(name, fn, x),
+            lambda: fn(contiguous(x)), name)
+        it = int(cache.run(name, fn, x)[1])
+        checks[name] = {"passes_run": it, "bitwise": bitwise}
+        if it != min(stop, cap) or not bitwise:
+            fail(f"{name}: {it} passes run, bitwise {bitwise}")
+
+    def branch(x):
+        return graphs.cond(x["p"], lambda c: (c[0] + 1.0, c[1] * 2.0),
+                           (x["a"], x["b"]))
+    for taken in (True, False):
+        x = {"p": torch.full((), taken, device=dev),
+             "a": torch.randn(64, generator=gen).to(dev),
+             "b": torch.randn(64, generator=gen).to(dev)}
+        got = graphs.copy_out(cache.run(("cond", taken), branch, x))
+        got = graphs.copy_out(cache.run(("cond", taken), branch, x))
+        want = (x["a"] + 1.0, x["b"] * 2.0) if taken else (x["a"], x["b"])
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"an IF node on {taken} did not give its branch's result")
+    checks["if_false_leaves_the_carry"] = True
+
+    # the cost of a node: a live pass under an IF node against the same
+    # pass captured without one, and a loop that stops at once; and the
+    # cost of a kernel inside a body: passes of 32 kernels against 32
+    # kernels a pass captured without nodes
+    n, m = 20, 32
+
+    def adds(k):
+        def body(v):
+            for _ in range(k):
+                v = v + 1.0
+            return v
+        return body
+
+    def plain(k):
+        return lambda x: adds(n * k)(x["v"])
+    x = {"v": torch.zeros((), device=dev)}
+    timing = {}
+    for name, fn in (("plain", plain(1)), ("if_live", loop(99, n)),
+                     ("if_stop_after_one", loop(0, n)),
+                     (f"plain_{m}", plain(m)),
+                     (f"if_live_{m}", loop(99, n, adds(m)))):
+        c = graphs.GraphCache()
+        c.run(name, fn, x)
+        timing[name] = cuda_time_ms(lambda: c.run(name, fn, x), 200)
+    if_us = 1e3 * (timing["if_live"] - timing["plain"]) / n
+    body_kernel_us = 1e3 * ((timing[f"if_live_{m}"] - timing[f"plain_{m}"])
+                            - (timing["if_live"] - timing["plain"])) \
+        / (n * (m - 1))
+    # the IF node's plain version: a host ``if`` on the device bool, one
+    # read (host microseconds)
+    pred = torch.ones((), dtype=torch.bool, device=dev)
+    bool(pred)
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        bool(pred)
+    host_if_us = (time.perf_counter() - t0) * 1e3
+
+    # the loops' solves against torch.linalg.solve_ex: bitwise at every
+    # size and batch of the path (the coarse LM 6 and 8, the BA's gauge 7
+    # and reduced 68, the event LM 12; the batched surface's lanes), which
+    # keeps the results of the loops before they could skip a pass
+    solves, entry = {}, None
+    for n_, batch, what in ((6, 1, "coarse LM, fixed affine"),
+                            (7, 1, "BA gauge"), (7, 2, "BA gauge, lanes"),
+                            (8, 1, "coarse LM"), (12, 1, "event LM"),
+                            (12, 4, "event LM, lanes"),
+                            (68, 1, "window BA, F=8"),
+                            (68, 2, "window BA, lanes")):
+        for dt in (torch.float32, torch.float64):
+            G = torch.randn(batch, n_, n_, generator=gen,
+                            dtype=torch.float64)
+            A = (G @ G.transpose(-1, -2) / n_
+                 + torch.eye(n_, dtype=torch.float64)).to(dt).to(dev)
+            b = torch.randn(batch, n_, generator=gen,
+                            dtype=torch.float64).to(dt).to(dev)
+            if batch == 1:
+                A, b = A[0], b[0]
+            x_s = solve(A, b)
+            x_p = torch.linalg.solve_ex(A, b[..., None],
+                                        check_errors=False)[0][..., 0]
+            name = f"{n_}x{batch}_{str(dt)[6:]}"
+            solves[name] = {"path": what, "bitwise": bool(
+                torch.equal(x_s, x_p)),
+                "max_abs_err": float((x_s - x_p).abs().max())}
+            if not solves[name]["bitwise"]:
+                fail(f"the loops' solve at {name} is not torch's: "
+                     f"{solves[name]}")
+    # the kernel against its plain version (torch.linalg.lu_solve, also
+    # the library call) at the event LM's shape, with its times
+    G = torch.randn(12, 12, generator=gen, dtype=torch.float64)
+    A = (G @ G.T / 12 + torch.eye(12, dtype=torch.float64)).float().to(dev)
+    b = torch.randn(12, generator=gen).to(dev)
+    LU, piv, _ = torch.linalg.lu_factor_ex(A)
+    x_k = lu.lu_substitute_cuda(LU, piv, b)
+    x_p = lu.lu_substitute_reference(LU, piv, b)
+    err = float((x_k - x_p).abs().max())
+    if not torch.equal(x_k, x_p):
+        fail(f"the LU substitution kernel differs from lu_solve by {err}")
+    k_us = device_us(lambda: lu.lu_substitute_cuda(LU, piv, b))
+    p_us = device_us(lambda: lu.lu_substitute_reference(LU, piv, b))
+    entry = kernel_entry(
+        err, k_us, p_us,
+        cuda_time_ms(lambda: lu.lu_substitute_cuda(LU, piv, b), 200),
+        cuda_time_ms(lambda: lu.lu_substitute_reference(LU, piv, b), 200),
+        roofline(4 * (12 * 12 + 3 * 12), 2 * 12 * 12, k_us), p_us)
+    phase("conditional", checks=checks, timing_ms=timing,
+          if_node_us_per_live_pass=if_us, host_if_us=host_if_us,
+          us_added_per_kernel_in_a_body=body_kernel_us,
+          solves=solves)
+    if_roof = roofline(1, 0, if_us)
+    return {"lu_substitute": {**entry, "solves": solves},
+            "set_condition": {
+                "max_abs_err": 0.0, "ms": if_us * 1e-3,
+                "plain_ms": host_if_us * 1e-3,
+                "bound_ms": if_roof["bound_ms"],
+                "bound_by": if_roof["bound_by"], "library_ms": None,
+                "checks": checks, "timing_ms": timing,
+                "note": "ms: the added device time of an IF node on a live "
+                        "pass (condition kernel and node); plain_ms: a "
+                        "host if, one read of the device bool (host "
+                        "time)"}}
 
 
 def bound(nbytes, ops):
@@ -792,6 +1081,11 @@ def phase_ba(dev):
     if pattern_sample.launches - before != 6:
         fail(f"{pattern_sample.launches - before} kernel launches counted "
              f"in a replay of the 6-iteration ba_iterate")
+    runs = sampler_runs(captured, ba_program(contiguous(x), **kw), 6,
+                        "ba cell")
+    if runs[-1] != 6:
+        fail(f"{runs} sampler launches ran in replays of the 6-iteration "
+             f"ba_iterate")
     captured_ms = cuda_time_ms(captured, 20, warmup=1)
 
     status = st.p_status.clone()
@@ -810,6 +1104,7 @@ def phase_ba(dev):
           gn_iters_per_s=6e3 / ms, captured_ms_per_6it_call=captured_ms,
           captured_gn_iters_per_s=6e3 / captured_ms,
           captured_vs_eager={"max_gap": gap, "bitwise": bitwise},
+          sampler_launches_run_per_replay=runs,
           hm_abs_max=float(st_f.HM.abs().max()))
     return ms
 
@@ -844,13 +1139,24 @@ def phase_pipeline(dev):
     pipe = FrameOnlyPipeline(cam, EDSConfig(), device=dev)
     torch.cuda.synchronize()
 
+    from slam_eds_tpu_torch.ops.coarse_tracker import CUTOFF_DOUBLINGS
+    from slam_eds_tpu_torch.ops.kernels.lu_solve import lu_substitute
     pattern_sample.launches = 0
     rasterize_bilinear.launches = 0
-    walls, syncs = [], []
-    window = DeviceWindow()
+    lu_substitute.launches = 0
+    graphs.set_condition.launches = 0
+    walls, syncs, passes = [], [], []
+    window = ProfiledRun()
+    rec = WindowPrograms()
+    window.start()
+    c = pipe.telemetry.counters
+    levels = pipe.cfg.coarse.pyr_levels
     for k, (t, img) in enumerate(frames):
         if k == PIPE_WARMUP:
-            window.start()
+            window.window_start()
+        before = {n: c[n] for n in ("coarse_lm_passes", "coarse_lm_slots",
+                                    "coarse_cutoff_doublings",
+                                    "track_hypotheses")}
         t0 = time.perf_counter()
         with graphs.sync_check("error"):
             _, n, captured = counted_syncs(
@@ -858,13 +1164,30 @@ def phase_pipeline(dev):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         syncs.append((n, captured))
+        d = {n: c[n] - v for n, v in before.items()}
+        passes.append({"lm": [d["coarse_lm_passes"], d["coarse_lm_slots"]],
+                       "cutoff": [d["coarse_cutoff_doublings"],
+                                  CUTOFF_DOUBLINGS * levels
+                                  * d["track_hypotheses"]]})
         if k == PIPE_WARMUP + PROFILE_FRAMES - 1:
-            window.stop()
-    launches = {"pattern_sample": pattern_sample.launches,
-                "rasterize_bilinear": rasterize_bilinear.launches}
-    captured = frame_captured_checks(pipe, frames[-1][1])
-
+            window.window_stop()
+    window.stop()
+    rec.restore()
     est = pipe.positions()
+    launches = window.launches
+    if any(launches[k.__name__]["slots"] != k.launches for k in (
+            pattern_sample, rasterize_bilinear, lu_substitute,
+            graphs.set_condition)):
+        fail(f"the ledger's slots are not the counters: {launches}")
+    captured = frame_captured_checks(pipe, frames[-1][1], rec.programs)
+    ba_rows, early_tol = ba_pass_checks(rec.ba_calls)
+    tracked = [p for p in passes if p["lm"][1] > 0]
+    if any(p["lm"][0] > p["lm"][1] or p["cutoff"][0] > p["cutoff"][1]
+           for p in tracked):
+        fail(f"more coarse passes ran than the caps allow: {passes}")
+    if not tracked or all(p["lm"][0] == p["lm"][1] for p in tracked):
+        fail("no tracked frame stopped its coarse LM before the caps")
+
     ate = float(ate_rmse(est, seq.gt_positions()[:len(est)]))
     win = pipe.window
     counters = dict(pipe.telemetry.counters)
@@ -888,7 +1211,13 @@ def phase_pipeline(dev):
           / PIPE_FRAMES,
           device_idle_share=window.idle_share,
           profiled_frames=[PIPE_WARMUP, PIPE_WARMUP + PROFILE_FRAMES],
-          profiled_wall_s=window.wall_s, profiled_device_busy_s=window.busy_s,
+          profiled_wall_s=window.wall_s,
+          profiled_device_busy_s=window.busy_s,
+          profiled_launches=window.window, profile_s=window.profile_s,
+          coarse_passes_by_frame=passes,
+          ba_passes_slots_sampler_launches=ba_rows,
+          ba_early_break_tol=early_tol,
+          graph_capture_s=graphs.CACHE.capture_s,
           captured_vs_eager=captured)
     if not pipe._initialized or win.next_id < 2:
         fail("the pipeline did not bootstrap")
@@ -896,8 +1225,10 @@ def phase_pipeline(dev):
         fail("no BA run or no frame marginalized")
     if counters.get("full_resets", 0) != 0:
         fail("the pipeline fell back to a full reset")
-    if launches["pattern_sample"] <= 0:
-        fail("the main path never launched the pattern_sample kernel")
+    idle = [k for k in ("pattern_sample", "lu_substitute", "set_condition")
+            if launches[k]["run"] <= 0]
+    if idle:
+        fail(f"the frame path ran no launch of {idle} (profiler)")
     if len(est) != PIPE_FRAMES or not np.isfinite(est).all():
         fail(f"trajectory has {len(est)} entries or is not finite")
     off = [tuple(x.shape) for x in _window_tensors(win)
@@ -1075,9 +1406,11 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
     its packet, through ``pipe`` (a new ``EDSPipeline(cfg)`` when None), with
     both kernels' launch counts set to 0 just before and read just after.
     ``after_packet(pipe, T)`` is called after every packet; a
-    ``DeviceWindow`` given as ``window`` records frames PIPE_WARMUP to
-    PIPE_WARMUP + PROFILE_FRAMES with their packets. Returns the
-    pipe, the launches, the per-frame and per-packet seconds, the
+    ``ProfiledRun`` given as ``window`` counts the run's launches, and
+    profiles frames PIPE_WARMUP to PIPE_WARMUP + PROFILE_FRAMES with their
+    packets. Returns the
+    pipe, the launch slots (the kernels' counters), the per-frame and
+    per-packet seconds, the
     synchronising calls of each frame and packet (``counted_syncs``; a
     packet's with the rungs it took), the usable
     flags, every packet's pose (None where rejected) and the event
@@ -1098,23 +1431,25 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
     frame_s, packet_s, frame_syncs, packet_syncs = [], [], [], []
     ev_pos, ev_gt, usable, poses = [], [], [], []
     c = pipe.telemetry.counters
+    if window is not None:
+        window.start()
     for k in range(start, len(frames) if stop is None else stop):
         t, img = frames[k]
         if window is not None and k == PIPE_WARMUP:
-            window.start()
+            window.window_start()
         t0 = time.perf_counter()
         _, n, captured = counted_syncs(lambda: pipe.process_frame(img, t))
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
         frame_syncs.append((n, captured))
         if k + 1 < len(frames) and pipe.kf is not None:
-            rungs = c["event_scalar_host_reads"]
+            retries = c["event_retries"]
             t0 = time.perf_counter()
             T, n, captured = counted_syncs(
                 lambda: pipe.process_events(packets[k]))
             torch.cuda.synchronize()
             packet_s.append((k, time.perf_counter() - t0))
-            packet_syncs.append((n, c["event_scalar_host_reads"] - rungs,
+            packet_syncs.append((n, 1 + c["event_retries"] - retries,
                                  captured))
             usable.append(T is not None)
             poses.append(None if T is None else torch.cat(
@@ -1125,7 +1460,9 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
             if after_packet is not None:
                 after_packet(pipe, T)
         if window is not None and k == PIPE_WARMUP + PROFILE_FRAMES - 1:
-            window.stop()
+            window.window_stop()
+    if window is not None:
+        window.stop()
     launches = {"pattern_sample": pattern_sample.launches,
                 "rasterize_bilinear": rasterize_bilinear.launches}
     # the launches of the warm-ups of programs first captured in this run
@@ -1163,54 +1500,61 @@ def measured_reads(run):
 
 
 def check_reads(label, c, packet_syncs=()):
-    """The pipeline's telemetry: one read per packet and per retry of the
-    gate's ladder, none in the LM; and every packet of ``packet_syncs``
-    (``run_event_cell``) that captured no program read the host exactly
-    once per rung it took, measured."""
+    """The pipeline's telemetry: one read per packet whatever the retries
+    of the gate's ladder, none in the LM; and every packet of
+    ``packet_syncs`` (``run_event_cell``) that captured no program read the
+    host exactly once, measured."""
     if c["event_scalar_host_reads"] != c["event_packets"] \
-            + c["event_retries"] or c["event_lm_host_reads"]:
+            or c["event_lm_host_reads"]:
         fail(f"{label}: the telemetry's reads disagree ({dict(c)})")
     off = [(k, n, r) for k, (n, r, cap) in enumerate(packet_syncs)
-           if not cap and n != r]
+           if not cap and n != 1]
     if off:
-        fail(f"{label}: packets whose host reads (measured) differ from the "
-             f"rungs they took, as (packet, reads, rungs): {off[:5]}")
+        fail(f"{label}: packets whose host reads (measured) are not 1, as "
+             f"(packet, reads, rungs): {off[:5]}")
 
 
 def packet_captured_checks(pipe, packets, label):
-    """Every rung's captured program of the pipeline's packet step,
-    replayed against the same program run eagerly, at the pipeline's state,
-    on two packets of different live counts (so a count frozen into the
-    program would show). Returns {rung: (max gap, bitwise)} and the counts."""
+    """The pipeline's packet program (``gate_ladder``: the retries IF nodes)
+    replayed against the same program run eagerly with its retries masked,
+    at the pipeline's state, on two packets of different live counts (so a
+    count frozen into the program would show), and on the larger one with
+    the translation gate shut (``max_step_t`` 1e-9: both retries run, in a
+    program of its own). Returns the gaps, the rungs each took and the
+    counts."""
+    masked_branches = torch_guard().masked_branches
     from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.models import pipeline as pl
     lim, iters, statics = pipe._packet_step_args()
     big = max(range(len(packets)), key=lambda k: int(packets[k].n_valid))
     small = min(range(len(packets)), key=lambda k: int(packets[k].n_valid))
     out = {}
-    for k in (big, small):
-        x0 = pipe.packet_inputs(packets[k])
-        x = x0
-        for rung in range(pl.RUNGS):
-            program = pl._packet_rung_program(rung, pipe.cam, iters, lim,
-                                              statics)
-            gap, bitwise = replay_against_eager(
-                graphs.CACHE,
-                lambda: pipe._run_rung(rung, x, lim, iters, statics),
-                lambda: program(contiguous(x)), f"{label} rung {rung}")
-            prev = out.get(rung, (0.0, True))
-            out[rung] = (max(prev[0], gap), prev[1] and bitwise)
-            if rung == 0:
-                x = pl.retry_inputs(x0, program(x0)[0])
-    return {"rungs": {r: {"max_gap": g, "bitwise": b}
-                      for r, (g, b) in out.items()},
-            "n_valid": [int(packets[big].n_valid),
-                        int(packets[small].n_valid)]}
+    for name, k, lim_k in (("largest", big, lim), ("smallest", small, lim),
+                           ("both_retries", big,
+                            dict(lim, max_step_t=1e-9))):
+        x = pipe.packet_inputs(packets[k])
+
+        def eager():
+            with masked_branches():
+                return pl.gate_ladder(contiguous(x), pipe.cam, iters, lim_k,
+                                      statics)
+        gap, bitwise = replay_against_eager(
+            graphs.CACHE, lambda: pipe._run_packet(x, lim_k, iters, statics),
+            eager, f"{label} packet program ({name})")
+        rungs = int(pipe._run_packet(x, lim_k, iters, statics)[1])
+        out[name] = {"max_gap": gap, "bitwise": bitwise, "rungs": rungs}
+    if out["both_retries"]["rungs"] != 3:
+        fail(f"{label}: the packet with the gate shut ran "
+             f"{out['both_retries']['rungs']} rungs, not 3")
+    return {"packets": out, "n_valid": [int(packets[big].n_valid),
+                                        int(packets[small].n_valid)]}
 
 
-def frame_captured_checks(pipe, img):
+def frame_captured_checks(pipe, img, programs=None):
     """The frame track's and the BA call's captured programs replayed
-    against the same functions run eagerly, at the window's state."""
+    against the same functions run eagerly, at the window's state, and
+    every keyframe program of ``programs`` ({key: (fn, inputs)}, the last
+    call of each, recorded by ``WindowPrograms``) the same way."""
     from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.models.window import (ba_program,
                                                   track_frame_program)
@@ -1223,17 +1567,124 @@ def frame_captured_checks(pipe, img):
     ba = replay_against_eager(graphs.CACHE, lambda: win.run_ba(xb, kw),
                               lambda: ba_program(contiguous(xb), **kw),
                               "ba_iterate")
-    return {"track_frame": {"max_gap": track[0], "bitwise": track[1]},
-            "ba_iterate": {"max_gap": ba[0], "bitwise": ba[1]}}
+    out = {"track_frame": {"max_gap": track[0], "bitwise": track[1]},
+           "ba_iterate": {"max_gap": ba[0], "bitwise": ba[1]}}
+    for key, (fn, xk) in (programs or {}).items():
+        gap, bitwise = replay_against_eager(
+            graphs.CACHE, lambda: graphs.CACHE.run(key, fn, xk),
+            lambda: fn(contiguous(xk)), str(key[0]))
+        out[str(key[0])] = {"max_gap": gap, "bitwise": bitwise}
+    return out
 
 
-def phase_eds(dev, label="eds"):
-    """The event cell on inputs made for this run (under sync debug "error"
-    for every replay), a steady window of it under the profiler, then every
-    rung's captured program against its eager run; returns its launches,
-    its counts and every packet's pose (None where rejected)."""
+class WindowPrograms:
+    """Records, during a run, the keyframe programs the window replays
+    (``WindowManager._program``: the last inputs of every key, copied, as
+    the window updates its image stacks in place) and every window BA call
+    (its inputs, copied); ``restore()`` puts the method back."""
+
+    def __init__(self):
+        from slam_eds_tpu_torch.graphs import copy_out
+        from slam_eds_tpu_torch.models.window import WindowManager
+        self.cls, self.orig = WindowManager, WindowManager._program
+        self.programs, self.ba_calls = {}, []
+        rec = self
+
+        def program(win, key, fn, x):
+            if key[0] == "ba":
+                rec.ba_calls.append((key, fn, copy_out(x)))
+            elif key[0] != "track_frame":
+                rec.programs[key] = (fn, copy_out(x))
+            return rec.orig(win, key, fn, x)
+        WindowManager._program = program
+
+    def restore(self):
+        self.cls._program = self.orig
+
+
+def sampler_runs(replay, want, expected, label):
+    """The sampler launches that ran in one replay of a captured program
+    (``replay()``), by the profiler's count and by the ledger's
+    (``graphs.launch_ledger``), with the replay's outputs held bitwise
+    against ``want`` (the eager run it must equal) on every try. The
+    ledger's count must be ``expected``; the profiler may drop a kernel's
+    record (``device_profile``), and a try whose outputs are right can
+    only be that, so up to three tries, each one replay, until its count
+    is ``expected``. Returns the profiler's count of every try (the last
+    is the one held)."""
+    from torch.profiler import ProfilerActivity, profile
     from slam_eds_tpu_torch import graphs
-    window = DeviceWindow()
+    counts = []
+    for _ in range(3):
+        before = _ledger()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = graphs.copy_out(replay())
+            torch.cuda.synchronize()
+        ran = _delta(before, _ledger())["pattern_sample"]["run"]
+        gap, bitwise = tree_gap(got, want)
+        if not bitwise:
+            fail(f"{label}: a profiled replay differs from the eager run by "
+                 f"{gap}")
+        if ran != expected:
+            fail(f"{label}: the ledger counts {ran} sampler launches run, "
+                 f"not {expected}")
+        counts.append(kernel_counts(prof.key_averages())["pattern_sample"])
+        if counts[-1] == expected:
+            break
+    return counts
+
+
+def ba_pass_checks(calls):
+    """Every recorded window BA call (``opt_break_tol``), and the last one
+    again at the smallest ``break_tol`` of 1e-2, 0.1 and 0.5 whose stop
+    falls before the cap: the GN passes that run (the eager loop with a
+    host ``if`` around every pass) and, from the ledger and the profiler
+    over a replay of its captured program (``sampler_runs``), the sampler
+    launches that ran: passes + 1 (the final linearize), the passes <= the
+    cap. Returns (passes, cap, the profiler's sampler launches of every
+    try) per call, and the early call's ``break_tol``."""
+    skipped_passes = torch_guard().skipped_passes
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.models.window import ba_program
+
+    def eager(fn, x):
+        with skipped_passes() as runs:
+            want = fn(contiguous(x))
+        return want, runs[0]
+    calls = list(calls)
+    key, _, x = calls[-1]
+    for tol in (1e-2, 0.1, 0.5):
+        kw = dict(key[1], break_tol=tol)
+        early = (("ba", tuple(sorted(kw.items()))),
+                 lambda x, kw=kw: ba_program(x, **kw), x)
+        _, (passes, cap) = eager(*early[1:])
+        if passes < cap:
+            break
+    else:
+        fail("the last window BA call ran every pass at break_tol 0.5")
+    rows = []
+    for n, (key, fn, x) in enumerate(calls + [early]):
+        want, (passes, cap) = eager(fn, x)
+        for _ in range(2):      # the warm-up and the capture of a new key
+            graphs.CACHE.run(key, fn, x)
+        counts = sampler_runs(lambda: graphs.CACHE.run(key, fn, x), want,
+                              passes + 1, f"window BA call {n}")
+        rows.append((passes, cap, counts))
+        if counts[-1] != passes + 1 or passes > cap:
+            fail(f"a window BA call ran {passes} of {cap} GN passes and "
+                 f"{counts} sampler launches")
+    return rows, tol
+
+
+def phase_eds(dev, label="eds", profiled=True):
+    """The event cell on inputs made for this run (under sync debug "error"
+    for every replay), with ``profiled`` its launches run and slots over the
+    whole run and frames 4-6 under the profiler (``ProfiledRun``), then the
+    packet program against its eager run; returns its launches run and
+    slots (None unprofiled), its launch slots, its counts and every
+    packet's pose (None where rejected)."""
+    from slam_eds_tpu_torch import graphs
+    window = ProfiledRun() if profiled else None
     with graphs.sync_check("error"):
         run = run_event_cell(dev, eds_config(), window=window)
     pipe, frames, packets = run["pipe"], run["frames"], run["packets"]
@@ -1256,7 +1707,9 @@ def phase_eds(dev, label="eds"):
           usable_fraction=sum(usable) / max(len(usable), 1),
           usable_by_packet="".join("u" if u else "x" for u in usable),
           event_kfs=pipe.num_event_kfs, keyframes=fp.window.next_id,
-          marginalized=fp.window.marg_count, kernel_launches=launches,
+          marginalized=fp.window.marg_count, kernel_launch_slots=launches,
+          launches_run_and_slots=window and window.launches,
+          profile_s=window and window.profile_s,
           ate=ate, ate_bound=ate_bound, event_ate=ev_ate,
           event_ate_bound=ev_bound, jax_cpu=JAX_CPU_EDS,
           frames_per_s=(len(frames) - PIPE_WARMUP) / steady_s,
@@ -1267,9 +1720,11 @@ def phase_eds(dev, label="eds"):
           host_reads_per_frame=reads["per_frame"], measured_reads=reads,
           host_loop_reads_per_packet=HOST_LOOP_READS_PER_PACKET,
           retries=c["event_retries"],
-          device_idle_share=window.idle_share,
+          device_idle_share=window and window.idle_share,
           profiled_frames=[PIPE_WARMUP, PIPE_WARMUP + PROFILE_FRAMES],
-          profiled_wall_s=window.wall_s, profiled_device_busy_s=window.busy_s,
+          profiled_wall_s=window and window.wall_s,
+          profiled_device_busy_s=window and window.busy_s,
+          profiled_launches=window and window.window,
           captured_vs_eager=captured, graph_programs=len(
               graphs.CACHE.programs), graph_replays=graphs.CACHE.replays(),
           graph_capture_s=graphs.CACHE.capture_s,
@@ -1285,8 +1740,10 @@ def phase_eds(dev, label="eds"):
         fail(f"{pipe.num_event_kfs} event keyframes")
     if sum(usable) < min_solves:
         fail(f"{sum(usable)} usable event solves, fewer than {min_solves}")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel was not launched on the event path: {launches}")
+    if min(launches.values()) <= 0 or (window and min(
+            window.launches[k]["run"] for k in launches) <= 0):
+        fail(f"a kernel was not launched on the event path: "
+             f"{window.launches}")
     raster = launches["rasterize_bilinear"] \
         - run["warmup_launches"]["rasterize_bilinear"]
     if raster != c["event_packets"]:
@@ -1307,7 +1764,8 @@ def phase_eds(dev, label="eds"):
               "keyframes": fp.window.next_id,
               "marginalized": fp.window.marg_count,
               "event_counters": dict(c), "frame_counters": dict(fc)}
-    return {"launches": launches, "usable": "".join(
+    return {"launches": launches, "profiled": window and window.launches,
+            "usable": "".join(
         "u" if u else "x" for u in usable), "counts": counts, "poses": poses,
         "reads_per_packet": reads["per_packet"],
         "packet_ms_median": 1e3 * float(np.median(steady_pk)),
@@ -1538,8 +1996,7 @@ def phase_kernel_splat(dev):
 def _refine_checks(label, run, splats):
     """What every refinement cell must show; returns its counters. The
     raster runs once per packet for the event frame and ``splats`` times in
-    each rung of the gate's ladder that the packet takes (the tail, with the
-    refinement, ends every rung)."""
+    the tail, which runs once per packet whatever the retries."""
     pipe = run["pipe"]
     fp = pipe.frame_pipe
     c = pipe.telemetry.counters
@@ -1549,14 +2006,12 @@ def _refine_checks(label, run, splats):
     if not np.isfinite(est).all() or not all(
             np.isfinite(p).all() for p in run["poses"] if p is not None):
         fail(f"{label}: a pose is not finite")
-    want = c["event_packets"] + splats * (c["event_packets"]
-                                          + c["event_retries"])
+    want = (1 + splats) * c["event_packets"]
     got = run["launches"]["rasterize_bilinear"] \
         - run["warmup_launches"]["rasterize_bilinear"]
     if got != want or want <= 0:
         fail(f"{label}: {got} raster launches (beside the warm-ups') for "
-             f"{c['event_packets']} packets and {c['event_retries']} "
-             f"retries, not {want}")
+             f"{c['event_packets']} packets, not {want}")
     if run["launches"]["pattern_sample"] <= 0:
         fail(f"{label}: the sampler kernel was never launched")
     check_reads(label, c, run["packet_syncs"])
@@ -1593,7 +2048,8 @@ def phase_eds_refine(dev, none_cell):
             "frames": REFINE_SHORT_FRAMES, "packets": cm["event_packets"],
             "usable_solves": int(sum(r["usable"])),
             "kernel_launches": r["launches"],
-            "raster_splats_per_rung": splats, "retries": cm["event_retries"],
+            "raster_splats_per_packet": splats,
+            "retries": cm["event_retries"],
             "alive_points": int(r["pipe"].kf.mask.sum()),
             "kf_points_initial": int(r["pipe"].kf.n_initial),
             "packet_ms_median": 1e3 * float(np.median(
@@ -1603,7 +2059,7 @@ def phase_eds_refine(dev, none_cell):
           usable_by_packet="".join("u" if u else "x" for u in usable),
           event_kfs=pipe.num_event_kfs, keyframes=fp.window.next_id,
           marginalized=fp.window.marg_count, kernel_launches=run["launches"],
-          raster_splats_per_rung=1, retries=c["event_retries"], ate=ate,
+          raster_splats_per_packet=1, retries=c["event_retries"], ate=ate,
           ate_bound=ate_bound,
           event_ate=ev_ate, event_ate_bound=ev_bound, jax_cpu=JAX_CPU_REFINE,
           packet_ms_median=1e3 * float(np.median(steady_pk)),
@@ -1618,12 +2074,8 @@ def phase_eds_refine(dev, none_cell):
         fail(f"model_klt: frame ATE {ate} above the bound {ate_bound}")
     if not ev_ate <= ev_bound:
         fail(f"model_klt: event ATE {ev_ate} above the bound {ev_bound}")
-    # the refinement is device work: it adds no read to a packet. A packet
-    # reads once per rung it takes, which the refined depths may move, so
-    # the totals are held to one read of each other
-    if reads["per_packet"] > none_cell["reads_per_packet"] + 1.0:
-        fail(f"model_klt: {reads['per_packet']} host reads per packet, the "
-             f"cell without refinement {none_cell['reads_per_packet']}")
+    # the refinement is device work: it adds no read to a packet, which
+    # reads once (check_reads)
     return run["launches"]
 
 
@@ -1644,16 +2096,27 @@ def phase_boot(dev, name):
     seq = SyntheticSequence(cam, num_frames=n, motion_scale=0.22,
                             micro_steps=2, device=dev)
     frames = [seq.frame(k) for k in range(n)]
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.ops import coarse_init as ci
     pipe = FrameOnlyPipeline(cam, tracker_config(bootstrap=name), device=dev)
     torch.cuda.synchronize()
     pattern_sample.launches = 0
     rasterize_bilinear.launches = 0
     snap_at = init_at = seeded = None
     walls = []
+    # the initializer's last inputs, for its program against its eager run
+    inits, track = [], ci.track_frame
+
+    def recorded(state, pyr, cam_, iterations=30, **kw):
+        inits.append((graphs.copy_out({"state": state, "pyr": list(pyr)}),
+                      cam_, iterations))
+        return track(state, pyr, cam_, iterations, **kw)
+    ci.track_frame = recorded
     for k, (t, img, depth) in enumerate(frames):
         t0 = time.perf_counter()
-        pipe.process_frame(img, t, depth_map=(
-            depth if name == "midas" and k == 0 else None))
+        with graphs.sync_check("error"):
+            pipe.process_frame(img, t, depth_map=(
+                depth if name == "midas" and k == 0 else None))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         st = pipe._init_state
@@ -1662,8 +2125,20 @@ def phase_boot(dev, name):
         if init_at is None and pipe._initialized:
             init_at = k
             seeded = int((pipe.window.state.p_status == bs.PT_ACTIVE).sum())
+    ci.track_frame = track
     launches = {"pattern_sample": pattern_sample.launches,
                 "rasterize_bilinear": rasterize_bilinear.launches}
+    captured = None
+    if inits:
+        x, cam_, its = inits[-1]
+
+        def program(x):
+            return ci.track_frame_program(x, cam=cam_, iterations=its)
+        key = ("coarse_init_track", tuple(cam_), its)
+        gap, bitwise = replay_against_eager(
+            graphs.CACHE, lambda: graphs.CACHE.run(key, program, x),
+            lambda: program(contiguous(x)), "dso track_frame")
+        captured = {"max_gap": gap, "bitwise": bitwise}
     est = pipe.positions()
     ate = float(ate_rmse(est, seq.gt_positions()[:len(est)]))
     bound = max(0.05, 1.5 * ref["ate"])
@@ -1680,6 +2155,7 @@ def phase_boot(dev, name):
             level_points=[int(l.mask.sum()) for l in st.levels] if st else None,
             track_frame_s_median=float(np.median(init_frames)),
             track_frame_s_first=init_frames[0],
+            track_frame_captured_vs_eager=captured,
             init_host_reads=c.get("init_host_reads", 0))
     phase(f"boot-{name}", **info)
     if init_at is None or abs(init_at - ref["init_frame"]) > 1:
@@ -2274,8 +2750,11 @@ def main():
     built = build_kernels()
     phase_build("build", built["pattern_sample"])
     phase_build("build-raster", built["rasterize"])
+    phase_build("build-lu", built["lu_solve"])
+    phase_build("build-cond", built["graph_cond"])
     phase_build_host(built["host"])
-    first = phase_eds(dev, label="eds-first")
+    cond = phase_conditional(dev)
+    first = phase_eds(dev, label="eds-first", profiled=False)
     lanes = phase_batched(dev, first)
     kern = phase_kernel(dev)
     phase_ba(dev)
@@ -2292,36 +2771,54 @@ def main():
     par = phase_parallel(dev)
     last = phase_eds(dev)
     phase_history(first, last)
-    event_launches = last["launches"]
-    cells = {"refine_cell": refine_launches, "boot_dso": dso_launches,
-             "boot_midas": midas_launches, "resume": resume_launches,
-             "eval": eval_launches}
+    frame, event = frame_launches, last["profiled"]
+    cells = {"runner": runner_launches, "refine_cell": refine_launches,
+             "boot_dso": dso_launches, "boot_midas": midas_launches,
+             "resume": resume_launches, "eval": eval_launches}
+
+    def counts(name, main):
+        """``launches``: the launches run (profiler) over the main path's
+        run (the frame cell, or the event cell's last run for the raster);
+        ``launch_slots``: the kernel's counter over the same run; the
+        other cells' counters (slots) where they count the kernel, and the
+        sharded paths' launches (eager: every slot runs)."""
+        return {"launches": main[name]["run"],
+                "launch_slots": main[name]["slots"],
+                "launches_frame_cell": frame[name]["run"],
+                "launch_slots_frame_cell": frame[name]["slots"],
+                "launches_event_cell": event[name]["run"],
+                "launch_slots_event_cell": event[name]["slots"],
+                **{f"launch_slots_{k}": v[name]
+                   for k, v in cells.items() if name in v},
+                **({"launches_parallel": par[name]} if name in par else {})}
     print(json.dumps({"kernels": [
         {"name": "pattern_sample", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/pattern_sample.cu",
          "replaces": "slam_eds_tpu/ops/pallas/sample.py:84",
-         "launches": frame_launches["pattern_sample"],
-         "launches_frame_cell": frame_launches["pattern_sample"],
-         "launches_event_cell": event_launches["pattern_sample"],
-         "launches_runner": runner_launches["pattern_sample"],
-         **{f"launches_{k}": v["pattern_sample"] for k, v in cells.items()},
-         "launches_parallel": par["pattern_sample"],
+         **counts("pattern_sample", frame),
          "per_rank_shape": par["sampler"], **kern},
         {"name": "rasterize_bilinear", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/rasterize.cu",
          "replaces": "slam_eds_tpu/ops/pallas/raster.py:71",
-         "launches": event_launches["rasterize_bilinear"],
-         "launches_frame_cell": frame_launches["rasterize_bilinear"],
-         "launches_event_cell": event_launches["rasterize_bilinear"],
-         "launches_runner": runner_launches["rasterize_bilinear"],
-         **{f"launches_{k}": v["rasterize_bilinear"]
-            for k, v in cells.items()},
-         "launches_parallel": par["rasterize_bilinear"],
+         **counts("rasterize_bilinear", event),
          "splat_shape": splat, **raster},
         {"name": "pattern_sample_lanes", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/pattern_sample.cu",
          "replaces": "slam_eds_tpu/ops/pallas/sample.py:84",
-         "path": "eval.batched_ba_windows (B=2, the BA cell)", **lanes}]}))
+         "path": "eval.batched_ba_windows (B=2, the BA cell)", **lanes},
+        {"name": "lu_substitute", "route": "cuda",
+         "source": "slam_eds_tpu_torch/csrc/lu_solve.cu",
+         "replaces": "slam_eds_tpu/ops/event_tracker.py:273 (jnp.linalg."
+                     "solve under XLA, no TPU kernel; also coarse_tracker."
+                     "py:329, :333, energy.py:439)",
+         **counts("lu_substitute", frame), **cond["lu_substitute"]},
+        {"name": "set_condition", "route": "cuda",
+         "source": "slam_eds_tpu_torch/csrc/graph_cond.cu",
+         "replaces": "slam_eds_tpu/ops/event_tracker.py:290 (lax.while_loop"
+                     "'s and lax.cond's device branches, no TPU kernel; "
+                     "also coarse_tracker.py:314, :386, energy.py:613, "
+                     "models/pipeline.py:127-139)",
+         **counts("set_condition", frame), **cond["set_condition"]}]}))
     print(gpu_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,13 @@
 * ``batched_event_solves`` and ``batched_ba_windows`` are one ``torch.vmap``
   each of the read-free solvers over a leading batch axis B, as the JAX
   functions are ``jax.vmap``s: the B problems run as one batched program,
-  each lane on its own accept/reject and stopping mask. On the card the BA
-  lanes' taps go to the sampler kernel's lane axis in one launch per GN
-  pass (the operator's ``vmap`` rule).
+  each lane on its own accept/reject and stopping mask. The loops stay
+  masked here (``graphs.while_loop`` runs eagerly under ``torch.vmap``):
+  every lane runs to the cap or to the last lane's stop, as JAX's ``vmap``
+  of a ``while_loop`` runs every lane until the last one stops. On the
+  card the BA lanes' taps go to the sampler kernel's lane axis in one
+  launch per GN pass, and the lanes' small solves to the LU substitution
+  kernel in one launch (the operators' ``vmap`` rules).
 
 CLI:
     python -m slam_eds_tpu_torch.eval <seq_dir> [<seq_dir> ...]

@@ -23,6 +23,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..config import EDSConfig
 from ..device import resolve_device, set_numerics
@@ -41,6 +42,7 @@ from . import keyframe as kfm
 from .event_frame import create_event_frame
 from .window import WindowManager
 from ..telemetry import Telemetry
+from .. import graphs
 from ..graphs import CACHE, copy_out
 
 
@@ -229,7 +231,8 @@ class FrameOnlyPipeline:
             self._boot_time = time
             return False
         self._init_state, done = ci.track_frame(
-            self._init_state, pyr, self.cam, counters=self.telemetry.counters)
+            self._init_state, pyr, self.cam, counters=self.telemetry.counters,
+            capture=self.capture)
         if not done:
             return False
         T_10, uv0, idp0, okm = ci.extract_result(self._init_state)
@@ -339,12 +342,21 @@ class FrameOnlyPipeline:
         res = T_wc = None
         best = None
         c = self.telemetry.counters
+        its = self.cfg.coarse.max_iterations
+        lm_slots = sum(its[min(l, len(its) - 1)]
+                       for l in range(self.cfg.coarse.pyr_levels))
         for pred in preds:
             r, T = self.window.track_frame(img, pred)
-            # one host read per hypothesis: its verdict and finest rms
-            ok_r0 = torch.stack([r.ok.to(torch.float32),
-                                 r.residuals[0]]).cpu().numpy()
+            # one host read per hypothesis: its verdict, finest rms and the
+            # loop passes that ran (the cutoff doublings, the LM's)
+            ok_r0 = torch.cat([torch.stack([r.ok.to(torch.float32),
+                                            r.residuals[0]]),
+                               r.passes.sum(0).to(torch.float32)]).cpu(
+                                   ).numpy()
             c["track_hypotheses"] += 1
+            c["coarse_cutoff_doublings"] += int(ok_r0[2])
+            c["coarse_lm_passes"] += int(ok_r0[3])
+            c["coarse_lm_slots"] += lm_slots
             if not ok_r0[0] > 0.5:
                 if res is None:
                     res, T_wc = r, T
@@ -432,12 +444,12 @@ def _normalized_model(kf_nc, kf_grad, kf_idp, kf_mask, vx):
     return model / torch.sqrt(1e-3 + torch.sum(model * model))
 
 
-# the packet step's static arguments, split between the event frame (head)
-# and the solve-and-tail rungs
+# the packet step's static arguments of the event frame (head) and of the
+# tail (the solves take ``loss_kind``)
 HEAD_STATICS = ("height", "width", "num_levels", "use_time_weights",
                 "blur_ksize", "interpolation")
-RUNG_STATICS = ("height", "width", "loss_kind", "refinement", "patch_radius",
-                "refine_levels", "do_points_refinement")
+TAIL_STATICS = ("refinement", "patch_radius", "refine_levels",
+                "do_points_refinement")
 # the gate's retry ladder: the first solve, the retry from the frame
 # tracker's prediction, the retry from the keyframe pose
 RUNGS = 3
@@ -461,51 +473,56 @@ def _event_packet_head(xs, ys, ts, ps, n_valid, fwd_maps, kf_idp, kf_mask,
     return ef.frames, ef.time, med_depth
 
 
-def _event_packet_rung(rung: int, ef_frames, ef_time, med_depth,
-                       tracker_state, pose_filter, depth, cam,
-                       kf_pose_R, kf_pose_t, frame_pred_R, frame_pred_t,
-                       kf_uv, kf_nc, kf_grad, kf_idp, kf_weight, kf_mask,
-                       iters_per_level, loss_scale, lim, *, height, width,
-                       loss_kind, refinement, patch_radius, refine_levels,
-                       do_points_refinement):
-    """One rung of the gate's ladder and the step's tail: the coarse-to-fine
-    event-to-model solve from the rung's start (0: the tracker state, 1: the
-    frame tracker's prediction T_ef_kf = T_cw_frame o T_w_kf, 2: the
-    keyframe pose), the usability gate (Tracker.cpp:217-240: the pose step
-    since the previous packet, translation relative to the keyframe's median
-    depth, rotation absolute), the pose-filter push, the warp, the
-    configured track refinement, the Vogiatzis depth update and the
-    keyframe-need statistics. Every state update is selected back to its
-    input when the rung's solve fails the gate (``torch.where``).
-
-    Returns (state, pose_filter, depth, mask, tracks, residuals, scalars
-    [usable, energy, loss_scale, n_iter, flow, alive_count, ef_time,
-    med_depth], T_w_ef_R, T_w_ef_t, vx)."""
-    prev = tracker_state
+def _rung_solve(rung: int, ef_frames, med_depth, x, cam, iters_per_level,
+                lim, loss_kind):
+    """One rung of the gate's ladder: the coarse-to-fine event-to-model
+    solve from the rung's start (0: the tracker state, 1: the frame
+    tracker's prediction T_ef_kf = T_cw_frame o T_w_kf, 2: the keyframe
+    pose) and the usability gate (Tracker.cpp:217-240: the pose step since
+    the previous packet, translation relative to the keyframe's median
+    depth, rotation absolute). Returns (TrackerResult, usable)."""
+    prev = x["state"]
     if rung == 0:
         start = prev
     elif rung == 1:
-        pred_R = frame_pred_R @ kf_pose_R
-        pred_t = frame_pred_R @ kf_pose_t + frame_pred_t
+        pred_R = x["pred_R"] @ x["kf_R"]
+        pred_t = x["pred_R"] @ x["kf_t"] + x["pred_t"]
         start = prev._replace(px=pred_t, qx=lie.mat_to_quat(pred_R))
     else:
         start = prev._replace(
             px=torch.zeros_like(prev.px),
             qx=lie.quat_identity(prev.qx.dtype, prev.qx.device))
-    res = et._pyramid_fused(start, ef_frames, cam, kf_nc, kf_grad, kf_idp,
-                            kf_weight, kf_mask, iters_per_level, loss_kind,
-                            loss_scale, False)
+    res = et._pyramid_fused(start, ef_frames, cam, x["kf_nc"], x["kf_grad"],
+                            x["kf_idp"], x["kf_weight"], x["kf_mask"],
+                            iters_per_level, loss_kind, x["loss_scale"],
+                            False)
     d_tau = et.pose_kf_ef(res.state).compose(
         et.pose_kf_ef(prev).inverse()).log()
     usable = (torch.isfinite(res.energy) & torch.isfinite(d_tau).all()
               & (torch.linalg.vector_norm(d_tau[:3])
                  < lim["max_step_t"] * med_depth)
               & (torch.linalg.vector_norm(d_tau[3:]) < lim["max_step_r"]))
+    return res, usable
 
+
+def _packet_tail(res, usable, ef_frames, ef_time, med_depth, x, cam, lim, *,
+                 refinement, patch_radius, refine_levels,
+                 do_points_refinement):
+    """The step's tail on the last solve of the ladder: the pose-filter
+    push, the warp, the configured track refinement, the Vogiatzis depth
+    update and the keyframe-need statistics. Every state update is selected
+    back to its input when no rung passed the gate (``torch.where``).
+
+    Returns (state, pose_filter, depth, mask, tracks, residuals, scalars
+    [usable, energy, loss_scale, n_iter, flow, alive_count, ef_time,
+    med_depth], T_w_ef_R, T_w_ef_t, vx)."""
+    prev, pose_filter, depth = x["state"], x["pf"], x["depth"]
+    kf_uv, kf_nc, kf_grad = x["kf_uv"], x["kf_nc"], x["kf_grad"]
+    kf_idp, kf_mask = x["kf_idp"], x["kf_mask"]
     new_state = et._tree_where(usable, res.state, prev)
     pf_pushed = et.pose_filter_push(pose_filter, et.pose_kf_ef(res.state))
     new_pf = et._tree_where(usable, pf_pushed, pose_filter)
-    T_w_ef = SE3(kf_pose_R, kf_pose_t).compose(et.pose_filter_mean(new_pf))
+    T_w_ef = SE3(x["kf_R"], x["kf_t"]).compose(et.pose_filter_mean(new_pf))
 
     # warp, then the configured track refinement: device work on every
     # packet (its results are selected by ``usable`` below like the rest)
@@ -548,6 +565,55 @@ def _event_packet_rung(rung: int, ef_frames, ef_time, med_depth,
             scalars, T_w_ef.R, T_w_ef.t, res.state.vx)
 
 
+def gate_ladder(x, cam, iters, lim, statics):
+    """The packet step as JAX's ``_event_packet_fused`` runs it: the head
+    (event frame, median depth), rung 0's solve and gate, rung 1's solve
+    where no rung passed yet, rung 2's solve where still none passed, and
+    the tail once, on the last solve and ``usable = usable0 | usable1 |
+    usable2``. The retries are ``graphs.cond``s, rung 2's inside rung 1's
+    (JAX's ``lax.cond``s): IF nodes in the captured program, host ``if``s
+    eagerly. A retry's body selects its solve by ``~usable`` itself, so
+    running it where a rung passed leaves the carry as it was.
+
+    ``x``: ``EDSPipeline.packet_inputs``. Returns (the tail's outputs
+    (``_packet_tail``), the rungs run as an int32 device scalar)."""
+    head_kw = {k: statics[k] for k in HEAD_STATICS}
+    tail_kw = {k: statics[k] for k in TAIL_STATICS}
+    frames, time, med = _event_packet_head(
+        x["xs"], x["ys"], x["ts"], x["ps"], x["n_valid"], x["fwd_maps"],
+        x["kf_idp"], x["kf_mask"], lim, **head_kw)
+
+    def retry(rung):
+        def body(carry):
+            res, usable, rungs = carry
+            new, ok = _rung_solve(rung, frames, med, x, cam, iters, lim,
+                                  statics["loss_kind"])
+            carry = (pytree.tree_map(lambda a, b: torch.where(usable, a, b),
+                                     res, new), usable | ok,
+                     rungs + (~usable).to(torch.int32))
+            if rung + 1 < RUNGS:
+                carry = graphs.cond(~carry[1], retry(rung + 1), carry)
+            return carry
+        return body
+
+    res, usable = _rung_solve(0, frames, med, x, cam, iters, lim,
+                              statics["loss_kind"])
+    carry = graphs.cond(~usable, retry(1), (res, usable, torch.ones(
+        (), dtype=torch.int32, device=usable.device)))
+    res, usable, rungs = carry
+    return _packet_tail(res, usable, frames, time, med, x, cam, lim,
+                        **tail_kw), rungs
+
+
+def read_packet(out, rungs):
+    """The packet step's one host read: the scalar vector, event-frame pose,
+    velocity and rungs run in one copy. Returns (numpy [scalars (8), t_wef
+    (3), R_wef (9), vx (6)], rungs run)."""
+    host = torch.cat([out[6], out[8], out[7].reshape(-1), out[9],
+                      rungs.to(torch.float32)[None]]).cpu().numpy()
+    return host[:-1], int(host[-1])
+
+
 def _event_packet_fused(tracker_state, pose_filter, depth, cam,
                         kf_pose_R, kf_pose_t, frame_pred_R, frame_pred_t,
                         kf_uv, kf_nc, kf_grad, kf_idp, kf_weight, kf_mask,
@@ -557,12 +623,12 @@ def _event_packet_fused(tracker_state, pose_filter, depth, cam,
                         blur_ksize, interpolation, loss_kind, refinement,
                         patch_radius, refine_levels, do_points_refinement):
     """The whole per-packet event step, eagerly, with the JAX function's
-    arguments: ``gate_ladder`` over ``_packet_rung_program``, the
-    composition ``EDSPipeline.process_events`` runs.
+    arguments: ``gate_ladder``, the program ``EDSPipeline.process_events``
+    runs, and its host read.
 
     lim: {mu_range, min_depth, max_depth, px_noise, max_step_t, max_step_r,
-    activity_th, search_range, consistency_px} as floats. Returns (the last
-    rung's outputs (``_event_packet_rung``), the number of rungs run)."""
+    activity_th, search_range, consistency_px} as floats. Returns (the
+    outputs (``_packet_tail``), the number of rungs run)."""
     if refinement not in TRACK_REFINEMENTS:
         raise ValueError(f"unknown track_refinement {refinement!r}")
     statics = dict(height=height, width=width, num_levels=num_levels,
@@ -577,63 +643,8 @@ def _event_packet_fused(tracker_state, pose_filter, depth, cam,
          "pred_R": frame_pred_R, "pred_t": frame_pred_t, "kf_uv": kf_uv,
          "kf_nc": kf_nc, "kf_grad": kf_grad, "kf_idp": kf_idp,
          "kf_weight": kf_weight, "kf_mask": kf_mask, "loss_scale": loss_scale}
-    out, _, rungs = gate_ladder(x, lambda rung, x: _packet_rung_program(
-        rung, cam, iters_per_level, lim, statics)(x))
-    return out, rungs
-
-
-def gate_ladder(x, run_rung):
-    """The packet step as JAX's ``lax.cond``s run the gate's ladder: the
-    first rung on ``x`` (``EDSPipeline.packet_inputs``), each retry only
-    where the rung before failed the gate, on ``retry_inputs``.
-    ``run_rung(rung, x)`` runs one rung's ``_packet_rung_program``
-    (replayed as its captured program, or eagerly). After each rung the
-    host reads the rung's scalar vector, event-frame pose and velocity in
-    one copy: the step's only host read.
-
-    Returns (the last rung's outputs, that read as numpy [scalars (8),
-    t_wef (3), R_wef (9), vx (6)], the number of rungs run)."""
-    for rung in range(RUNGS):
-        head, out = run_rung(rung, x)
-        if rung == 0:
-            x = retry_inputs(x, head)
-        scalars, R_wef, t_wef, vx = out[6], out[7], out[8], out[9]
-        host = torch.cat([scalars, t_wef, R_wef.reshape(-1),
-                          vx]).cpu().numpy()
-        if host[0] > 0.5 or rung == RUNGS - 1:
-            return out, host, rung + 1
-
-
-def retry_inputs(x, head):
-    """The retry rungs' inputs: the first rung's inputs with the packet
-    replaced by the event frame it made (``head``: frames, time,
-    med_depth)."""
-    x = {k: v for k, v in x.items()
-         if k not in ("xs", "ys", "ts", "ps", "n_valid", "fwd_maps")}
-    x.update(frames=head[0], time=head[1], med_depth=head[2])
-    return x
-
-
-def _packet_rung_program(rung: int, cam, iters, lim, statics):
-    """The captured form of one rung: the first rung holds the event frame
-    too; the retries take the first rung's event frame as inputs."""
-    head_kw = {k: statics[k] for k in HEAD_STATICS}
-    rung_kw = {k: statics[k] for k in RUNG_STATICS}
-
-    def program(x):
-        if rung == 0:
-            frames, time, med = _event_packet_head(
-                x["xs"], x["ys"], x["ts"], x["ps"], x["n_valid"],
-                x["fwd_maps"], x["kf_idp"], x["kf_mask"], lim, **head_kw)
-        else:
-            frames, time, med = x["frames"], x["time"], x["med_depth"]
-        out = _event_packet_rung(
-            rung, frames, time, med, x["state"], x["pf"], x["depth"], cam,
-            x["kf_R"], x["kf_t"], x["pred_R"], x["pred_t"], x["kf_uv"],
-            x["kf_nc"], x["kf_grad"], x["kf_idp"], x["kf_weight"],
-            x["kf_mask"], iters, x["loss_scale"], lim, **rung_kw)
-        return (frames, time, med), out
-    return program
+    out, rungs = gate_ladder(x, cam, iters_per_level, lim, statics)
+    return out, read_packet(out, rungs)[1]
 
 
 @dataclass
@@ -837,13 +848,14 @@ class EDSPipeline:
         tables (``utils.cameras.forward_maps``); tensors already on the
         pipeline's device are used as they are.
 
-        The step runs rung by rung (``_event_packet_rung``): on the card
-        each rung is one captured program (``graphs``; the first rung holds
-        the event frame), on the CPU the same functions run eagerly, through
-        ``gate_ladder``. Host reads: 1 per packet plus 1 per retry
-        (``telemetry.counters``: ``event_scalar_host_reads`` counts them,
-        ``event_retries`` the retries; the LM reads nothing,
-        ``event_lm_host_reads`` stays 0)."""
+        The step is ``gate_ladder``: on the card one captured program
+        (``graphs``) whose retries are IF nodes, on the CPU the same
+        function eagerly. Host reads: 1 per packet, whatever the retries
+        (``telemetry.counters``: ``event_scalar_host_reads`` counts the
+        step's read of its scalars, ``event_retries`` the retries; the LM
+        reads nothing, ``event_lm_host_reads`` stays 0). Run eagerly, each
+        retry's ``if`` reads its predicate too.
+        """
         if self.kf is None:
             return None
         kf = self.kf
@@ -851,10 +863,10 @@ class EDSPipeline:
         lim, iters, statics = self._packet_step_args()
         c["event_packets"] += 1
         c["event_lm_host_reads"] += 0
-        out, host, rungs = gate_ladder(
-            self.packet_inputs(packet, fwd_maps),
-            lambda rung, x: self._run_rung(rung, x, lim, iters, statics))
-        c["event_scalar_host_reads"] += rungs
+        out, rungs = self._run_packet(self.packet_inputs(packet, fwd_maps),
+                                      lim, iters, statics)
+        host, rungs = read_packet(out, rungs)
+        c["event_scalar_host_reads"] += 1
         c["event_retries"] += rungs - 1
         (state, pf, depth, mask, tracks, residuals, _, R_wef, t_wef, _) = out
         sc = host[:8]
@@ -920,13 +932,16 @@ class EDSPipeline:
                                          dtype=torch.float32,
                                          device=self.device)}
 
-    def _run_rung(self, rung: int, x, lim, iters, statics):
-        """One rung of the packet step: replayed as its captured program on
-        the card (``capture``), run eagerly otherwise. Returns ((frames,
-        time, med_depth), the rung's outputs)."""
-        program = _packet_rung_program(rung, self.cam, iters, lim, statics)
+    def _run_packet(self, x, lim, iters, statics):
+        """The packet step (``gate_ladder``): replayed as its captured
+        program on the card (``capture``), run eagerly otherwise. Returns
+        (the tail's outputs, the rungs run as a device scalar)."""
+        cam = self.cam
+
+        def program(x):
+            return gate_ladder(x, cam, iters, lim, statics)
         if self.device.type == "cuda" and self.capture:
-            key = ("event_packet", rung, tuple(self.cam), tuple(iters),
+            key = ("event_packet", tuple(cam), tuple(iters),
                    tuple(sorted(lim.items())), tuple(sorted(statics.items())))
             return CACHE.run(key, program, x)
         return program(x)

@@ -3,14 +3,23 @@ allocation, keyframe insertion, immature-point bookkeeping, point
 activation, marginalization policy and coarse-template refresh.
 
 Control decisions (which slot, how many points) run in host numpy as in the
-JAX module; numerical work is torch on the window's device. The JAX
-module's two one-dispatch programs, ``_track_frame_compiled`` (the
-relative-pose prefix, the coarse LM, the world pose) and the BA call, are
-captured CUDA graphs on the card (``graphs``; ``track_frame_program`` and
-``ba_program`` are the functions captured, and run eagerly on the CPU). Its
-other jitted helpers are plain functions here, and its padded
-``.at[dst].set(..., mode="drop")`` activation commit writes only the real
-rows.
+JAX module, with its host reads; numerical work is torch on the window's
+device. Every program the JAX module jits with fixed shapes is a captured
+CUDA graph on the card (``graphs.CACHE``, through ``WindowManager._program``;
+eagerly on the CPU and with ``capture=False``): ``_track_frame_compiled``
+(``track_frame_program``: the relative-pose prefix, the coarse LM, the
+world pose), the BA call (``ba_program``), the keyframe pyramid,
+``all_pairs``, ``trace_on`` per slot pair, the activation GN
+(``activate_idepth``), ``marg_points``, ``energy.marginalize_frame`` (one
+program per slot) and the coarse-template rebuild
+(``project_active_to_newest`` + ``build_template``).
+
+What stays eager: ``activate_commit``, whose rows ``dst`` follow host data
+(the JAX module pads them and drops the pad with ``mode="drop"``; here only
+the real rows are written, so its shapes change from call to call); the
+pixel selector and immature spawn of ``insert_frame``, which choose points
+on the host; the slot and frame-row writes of ``insert_frame`` and the
+host-side policy (``flag_and_marginalize``, ``_update_energy_th``).
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ def all_pairs(state: bs.BAState, K):
     T = state.current_poses()
     R_th = torch.einsum("tij,hkj->thik", T.R, T.R)           # [F_t, F_h]
     t_th = T.t[:, None, :] - torch.einsum("thik,hk->thi", R_th, T.t)
-    Kinv = torch.linalg.inv(K)
+    Kinv = torch.linalg.inv_ex(K)[0]
     KRKi = torch.einsum("ij,thjk,kl->htil", K, R_th, Kinv)
     Kt = torch.einsum("ij,thj->hti", K, t_th)
     a_rel, b_rel = energy.relative_affine(state, use_zero=False)
@@ -141,7 +150,8 @@ def project_active_to_newest(state, cam: Pinhole, newest_slot: int, *,
     Returns (uv [P, 2], idepth_new [P], ok [P])."""
     fx, fy, cx, cy = cam.fx, cam.fy, cam.cx, cam.cy
     T = state.current_poses()
-    T_new = SE3(T.R[newest_slot], T.t[newest_slot])
+    # an int, or a [1] int64 tensor (the captured rebuild's input)
+    T_new = SE3(T.R[newest_slot].reshape(3, 3), T.t[newest_slot].reshape(3))
     active = state.p_status == bs.PT_ACTIVE
     host = state.p_host.long()
     Th = SE3(T.R[host], T.t[host])
@@ -210,7 +220,10 @@ class WindowManager:
 
     def _pyramid(self, img):
         img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
-        return image_ops.build_pyramid(img, self.cfg.coarse.pyr_levels)[0]
+        L = self.cfg.coarse.pyr_levels
+        return self._program(
+            ("pyramid", L),
+            lambda x: image_ops.build_pyramid(x["img"], L)[0], {"img": img})
 
     # ------------------------------------------------------------------
     def insert_frame(self, img, T_wc: SE3, time: float, aff=(0.0, 0.0),
@@ -292,27 +305,40 @@ class WindowManager:
         self.immatures[slot] = pts
 
     # ------------------------------------------------------------------
+    def pairs(self):
+        """``all_pairs`` at the window's state (its program)."""
+        return self._program(("all_pairs",),
+                             lambda x: all_pairs(x["state"], x["K"]),
+                             {"state": self.state, "K": self.K})
+
     def all_pairs(self):
         """Pair tensors as numpy (one transfer)."""
-        return tuple(_np(a) for a in all_pairs(self.state, self.K))
+        return tuple(_np(a) for a in self.pairs())
 
     def trace_all(self, target_slot: int):
         """traceOn every other frame's immature points against the target
-        frame (traceNewCoarse)."""
+        frame (traceNewCoarse): one program per call of ``trace_on``, which
+        every slot pair replays."""
         H, W = self.cam.height, self.cam.width
         tgt = self.pyramids[target_slot][0]
         valid = _np(self.state.frame_valid)
-        KRKi, Kt, aff = all_pairs(self.state, self.K)
+        KRKi, Kt, aff = self.pairs()
+        kw = dict(huber_th=self.cfg.bundles.huber_th,
+                  energy_th=8 * self.cfg.immature.outlier_th,
+                  max_pix_search_frac=self.cfg.immature.max_pix_search)
+
+        def trace(x):
+            return immature.trace_on(x["pts"], x["tgt"], x["KRKi"], x["Kt"],
+                                     x["aff"], W, H, **kw)
         for slot in range(self.state.num_frames):
             if slot == target_slot or self.immatures[slot] is None \
                     or not valid[slot]:
                 continue
-            self.immatures[slot] = immature.trace_on(
-                self.immatures[slot], tgt, KRKi[slot, target_slot],
-                Kt[slot, target_slot], aff[slot, target_slot], W, H,
-                huber_th=self.cfg.bundles.huber_th,
-                energy_th=8 * self.cfg.immature.outlier_th,
-                max_pix_search_frac=self.cfg.immature.max_pix_search)
+            self.immatures[slot] = self._program(
+                ("trace_on", W, H, tuple(sorted(kw.items()))), trace,
+                {"pts": self.immatures[slot], "tgt": tgt,
+                 "KRKi": KRKi[slot, target_slot],
+                 "Kt": Kt[slot, target_slot], "aff": aff[slot, target_slot]})
 
     # ------------------------------------------------------------------
     def _activation_distance_map(self, pairs_np):
@@ -363,7 +389,7 @@ class WindowManager:
 
         F = st.num_frames
         valid_np = _np(st.frame_valid)
-        pairs_t = all_pairs(st, self.K)
+        pairs_t = self.pairs()
         pairs_np = tuple(_np(a) for a in pairs_t)
         dist_np = _np(self._activation_distance_map(pairs_np))
 
@@ -382,10 +408,15 @@ class WindowManager:
         tmask_np = np.stack([(valid_np & (np.arange(F) != s)) if s in live
                              else np.zeros(F, bool) for s in range(F)])
         KRKi_t, Kt_t, aff_t = pairs_t
-        idp_all, _ = immature.activate_idepth(
-            pts_stack, self.images, KRKi_t, Kt_t, aff_t,
-            torch.as_tensor(tmask_np, device=dev),
-            gn_iterations=self.cfg.immature.gn_its_on_activation)
+        gn_its = self.cfg.immature.gn_its_on_activation
+        idp_all, _ = self._program(
+            ("activate_idepth", gn_its),
+            lambda x: immature.activate_idepth(
+                x["pts"], x["images"], x["KRKi"], x["Kt"], x["aff"],
+                x["tmask"], gn_iterations=gn_its),
+            {"pts": pts_stack, "images": self.images, "KRKi": KRKi_t,
+             "Kt": Kt_t, "aff": aff_t,
+             "tmask": torch.as_tensor(tmask_np, device=dev)})
         status_s, quality_s, lo_s, hi_s, mask_s, uv_s, idp_s = (
             _np(a) for a in (pts_stack.status, pts_stack.quality,
                              pts_stack.idepth_min, pts_stack.idepth_max,
@@ -477,6 +508,14 @@ class WindowManager:
     def _captured(self) -> bool:
         return self.device.type == "cuda" and self.capture
 
+    def _program(self, key, fn, x):
+        """``fn(x)``: on a card the captured program of ``key`` (``fn``'s
+        closure holds only what ``key`` names), whose outputs are copied out
+        (the next replay overwrites them), else eagerly."""
+        if not self._captured():
+            return fn(x)
+        return copy_out(CACHE.run(key, fn, x))
+
     def ba_inputs(self, iterations: Optional[int] = None):
         """(x, kw) of the BA call at the window's state: ``ba_program``'s
         inputs and static arguments."""
@@ -491,15 +530,10 @@ class WindowManager:
         return {"state": self.state, "planes": self.intensity}, kw
 
     def run_ba(self, x, kw):
-        """``ba_program(x, **kw)``: on a card the captured program (one per
-        (F, P, H, W, iterations)), whose outputs are copied out, else
-        eagerly."""
-        if not self._captured():
-            return ba_program(x, **kw)
-        out = CACHE.run(("ba", tuple(sorted(kw.items()))),
-                        lambda x: ba_program(x, **kw), x)
-        # copies: a program's outputs are overwritten by its next replay
-        return copy_out(out)
+        """``ba_program(x, **kw)`` (``_program``: one per (F, P, H, W,
+        iterations))."""
+        return self._program(("ba", tuple(sorted(kw.items()))),
+                             lambda x: ba_program(x, **kw), x)
 
     def optimize(self, iterations: Optional[int] = None):
         """Run the window BA (``run_ba``); returns (energy, lin)."""
@@ -601,12 +635,19 @@ class WindowManager:
         H, W = self.cam.height, self.cam.width
         if (new_status == bs.PT_MARGINALIZE).any():
             b = self.cfg.bundles
-            self.state = marg_points(
-                self.state, self.intensity, b.marg_weight_fac,
-                b.idepth_fix_prior_marg_fac, b.huber_th, height=H, width=W)
+            args = (b.marg_weight_fac, b.idepth_fix_prior_marg_fac,
+                    b.huber_th)
+            self.state = self._program(
+                ("marg_points", *args, H, W),
+                lambda x: marg_points(x["state"], x["planes"], *args,
+                                      height=H, width=W),
+                {"state": self.state, "planes": self.intensity})
 
         if marg_slot is not None:
-            self.state = energy.marginalize_frame(self.state, slot=marg_slot)
+            self.state = self._program(
+                ("marginalize_frame", marg_slot),
+                lambda x: energy.marginalize_frame(x, slot=marg_slot),
+                self.state)
             self.immatures[marg_slot] = None
             self.frame_ids[marg_slot] = -1
             self.marg_count += 1
@@ -615,16 +656,23 @@ class WindowManager:
     # ------------------------------------------------------------------
     def rebuild_coarse_template(self):
         """Project active points into the newest KF and rebuild the coarse
-        tracking templates (setCoarseTrackingRef)."""
-        uv, idn, ok = project_active_to_newest(
-            self.state, self.cam, self.newest_slot, height=self.cam.height,
-            width=self.cam.width)
-        caps = tuple(min(8192 >> l, max(1, (self.cam.height >> l)
-                                        * (self.cam.width >> l)))
+        tracking templates (setCoarseTrackingRef): one program, the newest
+        slot its input."""
+        cam = self.cam
+        H, W = cam.height, cam.width
+        caps = tuple(min(8192 >> l, max(1, (H >> l) * (W >> l)))
                      for l in range(self.cfg.coarse.pyr_levels))
-        self.coarse_templates = ct.build_template(
-            uv, idn, torch.ones_like(idn), ok, self.pyramids[self.newest_slot],
-            caps=caps)
+
+        def rebuild(x):
+            uv, idn, ok = project_active_to_newest(
+                x["state"], cam, x["slot"], height=H, width=W)
+            return ct.build_template(uv, idn, torch.ones_like(idn), ok,
+                                     x["pyr"], caps=caps)
+        self.coarse_templates = self._program(
+            ("coarse_template", tuple(cam), caps), rebuild,
+            {"state": self.state, "pyr": list(self.pyramids[self.newest_slot]),
+             "slot": torch.full((1,), self.newest_slot, dtype=torch.int64,
+                                device=self.device)})
 
     def track_frame(self, img, pose_init: SE3, aff_init=(0.0, 0.0),
                     exposure: float = 1.0):
@@ -634,15 +682,10 @@ class WindowManager:
                                                  exposure))
 
     def run_track(self, x, static):
-        """``track_frame_program(x, **static)``: on a card the captured
-        program (one per pyramid shape), whose outputs are copied out, else
-        eagerly."""
-        if not self._captured():
-            return track_frame_program(x, **static)
-        out = CACHE.run(
-            ("track_frame", tuple(sorted(static.items()))),
-            lambda x: track_frame_program(x, **static), x)
-        return copy_out(out)
+        """``track_frame_program(x, **static)`` (``_program``: one per
+        pyramid shape)."""
+        return self._program(("track_frame", tuple(sorted(static.items()))),
+                             lambda x: track_frame_program(x, **static), x)
 
     def track_inputs(self, img, pose_init: SE3, aff_init=(0.0, 0.0),
                      exposure: float = 1.0):

@@ -19,7 +19,9 @@ first-frame point, with
 
 Every level is a fixed-capacity masked array. ``_track_level`` runs a fixed
 number of LM iterations with ``torch.where``-selected accept/reject and no
-host read; ``track_frame`` reads the device once per frame.
+host read (JAX's ``fori_loop``: no early exit to port); ``track_frame``
+runs ``track_frame_program``, on a card as one captured program, and reads
+the device once per frame.
 
 Neighbour order: level coordinates are integers, so equal distances are the
 rule. Neighbours are ordered by (distance, index); the JAX package's
@@ -32,6 +34,7 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from .. import graphs
 from ..device import resolve_device
 from ..utils.lie import SE3
 from ..utils.interp import bilinear_3
@@ -360,12 +363,14 @@ def _track_level(lvl: InitLevel, img_new, K4, T_10: SE3, aff, snapped,
             snapped_out, energy)
 
 
-def track_frame(state: InitState, pyr_new, cam, iterations: int = 30,
-                counters=None) -> tuple[InitState, bool]:
-    """One new frame through the coarse-to-fine initializer. Returns
-    (state', initialized): initialized once the solution has stayed snapped
-    for SNAPPED_THRESHOLD frames. One host read per frame, of the snap
-    flags (``counters["init_host_reads"]`` when given)."""
+def track_frame_program(x, *, cam, iterations: int):
+    """``track_frame``'s device program (JAX: ``_track_level`` under
+    ``jax.jit`` per level): the idepths up the pyramid, every level's LM
+    coarse to fine with the idepths down, the snap bookkeeping. x = {state
+    (InitState), pyr ([H_l, W_l, 3] levels of the new frame)}. Returns
+    (state', [snapped, snapped_at, frame_id] int32): nothing is read back,
+    so on a card it is one captured program."""
+    state, pyr_new = x["state"], x["pyr"]
     n_levels = len(state.levels)
     levels = list(state.levels)
 
@@ -405,14 +410,35 @@ def track_frame(state: InitState, pyr_new, cam, iterations: int = 30,
     frame_id = state.frame_id + 1
     snapped_at = torch.where(snapped & (state.snapped_at < 0), frame_id,
                              state.snapped_at)
+    flags = torch.stack([snapped.to(torch.int32), snapped_at, frame_id])
+    return InitState(levels=levels, T_10=T, aff=aff, snapped=snapped,
+                     snapped_at=snapped_at, frame_id=frame_id), flags
+
+
+def track_frame(state: InitState, pyr_new, cam, iterations: int = 30,
+                counters=None, capture: bool = False
+                ) -> tuple[InitState, bool]:
+    """One new frame through the coarse-to-fine initializer
+    (``track_frame_program``; with ``capture`` on a card, its captured
+    program through ``graphs.CACHE``, keyed on the camera and
+    ``iterations``, the level shapes being in the key already). Returns
+    (state', initialized): initialized once the solution has stayed snapped
+    for SNAPPED_THRESHOLD frames. One host read per frame, of the snap
+    flags (``counters["init_host_reads"]`` when given)."""
+    x = {"state": state, "pyr": list(pyr_new)}
+    if capture and state.T_10.R.is_cuda:
+        state, flags = graphs.copy_out(graphs.CACHE.run(
+            ("coarse_init_track", tuple(cam), iterations),
+            lambda x: track_frame_program(x, cam=cam, iterations=iterations),
+            x))
+    else:
+        state, flags = track_frame_program(x, cam=cam, iterations=iterations)
     if counters is not None:
         counters["init_host_reads"] += 1
-    is_snapped, at, fid = torch.stack(
-        [snapped.to(torch.int32), snapped_at, frame_id]).tolist()
+    is_snapped, at, fid = flags.tolist()
     initialized = bool(is_snapped) and at >= 0 \
         and fid - max(at, 0) >= SNAPPED_THRESHOLD
-    return InitState(levels=levels, T_10=T, aff=aff, snapped=snapped,
-                     snapped_at=snapped_at, frame_id=frame_id), initialized
+    return state, initialized
 
 
 def extract_result(state: InitState):

@@ -2,9 +2,10 @@
 of ``slam_eds_tpu.ops.coarse_tracker`` (DSO's CoarseTracker).
 
 The per-level ``lax.while_loop``s (the cutoff escalation and the LM) are
-fixed counts of masked passes that carry the JAX loops' state, so a level
-reads nothing back to the host and ``track_newest_coarse`` can be captured
-in a CUDA graph. Template packing is a stable descending sort, matching
+``graphs.while_loop``s over the JAX loops' state, so a level reads nothing
+back to the host and ``track_newest_coarse`` can be captured in a CUDA
+graph, where each pass is an IF node that ends the loop at its stop
+(eagerly every pass to the cap runs, masked). Template packing is a stable descending sort, matching
 ``lax.top_k``'s order.
 """
 from __future__ import annotations
@@ -13,12 +14,14 @@ from typing import NamedTuple, Sequence
 
 import torch
 
+from .. import graphs
 from ..models.ba_state import tuple_from_numpy, tuple_to_numpy
 from ..utils.lie import SE3
 from ..utils.cameras import Pinhole
 from ..utils.interp import bilinear_3
 from ..utils.scatter import order_free_index_add
 from ..utils.stats import huber_weight
+from ..utils.linalg import solve
 
 # masked doublings of the robust cutoff: ceil(log2(50)), enough to reach the
 # escalation's 50x bound from any start
@@ -48,6 +51,9 @@ class TrackResult(NamedTuple):
     ok: torch.Tensor               # bool
     residuals: torch.Tensor        # [L] per-level final RMS
     flow_indicators: torch.Tensor  # [3] (shiftT, shiftR, shiftRT)
+    # [L, 2] int32 per level: the cutoff doublings and the LM passes run
+    # (device data, read with the verdict; not in the JAX result)
+    passes: torch.Tensor
 
 
 def aff_from_to(exp_a, aff_a, exp_b, aff_b):
@@ -233,7 +239,8 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
                 fix_a: bool = False, fix_b: bool = False,
                 scale_a: float = 1.0, scale_b: float = 1.0):
     """LM on one pyramid level. Returns (pose, aff, rms, sat_frac,
-    visible)."""
+    visible, passes): passes [2] int32 are the cutoff doublings and the LM
+    passes that ran."""
     exp_ref, exp_new = exposures
     b0_ref = aff_ref[1]
     dtype, dev = aff0.dtype, aff0.device
@@ -242,17 +249,28 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
         return aff_from_to(exp_ref, aff_ref, exp_new, aff)
 
     # cutoff escalation: double while > 60% saturate, as JAX's while_loop,
-    # in ceil(log2(50)) = 6 masked passes (20 -> 1280 takes 6 doublings)
-    _, _, sat, _ = calc_res(tpl, dI, cam, pose0, rel_aff(aff0), huber_th,
-                            cutoff_th)
-    cutoff = torch.full((), cutoff_th, dtype=torch.float32, device=dev)
-    for _ in range(CUTOFF_DOUBLINGS):
-        grow = (sat > 0.6) & (cutoff < cutoff_th * 50.0)
+    # in at most ceil(log2(50)) = 6 passes (20 -> 1280 takes 6 doublings)
+    def grows(carry):
+        cutoff, sat, _ = carry
+        return (sat > 0.6) & (cutoff < cutoff_th * 50.0)
+
+    def doubling(_, carry):
+        cutoff, sat, n = carry
+        grow = grows(carry)
         c2 = cutoff * 2.0
         _, _, sat2, _ = calc_res(tpl, dI, cam, pose0, rel_aff(aff0),
                                  huber_th, c2)
-        cutoff = torch.where(grow, c2, cutoff)
-        sat = torch.where(grow, sat2, sat)
+        return (torch.where(grow, c2, cutoff), torch.where(grow, sat2, sat),
+                n + grow.to(torch.int32))
+
+    _, _, sat, _ = calc_res(tpl, dI, cam, pose0, rel_aff(aff0), huber_th,
+                            cutoff_th)
+    # grow is monotone (once false, the carry stays), so the doublings are
+    # a while_loop on it
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    cutoff, sat, doublings = graphs.while_loop(grows, doubling, (torch.full(
+        (), cutoff_th, dtype=torch.float32, device=dev), sat, zero_i),
+        CUTOFF_DOUBLINGS)
 
     E0, n0, _, buf0 = calc_res(tpl, dI, cam, pose0, rel_aff(aff0), huber_th,
                                cutoff)
@@ -265,9 +283,6 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye8 = torch.eye(8, dtype=dtype, device=dev)
 
-    def solve(A, rhs):
-        return torch.linalg.solve_ex(A, rhs[:, None],
-                                     check_errors=False)[0][:, 0]
 
     def solve_inc(H, b, lam):
         Hl = H + lam * torch.diag(torch.diagonal(H))
@@ -292,15 +307,14 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
     def mean_E(E, n):
         return torch.where(n >= n_floor, E / torch.clamp(n, min=1), inf)
 
-    # the LM as JAX's while_loop (it < max_iterations) & ~done, in
-    # max_iterations masked passes; done is ||inc|| <= 1e-3
-    pose, aff = pose0, aff0
-    lam = torch.full((), lambda_init, dtype=torch.float32, device=dev)
+    # the LM as JAX's while_loop (it < max_iterations) & ~done; done is
+    # ||inc|| <= 1e-3
     extrap_limit = torch.full((), lambda_extrap_limit, dtype=torch.float32,
                               device=dev)
-    res_old = torch.stack([E0, n0.to(E0.dtype)])
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    for _ in range(max_iterations):
+
+    def lm_pass(_, carry):
+        pose_R, pose_t, aff, H, b, res_old, lam, done, it = carry
+        pose = SE3(pose_R, pose_t)
         active = ~done
         inc = solve_inc(H, b, lam)
         extrap = torch.where(lam < lambda_extrap_limit,
@@ -316,21 +330,30 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
                                                res_old[1].to(n_new.dtype))
         H_new, b_new = calc_gs(buf, cam, rel_aff(aff_new), b0_ref)
         take = active & accept
-        pose = SE3(torch.where(take, pose_new.R, pose.R),
-                   torch.where(take, pose_new.t, pose.t))
-        aff = torch.where(take, aff_new, aff)
-        H = torch.where(take, H_new, H)
-        b = torch.where(take, b_new, b)
-        res_old = torch.where(take, torch.stack(
-            [E_new, n_new.to(E_new.dtype)]), res_old)
-        lam = torch.where(active, torch.where(
-            accept, lam * 0.5,
-            torch.clamp(lam * 4.0, min=lambda_extrap_limit)), lam)
-        done = done | (torch.linalg.vector_norm(inc) <= 1e-3)
+        return (torch.where(take, pose_new.R, pose.R),
+                torch.where(take, pose_new.t, pose.t),
+                torch.where(take, aff_new, aff),
+                torch.where(take, H_new, H), torch.where(take, b_new, b),
+                torch.where(take, torch.stack(
+                    [E_new, n_new.to(E_new.dtype)]), res_old),
+                torch.where(active, torch.where(
+                    accept, lam * 0.5,
+                    torch.clamp(lam * 4.0, min=lambda_extrap_limit)), lam),
+                done | (torch.linalg.vector_norm(inc) <= 1e-3),
+                it + active.to(torch.int32))
+
+    carry = (pose0.R, pose0.t, aff0, H, b,
+             torch.stack([E0, n0.to(E0.dtype)]),
+             torch.full((), lambda_init, dtype=torch.float32, device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev), zero_i)
+    pose_R, pose_t, aff, _, _, res_old, _, _, its = graphs.while_loop(
+        lambda c: ~c[7], lm_pass, carry, max_iterations)
+    pose = SE3(pose_R, pose_t)
     rms = torch.sqrt(res_old[0] / torch.clamp(res_old[1], min=1.0))
     _, n_fin, sat, _ = calc_res(tpl, dI, cam, pose, rel_aff(aff), huber_th,
                                 cutoff)
-    return pose, aff, rms, sat, n_fin >= n_floor
+    return pose, aff, rms, sat, n_fin >= n_floor, torch.stack([doublings,
+                                                               its])
 
 
 def track_newest_coarse(templates: Sequence[LevelTemplate],
@@ -351,9 +374,10 @@ def track_newest_coarse(templates: Sequence[LevelTemplate],
     aff = aff_init.to(torch.float32)
     ok = torch.ones((), dtype=torch.bool, device=dev)
     per_level_rms = [torch.zeros((), device=dev)] * n_levels
+    passes = [None] * n_levels
 
     for lvl in range(n_levels - 1, -1, -1):
-        p_new, a_new, rms, _, visible = track_level(
+        p_new, a_new, rms, _, visible, passes[lvl] = track_level(
             templates[lvl], target_pyr[lvl], cams[lvl], pose, aff,
             exposures, aff_ref,
             max_iterations=max_iterations[min(lvl, len(max_iterations) - 1)],
@@ -371,4 +395,5 @@ def track_newest_coarse(templates: Sequence[LevelTemplate],
         & (torch.abs(rel[1]) < 200.0)
     return TrackResult(pose=pose, aff=aff, ok=ok,
                        residuals=torch.stack(per_level_rms),
-                       flow_indicators=torch.stack([shiftT, shiftR, shiftRT]))
+                       flow_indicators=torch.stack([shiftT, shiftR, shiftRT]),
+                       passes=torch.stack(passes))

@@ -9,17 +9,19 @@ Differences from the JAX module are of form only:
 * the tap sampler is ``ops.kernels.pattern_sample.sample`` (the CUDA
   kernel for a CUDA tensor, the plain torch gather for a CPU tensor; under
   ``torch.vmap`` the kernel's lane axis, through the sampler's operator);
-* ``ba_iterate``'s ``lax.while_loop`` (``break_tol > 0``) is ``iterations``
-  masked GN passes carrying the same ``done`` flag, so the loop reads
-  nothing back to the host;
-* ``orthogonalize`` solves its 7x7 Gram system with LU
-  (``torch.linalg.solve_ex``) where JAX uses a Cholesky factorization: the
-  same projector on a well-conditioned gauge basis, finite on a
-  rank-deficient one.
+* ``ba_iterate``'s ``lax.while_loop`` (``break_tol > 0``) is a
+  ``graphs.while_loop`` of GN passes carrying the same ``done`` flag, so
+  the loop reads nothing back to the host: captured in a CUDA graph it ends
+  at the stop (IF nodes), eagerly (the CPU, ``torch.vmap`` in
+  ``eval.batched_ba_windows``, the sharded BA) every pass runs masked;
+* ``orthogonalize`` solves its 7x7 Gram system with LU where JAX uses a
+  Cholesky factorization: the same projector on a well-conditioned gauge
+  basis, finite on a rank-deficient one.
 
 The reduced solve keeps LU, as the JAX code does (the docs say Cholesky).
-The solves skip the ``info`` check (``check_errors=False``), a host read on
-a card; a singular system gives non-finite entries, as in JAX. Every block
+Both go through ``utils.linalg.solve`` (``torch.linalg.solve_ex``'s LU,
+in a form a conditional node of a captured graph holds) and check nothing,
+so no host read; a singular system gives non-finite entries, as in JAX. Every block
 is assembled with ``torch.cat``/``torch.where`` instead of writes into a
 zeroed tensor, so ``torch.vmap`` carries the whole GN loop
 (``eval.batched_ba_windows``).
@@ -30,8 +32,10 @@ from typing import NamedTuple
 
 import torch
 
+from .. import graphs
 from ..models.ba_state import BAState, CPARS, PT_ACTIVE, PT_MARGINALIZE
 from ..utils.lie import SE3
+from ..utils.linalg import solve
 from ..utils.image import PATTERN_DSO8
 from .kernels.pattern_sample import sample
 
@@ -370,8 +374,7 @@ def orthogonalize(x, N):
     """Project x off span(N): x - N (N^T N + eps I)^-1 N^T x (7x7 LU)."""
     G = N.T @ N + 1e-10 * torch.eye(N.shape[1], dtype=x.dtype,
                                     device=x.device)
-    return x - N @ torch.linalg.solve_ex(G, (N.T @ x)[:, None],
-                                         check_errors=False)[0][:, 0]
+    return x - N @ solve(G, N.T @ x)
 
 
 class SolveResult(NamedTuple):
@@ -436,9 +439,8 @@ def solve_delta(state: BAState, asm: Assembled, lam: float = 1e-5,
     svec_i = 1.0 / torch.sqrt(torch.abs(torch.diagonal(H_f)) + 10.0)
     Hs = H_f * svec_i[:, None] * svec_i[None, :]
     bs = b_f * svec_i
-    x = svec_i * torch.linalg.solve_ex(
-        Hs + 1e-10 * torch.eye(D, dtype=dtype, device=dev), bs[:, None],
-        check_errors=False)[0][:, 0]
+    x = svec_i * solve(
+        Hs + 1e-10 * torch.eye(D, dtype=dtype, device=dev), bs)
     x = torch.where(act, x, zf)
 
     if use_orth:
@@ -473,9 +475,10 @@ def ba_iterate(state: BAState, target_images, height: int, width: int,
 
     break_tol > 0 stops between min_iterations and iterations once the
     relative energy improvement falls below break_tol, as JAX's
-    ``while_loop``: every one of the ``iterations`` passes runs, and a pass
-    after the stop selects the state and energy it was given, so nothing is
-    read back to the host."""
+    ``while_loop``: a ``graphs.while_loop`` whose passes after the stop
+    select the state and energy they were given (eagerly every pass runs;
+    captured, the loop ends at the stop), so nothing is read back to the
+    host."""
     def gn(it, st):
         lin = linearize(st, target_images, height, width,
                         huber_th=huber_th, outlier_th_sum=outlier_th_sum)
@@ -486,20 +489,31 @@ def ba_iterate(state: BAState, target_images, height: int, width: int,
 
     dev = state.delta.device
     e_last = torch.full((), float("inf"), device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    for it in range(iterations):
-        new_state, e = gn(it, state)
-        if break_tol <= 0.0:
-            state, e_last = new_state, e
-            continue
-        active = ~done
-        state = state._replace(**{
-            k: torch.where(active, getattr(new_state, k), getattr(state, k))
-            for k in ("delta", "c_delta", "p_idepth")})
-        rel = torch.abs(e_last - e) / torch.clamp(e_last, min=1e-12)
-        if it + 1 >= min_iterations:
-            done = done | (active & (rel < break_tol) & torch.isfinite(e))
-        e_last = torch.where(active, e, e_last)
+    if break_tol <= 0.0:
+        for it in range(iterations):
+            state, e_last = gn(it, state)
+    else:
+        def gn_pass(it, carry):
+            delta, c_delta, p_idepth, e_last, done = carry
+            st = state._replace(delta=delta, c_delta=c_delta,
+                                p_idepth=p_idepth)
+            new_state, e = gn(it, st)
+            active = ~done
+            rel = torch.abs(e_last - e) / torch.clamp(e_last, min=1e-12)
+            if it + 1 >= min_iterations:
+                done = done | (active & (rel < break_tol)
+                               & torch.isfinite(e))
+            return (*(torch.where(active, getattr(new_state, k),
+                                  getattr(st, k))
+                      for k in ("delta", "c_delta", "p_idepth")),
+                    torch.where(active, e, e_last), done)
+
+        delta, c_delta, p_idepth, e_last, _ = graphs.while_loop(
+            lambda c: ~c[4], gn_pass,
+            (state.delta, state.c_delta, state.p_idepth, e_last,
+             torch.zeros((), dtype=torch.bool, device=dev)), iterations)
+        state = state._replace(delta=delta, c_delta=c_delta,
+                               p_idepth=p_idepth)
 
     if not final_linearize:
         return state, e_last, None
@@ -598,9 +612,10 @@ def marginalize_frame(state: BAState, slot: int) -> BAState:
     bM_new = torch.where(keep, bs_new * svec, zf)
     HM_new = 0.5 * (HM_new + HM_new.T)
 
+    # fills, not host scalars: a captured program holds this too
     fv = state.frame_valid.clone()
-    fv[slot] = False
+    fv[slot].fill_(False)
     ract = state.r_active.clone()
-    ract[:, slot] = False
+    ract[:, slot].fill_(False)
     return state._replace(HM=HM_new, bM=bM_new, frame_valid=fv,
                           r_active=ract)

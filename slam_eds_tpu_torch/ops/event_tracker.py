@@ -11,11 +11,13 @@ the raw frame with the sampled values normalized by their own norm).
 State: translation px, unit quaternion qx [w, x, y, z], unit-norm 6-dof
 velocity vx. The LM runs over the 12-dof local increment with the analytic
 Jacobian (``event_residuals_and_jac``). Where the JAX module loops with
-``lax.while_loop``, this one runs a fixed count of masked iterations that
-carry the same ``(state, lam, energy, it, done)``: the loop condition stays
-on the device, so the solve reads nothing back to the host and can be
-captured in a CUDA graph (``graphs``) or mapped with ``torch.vmap``
-(``eval.batched_event_solves``).
+``lax.while_loop``, this one runs ``graphs.while_loop`` over the same
+``(state, lam, energy, it, done)``: captured in a CUDA graph, each pass is
+an IF node on ``~done``, so the loop ends on the device at its stop;
+eagerly (the CPU, ``torch.vmap`` in ``eval.batched_event_solves``, the
+sharded solve of ``parallel``) every pass to the cap runs masked, as JAX's
+``vmap`` of a ``while_loop`` runs every lane to the last lane's stop. The
+solve reads nothing back to the host either way.
 
 Track refinement (``refine_tracks_klt`` / ``_model_klt`` / ``_epiline``)
 refines the warp-predicted tracks against the event frame before they feed
@@ -29,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import graphs
 from ..models.ba_state import tuple_from_numpy, tuple_to_numpy
 from ..utils import lie
 from ..utils.lie import SE3
@@ -37,6 +40,7 @@ from ..utils import klt as kltmod
 from ..utils.events import scatter_accumulate
 from ..utils.interp import bicubic, bicubic_with_grad, bilinear
 from ..utils.stats import huber_weight, cauchy_weight, masked_mad, HUBER_K
+from ..utils.linalg import solve
 
 
 class TrackerState(NamedTuple):
@@ -228,10 +232,11 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
     """LM loop shared by ``optimize``, ``_pyramid_fused`` and
     ``parallel.sharded_event_tracker.optimize_sharded``: JAX's
     ``lax.while_loop`` over ``(state, lam, energy, it, done)`` as
-    ``max_iterations`` masked passes. A pass updates the carry only while
-    ``~done`` (``it < max_iterations`` holds on every pass), so the result,
-    ``n_iter`` included, is the early-exit loop's: the passes after ``done``
-    select the carry they were given. Nothing is read back to the host.
+    ``graphs.while_loop`` with the cap ``max_iterations``. A pass updates
+    the carry only while ``~done`` (``it < max_iterations`` holds on every
+    pass), so the result, ``n_iter`` included, is the early-exit loop's:
+    the passes after ``done`` select the carry they were given, and a
+    captured loop skips them. Nothing is read back to the host.
 
     With the points split over ranks, ``reduce`` sums a tensor over the
     ranks (the norms, the [12, 12] system and the energies, so the LM
@@ -261,11 +266,9 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
         return _summed(robust_weights(r) * r * r, reduce)
 
     eye = torch.eye(12, dtype=dtype, device=dev)
-    lam = torch.full((), 1e-4, dtype=dtype, device=dev)
-    energy = energy_of(residuals(state))
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    for _ in range(max_iterations):
+
+    def lm_pass(_, carry):
+        state, lam, energy, it, done = carry
         active = ~done
         r, J = event_residuals_and_jac(state, event_frame, cam, norm_coord,
                                        grad, idp, weights, mask,
@@ -276,8 +279,7 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
         if reduce is not None:
             H, g = reduce(H), reduce(g)
         Hl = H + lam * torch.diag(torch.diagonal(H)) + 1e-10 * eye
-        delta = -torch.linalg.solve_ex(Hl, g[:, None],
-                                       check_errors=False)[0][:, 0]
+        delta = -solve(Hl, g)
         delta = torch.where(torch.isfinite(delta), delta,
                             torch.zeros_like(delta))
         new_state = _apply_local(state, delta)
@@ -291,6 +293,14 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
         energy = torch.where(active, e_next, energy)
         it = it + active.to(torch.int32)
         done = done | (active & accept & (rel < function_tolerance))
+        return state, lam, energy, it, done
+
+    carry = (state, torch.full((), 1e-4, dtype=dtype, device=dev),
+             energy_of(residuals(state)),
+             torch.zeros((), dtype=torch.int32, device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev))
+    state, _, energy, it, _ = graphs.while_loop(
+        lambda c: ~c[4], lm_pass, carry, max_iterations)
 
     r_final = residuals(state)
     # MAD re-estimation of the robust scale for the next solve

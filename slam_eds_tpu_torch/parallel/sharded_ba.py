@@ -28,6 +28,9 @@ by 1.3e-3 of its scale in float32, and the JAX module's by 2.2e-3 on 2
 and 1 CPU devices, both past the JAX dry run's 1e-3 bound
 (``tools/sharded_rank_noise.py``). With float64 sums the 1-, 2- and
 4-rank runs give bitwise the same state.
+
+The sharded calls run eagerly over gloo and capture nothing: the GN
+passes are a fixed count (no ``break_tol``, so no early exit to skip).
 """
 from __future__ import annotations
 

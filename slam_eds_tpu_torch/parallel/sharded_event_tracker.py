@@ -19,6 +19,9 @@ through its ``reduce``/``gather`` hooks (the JAX module's
 The pose/velocity state, the event frame and the LM control are replicated;
 the energies that decide acceptance and the early stop are sums over the
 ranks, so every rank takes the same step and leaves at the same iteration.
+The solve runs eagerly over gloo, so its LM is the masked loop
+(``graphs.while_loop`` outside a capture): every pass to the cap runs,
+the passes after the stop keeping their carry.
 """
 from __future__ import annotations
 

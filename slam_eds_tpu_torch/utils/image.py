@@ -22,8 +22,18 @@ PATTERN_PAD = 2
 
 
 def pattern(dtype, device):
-    """PATTERN_DSO8 as a [8, 2] tensor."""
-    return torch.as_tensor(PATTERN_DSO8, dtype=dtype, device=device)
+    """PATTERN_DSO8 as a [8, 2] tensor, uploaded once per type and device
+    (a host-to-device copy cannot run inside a captured program); callers
+    only read it."""
+    key = (dtype, str(device))
+    offs = _PATTERN.get(key)
+    if offs is None:
+        offs = torch.as_tensor(PATTERN_DSO8, dtype=dtype, device=device)
+        _PATTERN[key] = offs
+    return offs
+
+
+_PATTERN = {}
 
 
 def _reflect101_pad(img, ph, pw):

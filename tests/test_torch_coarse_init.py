@@ -43,6 +43,8 @@ from slam_eds_tpu_torch.utils.alignment import ate_rmse
 from slam_eds_tpu_torch.utils.cameras import Pinhole as TPinhole
 from slam_eds_tpu_torch.utils.image import build_pyramid as tbuild
 from slam_eds_tpu_torch.utils.lie import SE3 as TSE3
+from torch.utils._pytree import tree_leaves
+from torch_guard import no_host_reads
 
 torch.set_num_threads(1)
 
@@ -214,6 +216,25 @@ def tracked(first):
         assert counters["init_host_reads"] == 1
         rows.append((k, sj, dj, st_rep, dt, st_own, d_own))
     return rows
+
+
+def test_track_frame_program_is_read_free_and_the_eager_run(first):
+    """``track_frame_program``, the function a card captures for
+    ``track_frame``, reads nothing (after a warm-up, as the card's) and
+    gives bitwise the eager ``track_frame``'s state; its flags are the
+    values ``track_frame`` reads."""
+    _, st = first
+    pyr = _tpyr(render(1))
+    x = {"state": st, "pyr": list(pyr)}
+    with torch.inference_mode():
+        want, _ = tci.track_frame(st, pyr, TCAM)
+        tci.track_frame_program(x, cam=TCAM, iterations=30)
+        with no_host_reads():
+            got, flags = tci.track_frame_program(x, cam=TCAM, iterations=30)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
+    assert flags.tolist() == [int(want.snapped), int(want.snapped_at),
+                              int(want.frame_id)]
 
 
 def test_track_frame_first_frame_tight(tracked):

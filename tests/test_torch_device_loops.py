@@ -49,7 +49,8 @@ from slam_eds_tpu_torch.utils.cameras import Pinhole as TPinhole
 from slam_eds_tpu_torch.utils.lie import SE3 as TSE3
 from test_torch_energy import build_world, to_torch
 from test_torch_event_tracker import _args, _states, world  # noqa: F401
-from torch_guard import HostRead, count_host_reads, no_host_reads
+from torch_guard import (HostRead, count_host_reads, masked_branches,
+                         no_host_reads, skipped_passes)
 
 torch.set_num_threads(1)
 
@@ -238,7 +239,7 @@ def test_cutoff_escalation_doubles(coarse_scene):
         jnp.zeros(2, jnp.float32), max_iterations=5, huber_th=0.5,
         cutoff_th=0.05)
     with no_host_reads():
-        pt, at, rmst, satt, vist = tct.track_level(
+        pt, at, rmst, satt, vist, passes = tct.track_level(
             tt[lvl], img, cam, pose0, zero2, (one, one), zero2,
             max_iterations=5, huber_th=0.5, cutoff_th=0.05)
     close(pt.R, pj.R, atol=1e-4)
@@ -246,6 +247,8 @@ def test_cutoff_escalation_doubles(coarse_scene):
     close(rmst, rmsj, rtol=1e-3)
     close(satt, satj, atol=1e-6)
     assert bool(vist) == bool(visj)
+    # the passes run: every doubling the escalation took, LM passes <= cap
+    assert passes.tolist()[0] >= 1 and 1 <= passes.tolist()[1] <= 5
 
 
 # ---------------------------------------------------------------------------
@@ -318,11 +321,13 @@ def packet_world():
 
 
 def test_packet_step_live_count_is_data(packet_world):
-    """The first rung's program (event frame, solve, gate, tail) called twice
-    with the live count as an int32 tensor, changed between the calls. The
-    count acts on the event frame: at each count its frames, time and median
-    depth agree with JAX's event frame (``test_torch_events``' tolerance)
-    and with the port's own head given the count as a Python int (bitwise).
+    """The packet step's head (event frame, median depth) called twice with
+    the live count as an int32 tensor, changed between the calls, and the
+    whole step (``gate_ladder``, its retries masked) at the second count,
+    read-free. The count acts on the event frame: at each count its frames,
+    time and median depth agree with JAX's event frame
+    (``test_torch_events``' tolerance) and with the port's own head given
+    the count as a Python int (bitwise).
     The step's verdict, LM passes, points alive and time equal JAX's fused
     step; its energy, loss scale and flow statistic within 2e-3: on this
     3-iteration world every rung fails the gate and the identity retry's LM
@@ -342,7 +347,6 @@ def test_packet_step_live_count_is_data(packet_world):
                                           device="cpu")._packet_step_args()
     head_kw = {k: statics[k] for k in tpl.HEAD_STATICS}
     tk = tkf.from_numpy(_np_dict(kf), device="cpu")
-    program = tpl._packet_rung_program(0, TCAM, iters, lim, statics)
     x = {"xs": T(pk.xs), "ys": T(pk.ys), "ts": T(pk.ts),
          "ps": T(pk.polarity), "fwd_maps": None,
          "state": tet.state_from_numpy(_np_dict(js), device="cpu"),
@@ -355,11 +359,16 @@ def test_packet_step_live_count_is_data(packet_world):
     heads = []
     for i, n in enumerate((n_full, n_full // 3)):
         x["n_valid"] = torch.full((), n, dtype=torch.int32)
+        def head():
+            return tpl._event_packet_head(
+                x["xs"], x["ys"], x["ts"], x["ps"], x["n_valid"], None,
+                tk.idepth, tk.mask, lim, **head_kw)
         if i == 0:
-            (frames, time, med), out = program(x)       # the warm-up
+            frames, time, med = head()                  # the warm-up
         else:
-            with no_host_reads():
-                (frames, time, med), out = program(x)
+            with no_host_reads(), masked_branches():
+                frames, time, med = head()
+                step = tpl.gate_ladder(x, TCAM, iters, lim, statics)
         heads.append((frames, time))
         # the count as data and as a Python int: the same event frame
         f_int, t_int, m_int = tpl._event_packet_head(
@@ -392,6 +401,10 @@ def test_packet_step_live_count_is_data(packet_world):
                                       jsc[[0, 3, 5, 6, 7]])
         np.testing.assert_allclose(sc[[1, 2, 4]], jsc[[1, 2, 4]], rtol=2e-3)
         np.testing.assert_array_equal(tout[3].numpy(), np.asarray(jout[3]))
+        if i == 1:
+            for a, b in zip(tree_leaves(step[0]), tree_leaves(tout)):
+                torch.testing.assert_close(a, b, rtol=0, atol=0,
+                                           equal_nan=True)
     # the two counts made two different event frames and packet times
     assert not torch.equal(heads[0][0], heads[1][0])
     assert float(heads[0][1]) != float(heads[1][1])
@@ -418,29 +431,47 @@ def _packet_inputs(packet_world):
 @pytest.mark.parametrize("mode", ["none", "klt_pyr", "model_klt",
                                   "epiline"])
 def test_every_rung_program_is_read_free(packet_world, mode):
-    """Each rung's program (the one captured on a card) at each track
-    refinement, under the guard after its warm-up, repeats the warm-up."""
+    """The packet program (the one captured on a card: head, the three
+    rungs of the gate's ladder, the tail) at each track refinement: run
+    eagerly, where its retries are host ``if``s, and again under the guard
+    with the retries masked (each retry's body run and selected by the
+    verdict, what an IF node's body computes where it runs): the same bits.
+    On this 3-iteration world every rung fails the gate, so both retries
+    run."""
     cfg = dict(CFG, tracker=dict(CFG["tracker"], track_refinement=mode))
     lim, iters, statics = tpl.EDSPipeline(TCAM, load_config(cfg),
                                           device="cpu")._packet_step_args()
-    x0 = _packet_inputs(packet_world)
-    x = x0
-    for rung in range(tpl.RUNGS):
-        program = tpl._packet_rung_program(rung, TCAM, iters, lim, statics)
-        want = program(x)
-        with no_host_reads():
-            got = program(x)
-        for a, b in zip(tree_leaves(got), tree_leaves(want)):
-            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
-        if rung == 0:
-            x = tpl.retry_inputs(x0, want[0])
+    x = _packet_inputs(packet_world)
+    want = tpl.gate_ladder(x, TCAM, iters, lim, statics)
+    assert int(want[1]) == tpl.RUNGS
+    with no_host_reads(), masked_branches():
+        got = tpl.gate_ladder(x, TCAM, iters, lim, statics)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def _read_free(fn):
+    """``fn()`` once, then again under the guard: the same bits."""
+    want = fn()
+    with no_host_reads():
+        got = fn()
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    return want
 
 
 def test_window_programs_are_read_free(coarse_scene, ba_world):
-    """The window's two captured functions: ``track_frame_program`` (the
+    """The window's captured functions: ``track_frame_program`` (the
     pyramid, the relative-pose prefix, the coarse track, the world pose) on
-    the coarse scene's templates, and ``ba_program`` with ``break_tol`` on
-    the BA world."""
+    the coarse scene's templates, ``ba_program`` with ``break_tol`` on the
+    BA world, and the keyframe programs: the pyramid, ``all_pairs``,
+    ``trace_on`` for one slot pair, the activation GN over every slot,
+    ``marg_points``, ``marginalize_frame`` and the template rebuild with the
+    newest slot as a tensor."""
+    from slam_eds_tpu_torch.models import window as twin
+    from slam_eds_tpu_torch.ops import immature as tim
+    from slam_eds_tpu_torch.models import ba_state as tbs
+    from slam_eds_tpu_torch.utils import image as timage
     from slam_eds_tpu_torch.models.window import (ba_program,
                                                   track_frame_program)
     _, tt, _ = coarse_scene
@@ -471,3 +502,148 @@ def test_window_programs_are_read_free(coarse_scene, ba_world):
         got = ba_program(xb, **kw)
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+    # the keyframe programs
+    pyr = _read_free(lambda: timage.build_pyramid(img, 4)[0])
+    Fw = tst.num_frames
+    K = TCAM.K(device="cpu")
+    KRKi, Kt, aff = _read_free(lambda: twin.all_pairs(tst, K))
+    gy, gx = np.mgrid[8:H - 8:6, 8:W - 8:6]
+    uv = torch.as_tensor(np.stack([gx.ravel(), gy.ravel()], -1),
+                         dtype=torch.float32)
+    pts = tim.make_immature(pyr[0], uv, torch.ones(len(uv), dtype=bool))
+    traced = _read_free(lambda: tim.trace_on(pts, pyr[0], KRKi[0, 1],
+                                             Kt[0, 1], aff[0, 1], W, H))
+    stack = tim.ImmaturePoints(*(torch.stack([x] * Fw) for x in traced))
+    images = torch.stack([pyr[0]] * Fw)
+    tmask = ~torch.eye(Fw, dtype=torch.bool)
+    _read_free(lambda: tim.activate_idepth(stack, images, KRKi, Kt, aff,
+                                           tmask, gn_iterations=3))
+    marg = tst._replace(p_status=torch.where(
+        torch.arange(tst.p_status.shape[0]) % 5 == 0,
+        torch.full_like(tst.p_status, tbs.PT_MARGINALIZE), tst.p_status))
+    _read_free(lambda: twin.marg_points(marg, timgs, 0.25, 360000.0, 9.0,
+                                        height=timgs.shape[1],
+                                        width=timgs.shape[2]))
+    _read_free(lambda: ten.marginalize_frame(tst, slot=1))
+    slot = torch.full((1,), Fw - 1, dtype=torch.int64)
+
+    def rebuild():
+        uv_, idn, ok = twin.project_active_to_newest(tst, TCAM, slot,
+                                                     height=H, width=W)
+        return tct.build_template(uv_, idn, torch.ones_like(idn), ok, pyr,
+                                  caps=(1024, 512, 256, 128))
+    tpl_t = _read_free(rebuild)
+    want = twin.project_active_to_newest(tst, TCAM, Fw - 1, height=H,
+                                         width=W)
+    got = twin.project_active_to_newest(tst, TCAM, slot, height=H, width=W)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert len(tpl_t) == 4
+
+
+# ---------------------------------------------------------------------------
+# a captured loop skips the passes after its stop: the same bits
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("loop", ["event_lm", "cutoff", "coarse_lm",
+                                  "ba_break_tol"])
+def test_skipped_passes_equal_the_masked_loop(loop, world, coarse_scene,
+                                              ba_world):
+    """Each of the four ``graphs.while_loop``s run with a host ``if`` around
+    every pass (a pass after the stop does not run, as under a captured IF
+    node) equals, bitwise, the masked loop that runs every pass; the loop
+    stops before its cap, so passes were skipped."""
+    if loop == "event_lm":
+        _, ts = _states(world, np.zeros(6), world["vx"])
+        frame, targs = T(world["img"]), _args(world, "torch")
+
+        def run():
+            return tet._lm_solve(ts, frame, TCAM, *targs, 40, "huber", 0.2,
+                                 1e-6, False)
+        which = 0
+    elif loop == "ba_break_tol":
+        _, _, tst, timgs = ba_world
+
+        def run():
+            return ten.ba_iterate(tst, timgs, timgs.shape[1],
+                                  timgs.shape[2], iterations=6,
+                                  orth_from_iteration=0, break_tol=0.2)
+        which = 0
+    else:
+        _, tt, pyr = coarse_scene
+        lvl = 3 if loop == "cutoff" else 1
+        cam = TCAM.pyramid_level(lvl)
+        one, zero2, img = torch.ones(()), torch.zeros(2), T(pyr[lvl])
+        pose0 = TSE3.identity(device="cpu")
+        cutoff_th = 3.0 if loop == "cutoff" else 20.0
+
+        def run():
+            return tct.track_level(tt[lvl], img, cam, pose0, zero2,
+                                   (one, one), zero2, max_iterations=30,
+                                   huber_th=0.5, cutoff_th=cutoff_th)
+        which = 0 if loop == "cutoff" else 1
+    masked = run()
+    with skipped_passes() as runs:
+        skipped = run()
+    ran, cap = runs[which]
+    assert 1 <= ran < cap, runs
+    for a, b in zip(tree_leaves(skipped), tree_leaves(masked)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("stop,count_div,step_t", [(1, 2, None),
+                                                    (2, 3, 0.935),
+                                                    (3, 1, None)])
+def test_gate_ladder_stops_where_jax_does(packet_world, stop, count_div,
+                                          step_t):
+    """The one-program ladder (``gate_ladder``) against JAX's
+    ``_event_packet_fused`` from the same state, forced to each rung: at
+    half the live count the first solve passes the gate; at a third, with
+    the translation gate at ``step_t`` of the median depth (between the
+    first solve's step, 0.944, and the retry's from the frame tracker's
+    prediction, 0.925), the first retry passes; at the full count every
+    rung fails. The verdict is JAX's, the port runs exactly the rungs up to
+    the one that passed, and the step's scalars agree as in
+    ``test_packet_step_live_count_is_data``."""
+    kf, pk, pred, (jlim, jiters, jstat), jcfg = packet_world
+    lim, iters, statics = tpl.EDSPipeline(TCAM, load_config(CFG),
+                                          device="cpu")._packet_step_args()
+    x = _packet_inputs(packet_world)
+    n = int(pk.n_valid) // count_div
+    if step_t is not None:
+        med = tpl._event_packet_head(
+            x["xs"], x["ys"], x["ts"], x["ps"], n, None, x["kf_idp"],
+            x["kf_mask"], lim,
+            **{k: statics[k] for k in tpl.HEAD_STATICS})[2]
+        lim = dict(lim, max_step_t=step_t / float(med))
+        jlim = dict(jlim, max_step_t=lim["max_step_t"])
+    js = jet.initial_tracker_state()
+    jout = jpl._event_packet_fused(
+        js, jet.pose_filter_init(jcfg.tracker.pose_filter_window),
+        jdf.init_from_prior(kf.idepth, jcfg.mapping.min_depth,
+                            jcfg.mapping.max_depth),
+        JCAM, kf.pose.R, kf.pose.t, pred.R, pred.t, kf.uv, kf.norm_coord,
+        kf.grad, kf.idepth, kf.weight, kf.mask,
+        *(jnp.asarray(a) for a in (pk.xs, pk.ys, pk.ts, pk.polarity)),
+        jnp.asarray(n), None, jiters, jnp.float32(0.2), jlim, **jstat)
+    tout, rungs = tpl._event_packet_fused(
+        x["state"], x["pf"], x["depth"], TCAM, x["kf_R"], x["kf_t"],
+        x["pred_R"], x["pred_t"], x["kf_uv"], x["kf_nc"], x["kf_grad"],
+        x["kf_idp"], x["kf_weight"], x["kf_mask"], x["xs"], x["ys"],
+        x["ts"], x["ps"], torch.full((), n, dtype=torch.int32), None, iters,
+        0.2, lim, **statics)
+    sc, jsc = tout[6].numpy(), np.asarray(jout[6])
+    assert rungs == stop
+    assert sc[0] == jsc[0] == (1.0 if stop < 3 else 0.0)
+    # the verdict, LM passes, event-frame time and median depth do not
+    # depend on the LM's path
+    np.testing.assert_array_equal(sc[[0, 3, 6, 7]], jsc[[0, 3, 6, 7]])
+    if stop == 2:
+        # the retry from the prediction is where this 3-iteration world's
+        # LM splits: both packages pass the gate with poses 0.26 apart, so
+        # the path-dependent outputs are not compared
+        return
+    np.testing.assert_array_equal(sc[5], jsc[5])
+    np.testing.assert_allclose(sc[[1, 2, 4]], jsc[[1, 2, 4]], rtol=2e-3)
+    np.testing.assert_array_equal(tout[3].numpy(), np.asarray(jout[3]))

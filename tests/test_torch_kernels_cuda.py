@@ -51,7 +51,8 @@ from slam_eds_tpu_torch.ops import event_tracker as et
 from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
 from slam_eds_tpu_torch.ops.kernels import rasterize as rz
 from slam_eds_tpu_torch.utils import events as ev
-from torch_world import H, W, port_world
+from torch_guard import masked_branches
+from torch_world import H, W, event_world, port_world
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -455,7 +456,8 @@ def test_graph_replays_count_kernel_launches(card):
     n1 = (ps.pattern_sample.launches, rz.rasterize_bilinear.launches)
     assert n1 == (n0[0] + 2, n0[1] + 2)
     assert cache.warmups == {"pattern_sample": 1, "pattern_sample_lanes": 0,
-                             "rasterize_bilinear": 1}
+                             "rasterize_bilinear": 1, "lu_substitute": 0,
+                             "set_condition": 0}
     with graphs.sync_check("error"):
         for k in range(3):
             x2 = dict(x, xs=torch.rand(4096, device=card) * 64)
@@ -493,8 +495,9 @@ def test_ba_program_captured_is_bitwise_eager(card):
 
 @pytest.mark.cuda
 def test_packet_program_replayed_on_two_live_counts(card):
-    """The first rung's captured program replayed on one packet at two live
-    counts: each replay bitwise the eager program at that count."""
+    """The packet step's captured program (``gate_ladder``, its retries IF
+    nodes) replayed on one packet at two live counts: each replay bitwise
+    the eager program at that count, its retries masked."""
     from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.config import EDSConfig
     from slam_eds_tpu_torch.io.dataset import SyntheticSequence
@@ -513,7 +516,9 @@ def test_packet_program_replayed_on_two_live_counts(card):
     cfg = EDSConfig()
     pipe = pl.EDSPipeline(cam, cfg, device=card)
     lim, iters, statics = pipe._packet_step_args()
-    program = pl._packet_rung_program(0, cam, iters, lim, statics)
+
+    def program(x):
+        return pl.gate_ladder(x, cam, iters, lim, statics)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=card)  # noqa
     x = {"xs": t(pk.xs), "ys": t(pk.ys), "ts": t(pk.ts),
          "ps": t(pk.polarity), "fwd_maps": None,
@@ -536,8 +541,123 @@ def test_packet_program_replayed_on_two_live_counts(card):
         x["n_valid"] = torch.full((), count, dtype=torch.int32, device=card)
         with graphs.sync_check("error"):
             got = cache.run("packet", program, x)
-        want = program(_contiguous(x))
+        with masked_branches():
+            want = program(_contiguous(x))
         for a, b in zip(tree_leaves(got), tree_leaves(want)):
             assert torch.equal(a, b)
-        heads.append(got[0][0].clone())
+        heads.append(got[0][4].clone())
     assert not torch.equal(heads[0], heads[1])
+
+
+def _solve_loop(stop, cap):
+    """A while_loop of ``cap`` LM-like passes (a 12x12 solve each) that
+    stops after ``stop``; its carry ends in the pass counter."""
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.utils.linalg import solve
+
+    def fn(x):
+        def one(_, c):
+            v, it, done = c
+            active = ~done
+            v = torch.where(active, v + 1e-3 * solve(x["H"], v), v)
+            it = it + active.to(torch.int32)
+            return v, it, done | (it >= stop)
+        dev = x["v"].device
+        return graphs.while_loop(
+            lambda c: ~c[2], one,
+            (x["v"], torch.zeros((), dtype=torch.int32, device=dev),
+             torch.zeros((), dtype=torch.bool, device=dev)), cap)
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop", [3, 10])
+def test_captured_if_loop_is_bitwise_its_eager_run(card, stop):
+    """A loop captured with an IF node per pass replays bitwise its eager
+    masked run, whether it stops early or runs to the cap."""
+    from slam_eds_tpu_torch import graphs
+    rng = np.random.default_rng(stop)
+    x = {"v": torch.as_tensor(rng.normal(size=12).astype(np.float32),
+                              device=card),
+         "H": torch.as_tensor((rng.normal(size=(12, 12))
+                               + 12 * np.eye(12)).astype(np.float32),
+                              device=card)}
+    fn = _solve_loop(stop, 10)
+    cache = graphs.GraphCache()
+    cache.run("loop", fn, x)
+    with graphs.sync_check("error"):
+        got = graphs.copy_out(cache.run("loop", fn, x))
+    want = fn(_contiguous(x))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[1]) == min(stop, 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stop", [3, 10])
+def test_launch_ledger_counts_the_passes_that_ran(card, stop):
+    """Over one replay of a loop of 10 IF nodes that stops after ``stop``
+    passes, ``graphs.launch_ledger`` counts 10 slots of the LU substitution
+    and ``stop`` launches run; the condition kernel runs on every pass (the
+    nodes are flat)."""
+    from slam_eds_tpu_torch import graphs
+    rng = np.random.default_rng(stop)
+    x = {"v": torch.as_tensor(rng.normal(size=12).astype(np.float32),
+                              device=card),
+         "H": torch.as_tensor((rng.normal(size=(12, 12))
+                               + 12 * np.eye(12)).astype(np.float32),
+                              device=card)}
+    fn = _solve_loop(stop, 10)
+    cache = graphs.GraphCache()
+    cache.run("loop", fn, x)                  # warm-up, capture, replay
+    before = graphs.launch_ledger()
+    cache.run("loop", fn, x)
+    d = graphs.ledger_delta(before, graphs.launch_ledger())
+    assert d["lu_substitute"] == {"slots": 10, "run": stop}
+    assert d["set_condition"] == {"slots": 10, "run": 10}
+
+
+@pytest.mark.cuda
+def test_converging_lm_runs_fewer_passes_than_its_cap(card):
+    """The event LM on ``torch_world``'s scene, stopping at a relative
+    energy change of 1e-3 (at the tracker's 1e-6 the stop is float32 noise
+    on the card, and this scene runs to the cap there), converges before a
+    cap of 40: the captured solve reads back fewer passes (``n_iter``, the
+    loop's ``it``) than the cap, the same count as the eager run, and the
+    same bits."""
+    from slam_eds_tpu_torch import graphs
+    ts, frame, args = event_world(card)
+    cam = args[0]
+    x = {"state": ts, "frame": frame, "args": list(args[1:])}
+
+    def run(x):
+        return et._lm_solve(x["state"], x["frame"], cam, *x["args"], 40,
+                            "huber", 0.2, 1e-3, False)
+    cache = graphs.GraphCache()
+    cache.run("lm", run, x)
+    got = graphs.copy_out(cache.run("lm", run, x))
+    want = run(_contiguous(x))
+    from torch.utils._pytree import tree_leaves
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)
+    assert 1 <= int(got.n_iter) < 40
+
+
+@pytest.mark.cuda
+def test_if_node_on_false_leaves_its_carry(card):
+    """``graphs.cond`` on a false predicate leaves the carry's buffers as
+    they were; on a true one it runs the body."""
+    from slam_eds_tpu_torch import graphs
+
+    def fn(x):
+        return graphs.cond(x["p"], lambda c: (c[0] * 3.0 + 1.0, c[1] - 2.0),
+                           (x["a"], x["b"]))
+    a = torch.arange(5, dtype=torch.float32, device=card)
+    b = torch.ones(7, device=card)
+    for taken in (False, True):
+        cache = graphs.GraphCache()
+        x = {"p": torch.full((), taken, device=card), "a": a, "b": b}
+        cache.run("cond", fn, x)
+        got = cache.run("cond", fn, x)
+        want = (a * 3.0 + 1.0, b - 2.0) if taken else (a, b)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -375,9 +375,10 @@ def test_one_packet_step_per_mode(warm_state, mode):
     with count_host_reads() as reads:
         tout, rungs = tpl._event_packet_fused(*args, **tstat)
     # the refinement adds no host read to the step: the first rung passed
-    # the gate, one read of its scalar vector, none in the LM
+    # the gate; run eagerly, one read of the verdict (the retry's host
+    # ``if``) and one of its scalar vector, none in the LM
     assert rungs == 1
-    assert reads.by_method == {"cpu": 1}
+    assert reads.by_method == {"__bool__": 1, "cpu": 1}
     jsc, sc = np.asarray(jout[6]), tout[6].numpy()
     assert sc[0] == jsc[0] == 1.0 and sc[3] == jsc[3]
     jmask, mask = np.asarray(jout[3]), tout[3].numpy()

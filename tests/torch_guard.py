@@ -113,3 +113,42 @@ def count_host_reads():
     finally:
         for n, fn in saved:
             setattr(torch.Tensor, n, fn)
+
+
+@contextlib.contextmanager
+def masked_branches():
+    """``graphs.cond`` runs its body whatever the predicate: the read-free
+    stand-in on the CPU for the IF node a captured program holds. The
+    bodies select their results by the predicate themselves (the packet
+    step's retries do), so the result is the host ``if``'s."""
+    from slam_eds_tpu_torch import graphs
+    orig = graphs.cond
+    graphs.cond = lambda pred, body, carry: body(carry)
+    try:
+        yield
+    finally:
+        graphs.cond = orig
+
+
+@contextlib.contextmanager
+def skipped_passes():
+    """``graphs.while_loop`` with a host ``if`` around every pass: a pass
+    whose condition is false does not run, as in a captured loop. Yields a
+    list that gets (passes run, passes) for every loop."""
+    from slam_eds_tpu_torch import graphs
+    orig = graphs.while_loop
+    runs = []
+
+    def loop(cond_fn, body_fn, carry, n):
+        ran = 0
+        for i in range(n):
+            if bool(cond_fn(carry)):
+                carry = body_fn(i, carry)
+                ran += 1
+        runs.append((ran, n))
+        return carry
+    graphs.while_loop = loop
+    try:
+        yield runs
+    finally:
+        graphs.while_loop = orig

@@ -114,3 +114,50 @@ def port_world(device, seed=11):
                                 torch.as_tensor(d["T_eval.t"], device=device)),
                      **fields)
     return st, torch.as_tensor(d["images"], device=device)
+
+
+def _field(x, y):
+    return (0.10 * np.sin(0.15 * x) * np.cos(0.12 * y)
+            + 0.05 * np.sin(0.05 * x + 0.07 * y))
+
+
+def event_world(device, seed=7):
+    """The event tracker tests' scene (``test_torch_event_tracker.world``),
+    made with the port alone: 256 points on a 128x96 camera, a smooth event
+    frame and gradients that make a small pose and velocity the cost's
+    minimum. Returns (the identity tracker state, the frame, (cam, nc,
+    grad, idp, weights, mask))."""
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    from slam_eds_tpu_torch.utils.cameras import Pinhole
+    from slam_eds_tpu_torch.utils.lie import SE3
+    Wc, Hc = 128, 96
+    rng = np.random.default_rng(seed)
+    n = 256
+    uv = np.stack([rng.uniform(15, Wc - 15, n), rng.uniform(15, Hc - 15, n)],
+                  -1)
+    nc = np.stack([(uv[:, 0] - (Wc / 2 - 0.5)) / 110.0,
+                   (uv[:, 1] - (Hc / 2 - 0.5)) / 110.0], -1)
+    idp = rng.uniform(0.4, 0.7, n)
+    vx = np.array([0.3, 0.1, -0.2, 0.05, -0.03, 0.08])
+    vx /= np.linalg.norm(vx)
+    T = SE3.exp(torch.tensor([0.015, -0.01, 0.008, 0.003, 0.002, -0.004]))
+    R, t = T.R.double().numpy(), T.t.double().numpy()
+    z = 1.0 / (idp + 1e-5)
+    p = np.stack([nc[:, 0] * z, nc[:, 1] * z, z], -1) @ R.T + t
+    c = _field(110.0 * p[:, 0] / p[:, 2] + (Wc / 2 - 0.5),
+               110.0 * p[:, 1] / p[:, 2] + (Hc / 2 - 0.5))
+    cn = np.linalg.norm(c)
+    ys, xs = np.mgrid[0:Hc, 0:Wc]
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa
+                                    device=device)
+    flow = et.compute_flow(f32(nc), f32(vx), f32(idp)).double().cpu().numpy()
+    f2 = np.maximum(np.sum(flow * flow, -1), 1e-8)
+    grad = -(100.0 * (c / cn) / f2)[:, None] * flow
+    mask = np.ones(n, bool)
+    mask[::17] = False
+    cam = Pinhole(110.0, 110.0, Wc / 2 - 0.5, Hc / 2 - 0.5, Wc, Hc)
+    state = et.TrackerState(px=f32(np.zeros(3)), qx=f32([1.0, 0, 0, 0]),
+                            vx=f32(vx))
+    return state, f32(_field(xs, ys) / cn), (
+        cam, f32(nc), f32(grad), f32(idp),
+        f32(rng.uniform(0.5, 1.0, n)), torch.as_tensor(mask, device=device))
