@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``slam_eds_tpu_torch``) on one GPU.
 
 Builds the hand-written ``sm_90a`` kernels (the pattern sampler, the
-event raster, the LU substitution and the IF node's condition kernel)
+event raster, the LU substitution, and the conditional nodes' condition
+and pass-tail kernels)
 from ``slam_eds_tpu_torch/csrc``, one ``nvcc`` each, started together;
 holds each against its plain PyTorch version; runs the keyframe BA
 at the reference operating point, the frame-only path
@@ -14,19 +15,20 @@ must agree packet for packet. On the card the packet step (one program:
 the event frame, the first solve, the gate's retries as IF nodes, the tail
 once), the frame track, the BA call, the ``dso`` track and the keyframe
 programs run as captured CUDA graphs (``slam_eds_tpu_torch/graphs.py``)
-whose loops and retries branch on the device: every cell replays them
+whose loops (one WHILE node each) and retries (IF nodes) branch on the
+device: every cell replays them
 under ``torch.cuda.set_sync_debug_mode("error")`` (a hidden host read
 raises), and each captured program is held against the same function run
 eagerly on the card from the same inputs, its loops and retries masked
 (bitwise expected, else within ``CAPTURED_TOL``), the eager run under the
-same sync check. Launches under an IF node are counted as slots by the
-kernels' Python counters; the launches that ran are counted over the whole
+same sync check. Launches under a conditional node are counted as slots by
+the kernels' Python counters (a WHILE body's once per pass its cap
+allows); the launches that ran are counted over the whole
 frame cell and the event cell's last run (the main path of the kernels
 line, whose ``launches`` are those runs and ``launch_slots`` the counters)
-by ``graphs.launch_ledger`` (each IF node counts on the device the times
-its body ran), and over frames 4-6 of each also by the profiler, which may
-not count more (over whole runs of these graphs ``torch.profiler`` faulted
-the card). Phases, one output line each:
+by ``graphs.launch_ledger`` (each node counts on the device the times its
+body ran), and over frames 4-6 of each also by the profiler, which may
+not count more. Phases, one output line each:
 
 1. device   -- card name and power limit, torch/CUDA/driver versions,
                whether torch has a conditional-node API (the card's 2.11
@@ -38,15 +40,20 @@ the card). Phases, one output line each:
                csrc/host runtime, all started together (a failed host
                build is reported, and the runner then takes its
                pure-Python ring, reader and PNG path)
-2a. conditional -- the IF node: a captured ``graphs.while_loop`` bitwise
-               its eager masked run and ending at its stop (3 of 10, 7 of
-               a 50 cap, 10 of 10; its pass counter read back), a false
-               ``graphs.cond`` leaving its carry; the device time an IF
-               node adds to a live pass, a host ``if``'s; the loops' solve
-               (``utils.linalg.solve``) bitwise ``torch.linalg.solve_ex``
-               at every size and batch of the path, in float32 and
-               float64; the LU substitution kernel bitwise its plain
-               version (``torch.linalg.lu_solve``) and timed
+2a. conditional -- the conditional nodes: a captured
+               ``graphs.while_loop`` (one WHILE node, its pass captured
+               once) bitwise its eager masked run and ending at its stop
+               (at once, 3 of 10, 7 of a 50 cap, 10 of 10; its pass
+               counter read back), a WHILE node in an IF body on both
+               branches, a false ``graphs.cond`` leaving its carry; the
+               device time of a live pass split into the pass tail and the
+               node, of a loop that stops at once, of a kernel in a body,
+               a host ``if``'s; the loops' solve (``utils.linalg.solve``)
+               bitwise ``torch.linalg.solve_ex`` at every size and batch
+               of the path, in float32 and float64 (and within n eps of
+               backward error), timed against it at n = 6, 7, 8 and 12,
+               single and batched; the LU substitution kernel bitwise its
+               plain version (``torch.linalg.lu_solve``) and timed
 3. eds-first -- the event cell (phase 9) first in the process
 3a. batched -- ``eval.batched_event_solves`` at B=4 on the event cell's
                shapes and ``eval.batched_ba_windows`` at B=2 on phase 5's BA
@@ -88,7 +95,15 @@ the card). Phases, one output line each:
                bitwise that eager run (passes + 1, by the ledger and the
                profiler); the captured ``track_frame``, window BA and every
                keyframe program (the last inputs of each) against their
-               eager runs
+               eager runs; per program name its graph nodes, WHILE and IF
+               nodes and capture seconds
+6a. profiled-cell -- ``torch.profiler`` over one whole captured run of
+               the frame cell, in a process of its own (the second of two
+               pipelines there, its programs captured by the first): its
+               launches per kernel at most the ledger's (over a whole run
+               it kept fewer records than ran, so its busy time and idle
+               share are bounds); any failure of that process, a fault of
+               the card included, fails the smoke
 7. kernel-raster -- raster kernel vs ``rasterize_bilinear_reference`` on the
                largest packet of phase 9's sequence (65,536 capacity, time
                weights and mask applied), 65,536 random fractional events at
@@ -181,6 +196,16 @@ the card). Phases, one output line each:
                (both retries)
 10. history -- phases 3 and 9 agree: the same usable string and counts, and
                every usable packet's pose within 1e-6
+11. pass-tail -- the pass tail on the main path's carries: per kind of
+               loop that ran in phase 6 or 9 (the port's function that
+               called ``while_loop``, its carry's bytes and leaves; its
+               passes in each cell, which must sum to the pass tails run),
+               a 20-pass loop on a carry of those leaves whose pass is the
+               identity: the pass tail's device time per launch, the live
+               pass's, its plain version's and its bound (the kernels
+               line's row: their means weighted by the frame cell's
+               passes; its ``max_abs_err`` the largest gap of a captured
+               program with a WHILE node against its eager run)
 
 Then the kernels JSON line, the ``nvidia-smi`` name/power-limit line and, as
 the last line, ``{"ok": true, "device": {...}}``. Every failure raises, so
@@ -372,6 +397,10 @@ HOST_LOOP_READS_PER_PACKET = 52.5
 # order (the sampler and raster are bitwise deterministic, the rest are
 # library reductions)
 CAPTURED_TOL = 1e-5
+# the loops' solves: backward error (``relative_residual``) at most this
+# many times n eps, as LU with partial pivoting gives on the phase's
+# well-conditioned systems
+SOLVE_RESIDUAL_EPS = 1.0
 
 
 def no_sync(fn):
@@ -457,6 +486,11 @@ def contiguous(tree):
     return tree_map(lambda t: None if t is None else t.contiguous(), tree)
 
 
+# the gaps of every captured program with a WHILE node against its eager
+# run (the pass tail's ``max_abs_err`` in the kernels line)
+WHILE_GAPS = []
+
+
 def replay_against_eager(cache, run_captured, run_eager, label):
     """One captured program of ``cache`` replayed (called twice: the first
     call of a key is its warm-up) against the same function run eagerly
@@ -466,12 +500,15 @@ def replay_against_eager(cache, run_captured, run_eager, label):
     from slam_eds_tpu_torch import graphs
     run_captured()
     before = cache.replays()
+    progs = [(p, p.replays) for p in cache.programs.values()]
     with graphs.sync_check("error"):
         got = graphs.copy_out(run_captured())
     if cache.replays() != before + 1:
         fail(f"{label}: the captured program was not replayed")
     want = no_sync(run_eager)
     gap, bitwise = tree_gap(got, want)
+    if any(p.nodes["while"] for p, n in progs if p.replays > n):
+        WHILE_GAPS.append(gap)
     if not gap <= CAPTURED_TOL:
         fail(f"{label}: the captured program differs from the eager run by "
              f"{gap}")
@@ -506,13 +543,65 @@ def _delta(before, after):
     return graphs.ledger_delta(before, after)
 
 
+# the port's WHILE loops captured in this process: the kind of each node
+# (by device and number) and per kind its carry's leaves (shape, type) and
+# the index of its ``done`` leaf; the smoke's own loops are left out
+LOOP_OF_NODE = {}
+LOOP_KINDS = {}
+
+
+def record_loops():
+    """Note every WHILE loop the port captures from now on (wraps
+    ``graphs._end_pass``): its kind is the port's function that called
+    ``graphs.while_loop`` and the carry's bytes and leaves."""
+    from slam_eds_tpu_torch import graphs
+    end = graphs._end_pass
+
+    def noted(node, dst, src, counter, cap, done):
+        f = sys._getframe(1)
+        while f is not None and f.f_code.co_filename.endswith("graphs.py"):
+            f = f.f_back
+        path = "" if f is None else f.f_code.co_filename
+        if "slam_eds_tpu_torch" in path:
+            kind = (f"{path[path.rindex('slam_eds_tpu_torch'):]}:"
+                    f"{f.f_code.co_name}, "
+                    f"{sum(d.numel() * d.element_size() for d in dst)} B in "
+                    f"{len(dst)} leaves")
+            LOOP_KINDS[kind] = (
+                tuple((tuple(d.shape), d.dtype) for d in dst), done)
+            LOOP_OF_NODE[(node.dev, node.number)] = kind
+        return end(node, dst, src, counter, cap, done)
+    graphs._end_pass = noted
+
+
+def _taken():
+    """The conditional nodes' taken counts now, per device (a read)."""
+    from slam_eds_tpu_torch import graphs
+    return {dev: t[:len(graphs._NODE_SLOTS[dev])].tolist()
+            for dev, t in graphs._TAKEN.items()}
+
+
+def loop_passes(before, after):
+    """{loop kind: passes run} between two ``_taken`` snapshots."""
+    out = {}
+    for dev, counts in after.items():
+        was = before.get(dev, [])
+        for i, n in enumerate(counts):
+            kind = LOOP_OF_NODE.get((dev, i))
+            ran = n - (was[i] if i < len(was) else 0)
+            if kind is not None and ran:
+                out[kind] = out.get(kind, 0) + ran
+    return out
+
+
 class ProfiledRun:
     """Launches over a run and the device over a window of it. ``start()``
     and ``stop()`` bound the run: ``launches`` holds per kernel of the port
-    the launch slots (the kernels' counters: a kernel inside an IF node
-    counts whether its body ran or not) and the launches that ran
-    (``graphs.launch_ledger``: each IF node counts on the device the times
-    its body ran); more runs than slots fails. ``window_start()`` /
+    the launch slots (the kernels' counters: a kernel inside an IF body
+    counts whether its body ran or not, one in a WHILE body once per pass
+    its cap allows) and the launches that ran (``graphs.launch_ledger``:
+    each node counts on the device the times its body ran); more runs than
+    slots fails. ``window_start()`` /
     ``window_stop()`` bound a window under ``torch.profiler`` (CUDA
     activity): ``idle_share`` is 1 - busy / wall over it (None when no
     device time was recorded), ``window`` holds per kernel the launches run
@@ -529,6 +618,7 @@ class ProfiledRun:
 
     def start(self):
         self.l0 = _ledger()
+        self.taken0 = _taken()
 
     def window_start(self):
         from torch.profiler import ProfilerActivity, profile
@@ -558,6 +648,12 @@ class ProfiledRun:
 
     def stop(self):
         self.launches = _delta(self.l0, _ledger())
+        # the passes run per kind of loop: the pass tails that ran
+        loops = loop_passes(self.taken0, _taken())
+        if sum(loops.values()) != self.launches["pass_tail"]["run"]:
+            fail(f"the loops' passes {loops} are not the pass tails run "
+                 f"{self.launches['pass_tail']}")
+        self.launches["pass_tail"]["passes_by_loop"] = loops
         over = {k: v for k, v in self.launches.items()
                 if v["run"] > v["slots"]}
         if over:
@@ -587,7 +683,7 @@ def phase_device():
 
 def build_kernels():
     """The kernel libraries (the sampler, the raster, the LU substitution
-    and the IF node's condition kernel), one nvcc each, and the host
+    and the conditional nodes' kernels), one nvcc each, and the host
     runtime, all started together. Returns the build records and whether
     the host runtime built."""
     from slam_eds_tpu_torch import graphs
@@ -622,7 +718,8 @@ def phase_build_host(ok):
 KERNEL_NAMES = {"pattern_sample": "pattern_sample_kernel",
                 "rasterize_bilinear": "raster_cluster_kernel",
                 "lu_substitute": "lu_substitute",
-                "set_condition": "set_condition"}
+                "set_condition": "set_condition",
+                "pass_tail": "pass_tail"}
 
 
 def kernel_counts(stats):
@@ -636,23 +733,73 @@ def kernel_counts(stats):
     return out
 
 
+def kernel_us_in(fn, name, reps=50):
+    """Mean device us per launch of the port's kernel ``name`` (a key of
+    ``KERNEL_NAMES``) over ``reps`` calls of ``fn()`` under the profiler;
+    None where it kept no record of it."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = count = 0
+        for e in prof.key_averages():
+            if KERNEL_NAMES[name] in e.key and e.self_device_time_total > 0:
+                total += e.self_device_time_total
+                count += e.count
+        if count:
+            return total / count
+    return None
+
+
+# the loops' systems (size, batch, path): the coarse LM's 6 and 8, the BA
+# gauge's 7 (2 lanes in the batched BA), the event LM's 12 (4 lanes in the
+# batched event solves), the window BA's reduced 68 (F=8; two triangular
+# solves after torch's factorization, not the substitution kernel)
+SOLVE_SIZES = ((6, 1, "coarse LM, fixed affine"), (7, 1, "BA gauge"),
+               (7, 2, "BA gauge, lanes"), (8, 1, "coarse LM"),
+               (12, 1, "event LM"), (12, 4, "event LM, lanes"),
+               (68, 1, "window BA, F=8"), (68, 2, "window BA, lanes"))
+
+
+def relative_residual(A, x, b):
+    """||A x - b|| / (||A|| ||x|| + ||b||) per system, max norms, in
+    float64: the backward error of a solve."""
+    A, x, b = A.double(), x.double(), b.double()
+    r = (A @ x[..., None])[..., 0] - b
+    return (r.abs().amax(-1) / (A.abs().sum(-1).amax(-1) * x.abs().amax(-1)
+                                + b.abs().amax(-1)))
+
+
 def phase_conditional(dev):
-    """The IF node (``graphs``): a captured ``while_loop`` bitwise its
-    eager masked run and ending at its stop (its pass counter read back),
-    a false branch leaving its carry as it was and a true one running, a
-    chained loop 50 passes deep; the cost of an IF node on a live pass and
-    of a stop; the loops' small solves (``utils.linalg.solve``, which a
-    body holds: torch's factorization and the ``lu_solve`` kernel) bitwise
-    ``torch.linalg.solve_ex`` at their sizes, single and batched as the
-    path batches them, and the kernel against its plain version. Returns
-    the kernels-line entries of the LU substitution and the IF node."""
+    """The conditional nodes (``graphs``): a captured ``while_loop`` (one
+    WHILE node, its pass captured once and ended by the ``pass_tail``
+    kernel) bitwise its eager masked run and ending at its stop (its pass
+    counter read back), nested in an IF body on both branches, a false
+    ``graphs.cond`` leaving its carry; the cost of a live pass split into
+    the pass tail and the node, of a loop that stops at once, of a kernel
+    inside a body and of a host ``if``; the loops' solve
+    (``utils.linalg.solve``: torch's factorization and the ``lu_solve``
+    substitution kernel up to 32 unknowns) bitwise ``torch.linalg.solve_ex``
+    at every size and batch of the path in float32 and float64 (its
+    backward error at most n eps, ``SOLVE_RESIDUAL_EPS``), timed against
+    ``solve_ex`` at n = 6, 7, 8 and 12, single and batched as the path
+    batches them, and the substitution kernel against its plain version.
+    Returns the kernels-line entries of the substitution and the condition
+    kernel."""
     from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
     from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.utils.linalg import solve
     gen = torch.Generator().manual_seed(3)
     H12 = (torch.randn(12, 12, generator=gen) + 12 * torch.eye(12)).to(dev)
+    zero_i = torch.zeros((), dtype=torch.int32, device=dev)
 
     def loop(stop, cap, body=None):
+        """A masked loop as the LM loops are: ``stop`` passes run (none
+        where it is 0), each ``body`` (one add by default) under the mask."""
         def fn(x):
             def pass_(_, c):
                 v, it, done = c
@@ -661,16 +808,32 @@ def phase_conditional(dev):
                 it = it + active.to(torch.int32)
                 return v, it, done | (it >= stop)
             return graphs.while_loop(
-                lambda c: ~c[2], pass_,
-                (x["v"], torch.zeros((), dtype=torch.int32, device=dev),
-                 torch.zeros((), dtype=torch.bool, device=dev)), cap)
+                lambda c: c[2], pass_,
+                (x["v"], zero_i, torch.full((), stop <= 0, device=dev)), cap)
+        return fn
+
+    def bare(cap, k, stopped=False):
+        """``cap`` passes of ``k`` adds and nothing else (the pass counter
+        alone ends the loop), or none where ``stopped``."""
+        def fn(x):
+            def pass_(_, c):
+                v, done = c
+                if stopped:         # never runs, and would keep its carry
+                    return c
+                for _ in range(k):
+                    v = v + 1.0
+                return v, done
+            return graphs.while_loop(
+                lambda c: c[1], pass_,
+                (x["v"], torch.full((), stopped, device=dev)), cap)
         return fn
 
     def solve_body(v):
         return v + 1e-3 * solve(H12, v)
     cache = graphs.GraphCache()
     checks = {}
-    for name, stop, cap in (("stop_3_of_10", 3, 10), ("chain_7_of_50", 7, 50),
+    for name, stop, cap in (("stop_at_once_of_10", 0, 10),
+                            ("stop_3_of_10", 3, 10), ("stop_7_of_50", 7, 50),
                             ("cap_10_of_10", 99, 10)):
         fn = loop(stop, cap, solve_body)
         x = {"v": torch.randn(12, generator=gen).to(dev)}
@@ -678,9 +841,42 @@ def phase_conditional(dev):
             cache, lambda: cache.run(name, fn, x),
             lambda: fn(contiguous(x)), name)
         it = int(cache.run(name, fn, x)[1])
-        checks[name] = {"passes_run": it, "bitwise": bitwise}
-        if it != min(stop, cap) or not bitwise:
-            fail(f"{name}: {it} passes run, bitwise {bitwise}")
+        nodes = cache.programs[next(k for k in cache.programs
+                                    if k[0] == name)].nodes
+        checks[name] = {"passes_run": it, "bitwise": bitwise,
+                        "nodes": nodes}
+        if (it != min(stop, cap) or not bitwise or nodes["while"] != 1
+                or nodes["if"] != 0):
+            fail(f"{name}: {it} passes run, bitwise {bitwise}, nodes {nodes}")
+
+    # a WHILE node inside an IF body, as the event LM inside the gate's
+    # retries: both branches, the loop's passes run only where taken
+    inner = loop(4, 10, solve_body)
+
+    def nested(x):
+        def branch(c):
+            v, it, _ = inner({"v": c[0] * 2.0})
+            return v, c[1] + it
+        return graphs.cond(x["p"], branch, (x["v"], zero_i))
+    for taken in (True, False):
+        x = {"p": torch.full((), taken, device=dev),
+             "v": torch.randn(12, generator=gen).to(dev)}
+        name = f"while_in_if_{str(taken).lower()}"
+        cache.run(("nest", taken), nested, x)       # warm-up and capture
+        before = _ledger()
+        with graphs.sync_check("error"):
+            got = graphs.copy_out(cache.run(("nest", taken), nested, x))
+        tails = _delta(before, _ledger())["pass_tail"]
+        # the eager run: a host ``if`` on the predicate, the loop masked
+        gap, bitwise = tree_gap(got, nested(contiguous(x)))
+        WHILE_GAPS.append(gap)
+        passes = int(got[1])
+        checks[name] = {"passes_run": passes, "bitwise": bitwise,
+                        "pass_tail_launches": tails}
+        want = 4 if taken else 0
+        if (not bitwise or passes != want
+                or tails != {"slots": 10, "run": want}):
+            fail(f"{name}: {passes} passes, pass tails {tails}")
 
     def branch(x):
         return graphs.cond(x["p"], lambda c: (c[0] + 1.0, c[1] * 2.0),
@@ -696,36 +892,43 @@ def phase_conditional(dev):
             fail(f"an IF node on {taken} did not give its branch's result")
     checks["if_false_leaves_the_carry"] = True
 
-    # the cost of a node: a live pass under an IF node against the same
-    # pass captured without one, and a loop that stops at once; and the
-    # cost of a kernel inside a body: passes of 32 kernels against 32
-    # kernels a pass captured without nodes
+    # the costs (device time per replay, CUDA events): a live pass of one
+    # add (the node's relaunch of its body and the pass tail) against the
+    # same add captured without a node; the pass tail's own device time
+    # (the profiler) and so the node's; a loop that stops at once against
+    # a graph of one add; a kernel inside a body (passes of 32 adds against
+    # 32 adds a pass captured without nodes); the masked LM-like pass as
+    # the flat IF form was timed (21.6 us a live pass on an H100)
     n, m = 20, 32
 
-    def adds(k):
-        def body(v):
+    def plain(k):
+        def fn(x):
+            v = x["v"]
             for _ in range(k):
                 v = v + 1.0
             return v
-        return body
-
-    def plain(k):
-        return lambda x: adds(n * k)(x["v"])
+        return fn
     x = {"v": torch.zeros((), device=dev)}
-    timing = {}
-    for name, fn in (("plain", plain(1)), ("if_live", loop(99, n)),
-                     ("if_stop_after_one", loop(0, n)),
-                     (f"plain_{m}", plain(m)),
-                     (f"if_live_{m}", loop(99, n, adds(m)))):
+    timing, progs = {}, {}
+    for name, fn in (("plain", plain(n)), ("while_live", bare(n, 1)),
+                     ("while_stop_at_once", bare(n, 1, stopped=True)),
+                     ("one_add", plain(1)), (f"plain_{m}", plain(n * m)),
+                     (f"while_live_{m}", bare(n, m)),
+                     ("while_live_masked", loop(99, n))):
         c = graphs.GraphCache()
         c.run(name, fn, x)
-        timing[name] = cuda_time_ms(lambda: c.run(name, fn, x), 200)
-    if_us = 1e3 * (timing["if_live"] - timing["plain"]) / n
-    body_kernel_us = 1e3 * ((timing[f"if_live_{m}"] - timing[f"plain_{m}"])
-                            - (timing["if_live"] - timing["plain"])) \
+        progs[name] = lambda c=c, name=name, fn=fn: c.run(name, fn, x)
+        timing[name] = cuda_time_ms(progs[name], 200)
+    live_us = 1e3 * (timing["while_live"] - timing["plain"]) / n
+    tail_us = kernel_us_in(progs["while_live"], "pass_tail")
+    start_us = kernel_us_in(progs["while_stop_at_once"], "set_condition")
+    stop_us = 1e3 * (timing["while_stop_at_once"] - timing["one_add"])
+    masked_us = 1e3 * (timing["while_live_masked"] - timing["plain"]) / n
+    body_kernel_us = 1e3 * ((timing[f"while_live_{m}"] - timing[f"plain_{m}"])
+                            - (timing["while_live"] - timing["plain"])) \
         / (n * (m - 1))
-    # the IF node's plain version: a host ``if`` on the device bool, one
-    # read (host microseconds)
+    # the condition kernel's plain version: a host ``if`` on the device
+    # bool, one read (host microseconds)
     pred = torch.ones((), dtype=torch.bool, device=dev)
     bool(pred)
     t0 = time.perf_counter()
@@ -734,16 +937,11 @@ def phase_conditional(dev):
     host_if_us = (time.perf_counter() - t0) * 1e3
 
     # the loops' solves against torch.linalg.solve_ex: bitwise at every
-    # size and batch of the path (the coarse LM 6 and 8, the BA's gauge 7
-    # and reduced 68, the event LM 12; the batched surface's lanes), which
-    # keeps the results of the loops before they could skip a pass
-    solves, entry = {}, None
-    for n_, batch, what in ((6, 1, "coarse LM, fixed affine"),
-                            (7, 1, "BA gauge"), (7, 2, "BA gauge, lanes"),
-                            (8, 1, "coarse LM"), (12, 1, "event LM"),
-                            (12, 4, "event LM, lanes"),
-                            (68, 1, "window BA, F=8"),
-                            (68, 2, "window BA, lanes")):
+    # size and batch of the path, in float32 and float64, which keeps the
+    # results of the loops before they could skip a pass (each also within
+    # n eps of backward error)
+    solves = {}
+    for n_, batch, what in SOLVE_SIZES:
         for dt in (torch.float32, torch.float64):
             G = torch.randn(batch, n_, n_, generator=gen,
                             dtype=torch.float64)
@@ -756,47 +954,154 @@ def phase_conditional(dev):
             x_s = solve(A, b)
             x_p = torch.linalg.solve_ex(A, b[..., None],
                                         check_errors=False)[0][..., 0]
+            res = float(relative_residual(A, x_s, b).max())
             name = f"{n_}x{batch}_{str(dt)[6:]}"
             solves[name] = {"path": what, "bitwise": bool(
                 torch.equal(x_s, x_p)),
-                "max_abs_err": float((x_s - x_p).abs().max())}
-            if not solves[name]["bitwise"]:
+                "max_abs_err": float((x_s - x_p).abs().max()),
+                "residual": res}
+            if not (solves[name]["bitwise"]
+                    and res <= SOLVE_RESIDUAL_EPS * n_ * torch.finfo(dt).eps):
                 fail(f"the loops' solve at {name} is not torch's: "
                      f"{solves[name]}")
-    # the kernel against its plain version (torch.linalg.lu_solve, also
-    # the library call) at the event LM's shape, with its times
-    G = torch.randn(12, 12, generator=gen, dtype=torch.float64)
-    A = (G @ G.T / 12 + torch.eye(12, dtype=torch.float64)).float().to(dev)
-    b = torch.randn(12, generator=gen).to(dev)
-    LU, piv, _ = torch.linalg.lu_factor_ex(A)
-    x_k = lu.lu_substitute_cuda(LU, piv, b)
-    x_p = lu.lu_substitute_reference(LU, piv, b)
-    err = float((x_k - x_p).abs().max())
-    if not torch.equal(x_k, x_p):
-        fail(f"the LU substitution kernel differs from lu_solve by {err}")
-    k_us = device_us(lambda: lu.lu_substitute_cuda(LU, piv, b))
-    p_us = device_us(lambda: lu.lu_substitute_reference(LU, piv, b))
-    entry = kernel_entry(
-        err, k_us, p_us,
-        cuda_time_ms(lambda: lu.lu_substitute_cuda(LU, piv, b), 200),
-        cuda_time_ms(lambda: lu.lu_substitute_reference(LU, piv, b), 200),
-        roofline(4 * (12 * 12 + 3 * 12), 2 * 12 * 12, k_us), p_us)
+    # the whole solve (torch's factorization and the substitution kernel)
+    # against solve_ex (its library call) at the loops' sizes, single and
+    # batched as the path batches them, device time per call; and the
+    # kernel against its plain version (torch.linalg.lu_solve) at the event
+    # LM's shape, with its times
+    solve_us = {}
+    for n_, batch in ((6, 1), (7, 1), (7, 2), (8, 1), (12, 1), (12, 4)):
+        G = torch.randn(batch, n_, n_, generator=gen, dtype=torch.float64)
+        A = (G @ G.transpose(-1, -2) / n_
+             + torch.eye(n_, dtype=torch.float64)).float().to(dev)
+        b = torch.randn(batch, n_, generator=gen).to(dev)
+        if batch == 1:
+            A, b = A[0], b[0]
+        solve_us[f"{n_}x{batch}"] = {
+            "factor_and_substitute": device_us(lambda: solve(A, b)),
+            "solve_ex": device_us(lambda: torch.linalg.solve_ex(
+                A, b[..., None], check_errors=False))}
+        if (n_, batch) != (12, 1):
+            continue
+        LU, piv, _ = torch.linalg.lu_factor_ex(A)
+        x_k = lu.lu_substitute_cuda(LU, piv, b)
+        x_p = lu.lu_substitute_reference(LU, piv, b)
+        err = float((x_k - x_p).abs().max())
+        if not torch.equal(x_k, x_p):
+            fail(f"the LU substitution kernel differs from lu_solve by {err}")
+        k_us = device_us(lambda: lu.lu_substitute_cuda(LU, piv, b))
+        p_us = device_us(lambda: lu.lu_substitute_reference(LU, piv, b))
+        # bytes: the factors, pivots and b in, x out; operations: n^2 FMAs
+        entry = kernel_entry(
+            err, k_us, p_us,
+            cuda_time_ms(lambda: lu.lu_substitute_cuda(LU, piv, b), 200),
+            cuda_time_ms(lambda: lu.lu_substitute_reference(LU, piv, b), 200),
+            roofline(4 * (n_ * n_ + 3 * n_), 2 * n_ * n_, k_us), p_us)
     phase("conditional", checks=checks, timing_ms=timing,
-          if_node_us_per_live_pass=if_us, host_if_us=host_if_us,
-          us_added_per_kernel_in_a_body=body_kernel_us,
-          solves=solves)
-    if_roof = roofline(1, 0, if_us)
-    return {"lu_substitute": {**entry, "solves": solves},
+          while_us_per_live_pass=live_us, pass_tail_us=tail_us,
+          while_node_us_per_live_pass=None if tail_us is None
+          else live_us - tail_us,
+          while_us_stop_at_once=stop_us, set_condition_us=start_us,
+          while_us_per_live_masked_pass=masked_us, host_if_us=host_if_us,
+          us_added_per_kernel_in_a_body=body_kernel_us, solves=solves,
+          solve_device_us=solve_us)
+    cond_roof = roofline(9, 0, start_us or stop_us)
+    return {"lu_substitute": {**entry, "solves": solves,
+                              "solve_device_us": solve_us},
             "set_condition": {
-                "max_abs_err": 0.0, "ms": if_us * 1e-3,
+                "max_abs_err": 0.0,
+                "ms": None if start_us is None else start_us * 1e-3,
                 "plain_ms": host_if_us * 1e-3,
-                "bound_ms": if_roof["bound_ms"],
-                "bound_by": if_roof["bound_by"], "library_ms": None,
-                "checks": checks, "timing_ms": timing,
-                "note": "ms: the added device time of an IF node on a live "
-                        "pass (condition kernel and node); plain_ms: a "
-                        "host if, one read of the device bool (host "
-                        "time)"}}
+                "bound_ms": cond_roof["bound_ms"],
+                "bound_by": cond_roof["bound_by"], "library_ms": None,
+                "checks": checks,
+                "note": "ms: the condition kernel's device time (an IF "
+                        "node's condition, a WHILE node's start); "
+                        "plain_ms: a host if, one read of the device bool "
+                        "(host time)"}}
+
+
+PASS_TAIL_PASSES = 20
+
+
+def phase_pass_tail(dev, cells):
+    """The pass tail on the main path's carries. ``cells`` gives per cell
+    (the frame cell, the event cell's last run) the passes run per kind of
+    loop (``ProfiledRun``). For each kind, a captured loop of
+    ``PASS_TAIL_PASSES`` passes whose pass is the identity on a carry of
+    that kind's leaves (zeros, the ``done`` leaf false), so every pass is
+    the node's relaunch and the pass tail writing that carry back: the
+    pass tail's device time per launch (the profiler; where it kept no
+    record, the live pass by CUDA events, the node's relaunch included),
+    its plain version's (the same carry's copies in one ``_foreach_copy_``,
+    the index's add and the predicate, eagerly) and its bound (each carry
+    byte read and written, the 24-byte records read, the index read and
+    written, the flag read, ``taken`` read and written). The kernels line's
+    numbers are their means weighted by the frame cell's passes (the main
+    path), beside the event cell's; ``max_abs_err`` is the largest gap of a
+    captured program with a WHILE node against its eager run
+    (``WHILE_GAPS``)."""
+    from slam_eds_tpu_torch import graphs
+    n = PASS_TAIL_PASSES
+    kinds = {}
+    for kind in sorted(set().union(*cells.values())):
+        leaves, j = LOOP_KINDS[kind]
+
+        def carry(done=False, leaves=leaves, j=j):
+            return tuple(torch.full(shape, done and i == j, dtype=dt,
+                                    device=dev)
+                         for i, (shape, dt) in enumerate(leaves))
+
+        def fn(x, j=j):
+            return graphs.while_loop(lambda c: c[j], lambda it, c: c,
+                                     x["carry"], n)
+        # the loop of n live passes and the same loop stopped at once
+        progs, times = {}, {}
+        for stopped in (False, True):
+            cache, x = graphs.GraphCache(), {"carry": carry(stopped)}
+            cache.run(kind, fn, x)
+            progs[stopped] = lambda c=cache, x=x: c.run(kind, fn, x)
+            times[stopped] = cuda_time_ms(progs[stopped], 100)
+        us = kernel_us_in(progs[False], "pass_tail", reps=20)
+        live_us = 1e3 * (times[False] - times[True]) / n
+        dst, src = carry(), carry()
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def plain(dst=dst, src=src, j=j):
+            torch._foreach_copy_(list(dst), list(src))
+            it.add_(1)
+            return ~src[j] & (it < n)
+        nbytes = (2 * sum(t.numel() * t.element_size() for t in dst)
+                  + 24 * len(dst) + 8 + 1 + 16)
+        roof = roofline(nbytes, 0, us or live_us)
+        kinds[kind] = {"us": us if us is not None else live_us,
+                       "us_source": "profiler" if us is not None
+                       else "live pass, CUDA events",
+                       "live_pass_us": live_us, "plain_us": device_us(plain),
+                       "bound_us": roof["bound_us"], "bytes": nbytes,
+                       **{f"passes_{c}": p.get(kind, 0)
+                          for c, p in cells.items()}}
+
+    def mean(key, cell):
+        w = sum(r[f"passes_{cell}"] for r in kinds.values())
+        return sum(r[key] * r[f"passes_{cell}"] for r in kinds.values()) \
+            / w if w else None
+    phase("pass-tail", passes_timed=n, kinds=kinds)
+    if not WHILE_GAPS or not all(cells.values()):
+        fail(f"no captured WHILE loop was held against its eager run, or a "
+             f"cell ran no loop: {len(WHILE_GAPS)} gaps, {cells}")
+    ms = {c: {k: mean(k, c) * 1e-3 for k in ("us", "plain_us", "bound_us")}
+          for c in cells}
+    main = ms["frame_cell"]
+    return {"max_abs_err": max(WHILE_GAPS), "ms": main["us"],
+            "plain_ms": main["plain_us"], "bound_ms": main["bound_us"],
+            "bound_by": "bytes", "library_ms": None,
+            "event_cell": ms["event_cell"], "by_loop": kinds,
+            "note": "ms, plain_ms, bound_ms: per launch, the loops' kinds "
+                    "weighted by their passes in the frame cell (by_loop; "
+                    "event_cell: by the event cell's); max_abs_err: the "
+                    "largest gap of a captured program with a WHILE node "
+                    "against its eager run"}
 
 
 def bound(nbytes, ops):
@@ -1141,10 +1446,8 @@ def phase_pipeline(dev):
 
     from slam_eds_tpu_torch.ops.coarse_tracker import CUTOFF_DOUBLINGS
     from slam_eds_tpu_torch.ops.kernels.lu_solve import lu_substitute
-    pattern_sample.launches = 0
-    rasterize_bilinear.launches = 0
-    lu_substitute.launches = 0
-    graphs.set_condition.launches = 0
+    for k in graphs.COUNTED:
+        k.launches = 0
     walls, syncs, passes = [], [], []
     window = ProfiledRun()
     rec = WindowPrograms()
@@ -1177,7 +1480,7 @@ def phase_pipeline(dev):
     launches = window.launches
     if any(launches[k.__name__]["slots"] != k.launches for k in (
             pattern_sample, rasterize_bilinear, lu_substitute,
-            graphs.set_condition)):
+            graphs.set_condition, graphs.pass_tail)):
         fail(f"the ledger's slots are not the counters: {launches}")
     captured = frame_captured_checks(pipe, frames[-1][1], rec.programs)
     ba_rows, early_tol = ba_pass_checks(rec.ba_calls)
@@ -1218,6 +1521,7 @@ def phase_pipeline(dev):
           ba_passes_slots_sampler_launches=ba_rows,
           ba_early_break_tol=early_tol,
           graph_capture_s=graphs.CACHE.capture_s,
+          graph_programs=graphs.CACHE.table(),
           captured_vs_eager=captured)
     if not pipe._initialized or win.next_id < 2:
         fail("the pipeline did not bootstrap")
@@ -1225,8 +1529,8 @@ def phase_pipeline(dev):
         fail("no BA run or no frame marginalized")
     if counters.get("full_resets", 0) != 0:
         fail("the pipeline fell back to a full reset")
-    idle = [k for k in ("pattern_sample", "lu_substitute", "set_condition")
-            if launches[k]["run"] <= 0]
+    idle = [k for k in ("pattern_sample", "lu_substitute", "set_condition",
+                        "pass_tail") if launches[k]["run"] <= 0]
     if idle:
         fail(f"the frame path ran no launch of {idle} (profiler)")
     if len(est) != PIPE_FRAMES or not np.isfinite(est).all():
@@ -1352,6 +1656,83 @@ def _compare_raster(rz, xs, ys, vals, H, W, f64):
     return err, bound
 
 
+def phase_profiled_cell(dev):
+    """``torch.profiler`` over one whole captured run of the frame cell: a
+    second ``FrameOnlyPipeline`` over phase 6's sequence, its programs
+    captured already (the first run's, or one run first when this process
+    has none), every frame under one profiler session (over a whole run of
+    the flat IF form it faulted the card). The profiler's launches per
+    kernel against the ledger's over the same run: it may not count more
+    (a launch it saw that the ledger did not is a fault of the ledger); it
+    counts fewer where it drops records, so its busy time and idle share
+    are bounds. The profiler's own seconds. Run in a process of its own by
+    ``profiled_cell_process``."""
+    from torch.profiler import ProfilerActivity, profile
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.config import EDSConfig
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.models.pipeline import FrameOnlyPipeline
+
+    cam = smoke_camera()
+    seq = SyntheticSequence(cam, num_frames=PIPE_FRAMES, motion_scale=0.22,
+                            micro_steps=2, device=dev)
+    frames = [seq.frame(k)[:2] for k in range(PIPE_FRAMES)]
+
+    def run():
+        pipe = FrameOnlyPipeline(cam, EDSConfig(), device=dev)
+        for t, img in frames:
+            pipe.process_frame(img, t)
+        torch.cuda.synchronize()
+        return pipe
+    programs = len(graphs.CACHE.programs)
+    if not programs:
+        run()
+    programs = len(graphs.CACHE.programs)
+    before = _ledger()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pipe = run()
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    stats = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in stats) / 1e6
+    seen = kernel_counts(stats)
+    ledger = _delta(before, _ledger())
+    counts = {k: {"profiler": seen[k], **ledger[k]} for k in seen}
+    phase("profiled-cell", frames=PIPE_FRAMES, launches=counts,
+          new_programs=len(graphs.CACHE.programs) - programs,
+          wall_s=wall, device_busy_s_profiler=busy,
+          device_idle_share_profiler=1.0 - busy / wall,
+          profile_s=time.perf_counter() - t1,
+          keyframes=pipe.window.next_id,
+          full_resets=pipe.telemetry.counters.get("full_resets", 0))
+    if any(v["profiler"] > v["run"] for v in counts.values()):
+        fail(f"the profiler saw more launches than the ledger over the "
+             f"whole frame cell: {counts}")
+    return counts
+
+
+def profiled_cell_process():
+    """``phase_profiled_cell`` in a process of its own (this script with
+    ``--profiled-cell``; it loads the kernels this process built), fresh as
+    the cell's first run is. Prints its phase line; any failure of the
+    child, a fault of the card included, fails here. (In the process that
+    had run the other phases, ``torch.profiler`` over the whole cell once
+    faulted the card, an illegal address on an NVIDIA H100 80GB HBM3 with
+    torch 2.11+cu128; whose fault that was is not shown.)"""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--profiled-cell"], capture_output=True,
+                          text=True, timeout=600)
+    lines = [l for l in proc.stdout.splitlines()
+             if l.startswith('{"phase": "profiled-cell"')]
+    if proc.returncode != 0 or not lines:
+        err = [l for l in (proc.stdout + proc.stderr).splitlines()
+               if l.strip()][-12:]
+        fail(f"the profiled frame cell failed (exit {proc.returncode}): "
+             f"{err}")
+    print(lines[-1], flush=True)
+
+
 def phase_kernel_raster(dev):
     from slam_eds_tpu_torch.ops.kernels import rasterize as rz
     cases = raster_cases(dev, eds_inputs(dev)[3])
@@ -1404,7 +1785,7 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
     """Frames [start, stop) of the event cell's sequence (to its end when
     ``stop`` is None), each followed by
     its packet, through ``pipe`` (a new ``EDSPipeline(cfg)`` when None), with
-    both kernels' launch counts set to 0 just before and read just after.
+    every kernel's launch count set to 0 just before and read just after.
     ``after_packet(pipe, T)`` is called after every packet; a
     ``ProfiledRun`` given as ``window`` counts the run's launches, and
     profiles frames PIPE_WARMUP to PIPE_WARMUP + PROFILE_FRAMES with their
@@ -1426,8 +1807,8 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
     torch.cuda.synchronize()
 
     warm0 = dict(graphs.CACHE.warmups)
-    pattern_sample.launches = 0
-    rasterize_bilinear.launches = 0
+    for k in graphs.COUNTED:
+        k.launches = 0
     frame_s, packet_s, frame_syncs, packet_syncs = [], [], [], []
     ev_pos, ev_gt, usable, poses = [], [], [], []
     c = pipe.telemetry.counters
@@ -1622,6 +2003,7 @@ def sampler_runs(replay, want, expected, label):
             torch.cuda.synchronize()
         ran = _delta(before, _ledger())["pattern_sample"]["run"]
         gap, bitwise = tree_gap(got, want)
+        WHILE_GAPS.append(gap)
         if not bitwise:
             fail(f"{label}: a profiled replay differs from the eager run by "
                  f"{gap}")
@@ -1728,6 +2110,7 @@ def phase_eds(dev, label="eds", profiled=True):
           captured_vs_eager=captured, graph_programs=len(
               graphs.CACHE.programs), graph_replays=graphs.CACHE.replays(),
           graph_capture_s=graphs.CACHE.capture_s,
+          graph_program_table=graphs.CACHE.table(),
           event_counters=dict(c), frame_counters=dict(fc),
           n_valid=[int(p.n_valid) for p in packets])
     if not fp._initialized or fp.window.next_id < 2:
@@ -2557,6 +2940,29 @@ def cpu_event_lane_gaps(states, efs, cam, pts, loss_scale, caps):
     return out
 
 
+def event_lanes(eds, B):
+    """The batched event lanes of a finished event-cell run ``eds`` (a
+    ``phase_eds`` or ``run_event_cell`` result): its tracker state B times,
+    the finest event frames of its last B packets against its last
+    keyframe, the keyframe's point tensors, and the LM caps."""
+    from slam_eds_tpu_torch.models import pipeline as pl
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    pipe, packets = eds["pipe"], eds["packets"]
+    kf = pipe.kf
+    lim, iters, statics = pipe._packet_step_args()
+    head_kw = {k: statics[k] for k in pl.HEAD_STATICS}
+    efs = []
+    for k in range(len(packets) - B, len(packets)):
+        x = pipe.packet_inputs(packets[k])
+        efs.append(pl._event_packet_head(
+            x["xs"], x["ys"], x["ts"], x["ps"], x["n_valid"], None,
+            kf.idepth, kf.mask, lim, **head_kw)[0][0])
+    pts = (kf.norm_coord, kf.grad, kf.idepth, kf.weight, kf.mask)
+    states = et.TrackerState(*(torch.stack([f] * B)
+                               for f in pipe.tracker_state))
+    return states, torch.stack(efs), pts, iters
+
+
 def phase_batched(dev, eds):
     """The batched solver surface: ``batched_event_solves`` at B=4 on the
     event cell's shapes (its last keyframe, the finest event frames of four
@@ -2591,25 +2997,13 @@ def phase_batched(dev, eds):
     then the lane-axis sampler on the BA lanes' taps and planes. Times: the
     batched call against the B single calls."""
     from slam_eds_tpu_torch import eval as ev
-    from slam_eds_tpu_torch.models import pipeline as pl
     from slam_eds_tpu_torch.ops import energy
     from slam_eds_tpu_torch.ops import event_tracker as et
     from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
-    pipe, packets = eds["pipe"], eds["packets"]
-    cam, kf, cfg = pipe.cam, pipe.kf, pipe.cfg
-    lim, iters, statics = pipe._packet_step_args()
-    head_kw = {k: statics[k] for k in pl.HEAD_STATICS}
+    pipe = eds["pipe"]
+    cam, cfg = pipe.cam, pipe.cfg
     B = 4
-    efs = []
-    for k in range(len(packets) - B, len(packets)):
-        x = pipe.packet_inputs(packets[k])
-        efs.append(pl._event_packet_head(
-            x["xs"], x["ys"], x["ts"], x["ps"], x["n_valid"], None,
-            kf.idepth, kf.mask, lim, **head_kw)[0][0])
-    efs = torch.stack(efs)
-    pts = (kf.norm_coord, kf.grad, kf.idepth, kf.weight, kf.mask)
-    states = et.TrackerState(*(torch.stack([f] * B)
-                               for f in pipe.tracker_state))
+    states, efs, pts, iters = event_lanes(eds, B)
 
     def batched_ev(cap):
         return ev.batched_event_solves(
@@ -2747,6 +3141,7 @@ def phase_history(first, last):
 @torch.inference_mode()
 def main():
     dev = phase_device()
+    record_loops()
     built = build_kernels()
     phase_build("build", built["pattern_sample"])
     phase_build("build-raster", built["rasterize"])
@@ -2759,6 +3154,7 @@ def main():
     kern = phase_kernel(dev)
     phase_ba(dev)
     frame_launches = phase_pipeline(dev)
+    profiled_cell_process()
     raster = phase_kernel_raster(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         runner_launches, dataset_dir = phase_runner(dev, tmp)
@@ -2772,6 +3168,9 @@ def main():
     last = phase_eds(dev)
     phase_history(first, last)
     frame, event = frame_launches, last["profiled"]
+    tail = phase_pass_tail(dev, {
+        "frame_cell": frame["pass_tail"]["passes_by_loop"],
+        "event_cell": event["pass_tail"]["passes_by_loop"]})
     cells = {"runner": runner_launches, "refine_cell": refine_launches,
              "boot_dso": dso_launches, "boot_midas": midas_launches,
              "resume": resume_launches, "eval": eval_launches}
@@ -2810,15 +3209,20 @@ def main():
          "source": "slam_eds_tpu_torch/csrc/lu_solve.cu",
          "replaces": "slam_eds_tpu/ops/event_tracker.py:273 (jnp.linalg."
                      "solve under XLA, no TPU kernel; also coarse_tracker."
-                     "py:329, :333, energy.py:439)",
+                     "py:329, :333, energy.py:522)",
          **counts("lu_substitute", frame), **cond["lu_substitute"]},
         {"name": "set_condition", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/graph_cond.cu",
+         "replaces": "slam_eds_tpu/models/pipeline.py:127-139 (lax.cond's "
+                     "device branches, and the start of each lax.while_loop"
+                     ", no TPU kernel)",
+         **counts("set_condition", frame), **cond["set_condition"]},
+        {"name": "pass_tail", "route": "cuda",
+         "source": "slam_eds_tpu_torch/csrc/graph_cond.cu",
          "replaces": "slam_eds_tpu/ops/event_tracker.py:290 (lax.while_loop"
-                     "'s and lax.cond's device branches, no TPU kernel; "
-                     "also coarse_tracker.py:314, :386, energy.py:613, "
-                     "models/pipeline.py:127-139)",
-         **counts("set_condition", frame), **cond["set_condition"]}]}))
+                     "'s pass on the device, no TPU kernel; also "
+                     "coarse_tracker.py:314, :386, energy.py:613)",
+         **counts("pass_tail", frame), **tail}]}))
     print(gpu_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2826,4 +3230,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--profiled-cell"]:
+        phase_profiled_cell(phase_device())
+    else:
+        main()

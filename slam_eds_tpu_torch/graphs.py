@@ -31,11 +31,11 @@ graph instead of the host launching every operation.
 * The kernel wrappers count launches in Python, which a replay does not
   run: the cache notes each kernel's launch slots during the capture (and
   takes them back off, the capture launched nothing) and adds them again on
-  every replay. Outside a branch a slot is a launch on the card; inside one
-  (see below) it is a launch that runs only where the branch is taken, so
-  the counts are an upper bound of the launches run; ``launch_ledger()``
-  gives both, the launches run from counts the IF nodes keep on the
-  device. The warm-up's launches
+  every replay. Outside a branch a slot is a launch on the card; inside
+  one (see below) it is a launch that runs only where the branch is taken
+  or the loop's pass runs, so the counts are an upper bound of the
+  launches run; ``launch_ledger()`` gives both, the launches run from
+  counts the conditional nodes keep on the device. The warm-up's launches
   are real and counted too; ``GraphCache.warmups`` keeps their running
   total per kernel, for a caller that counts launches per step.
 * ``sync_check(mode)`` runs every input copy and replay under
@@ -48,40 +48,42 @@ replay failure raises; nothing falls back to the eager loop.
 On the CPU nothing is captured: the callers run their functions eagerly
 (``GraphCache.run`` needs CUDA tensors).
 
-Branches on the device (``while_loop``, ``cond``): where JAX keeps a
-``lax.while_loop``'s early exit or a ``lax.cond`` on the device, a captured
-program holds an IF node of the CUDA graph (``csrc/graph_cond.cu``, built
-with nvcc at first use): a one-thread kernel sets the node's condition from
-a device ``bool``, and the node's body runs only where it held. The same
-Python code runs everywhere:
+Branches and loops on the device (``while_loop``, ``cond``): where JAX
+keeps a ``lax.while_loop`` or a ``lax.cond`` on the device, a captured
+program holds a conditional node of the CUDA graph (``csrc/graph_cond.cu``,
+built with nvcc at first use). The same Python code runs everywhere:
 
-* ``while_loop(cond_fn, body_fn, carry, n)`` runs ``n`` passes of a loop
-  whose body masks itself (a pass where ``cond_fn`` is false returns its
-  carry). Eagerly (the CPU, ``capture=False``, ``torch.vmap``) every pass
-  runs, masked; while a graph is captured, every pass is an IF node on its
-  condition, so the passes after the stop do no work on the device, as
-  ``lax.while_loop`` runs none. The two forms give the same bits, because
-  a pass after the stop is the identity on the carry.
+* ``while_loop(done_fn, body_fn, carry, n)`` runs at most ``n`` passes of a
+  loop whose body masks itself (a pass whose carry is done returns it).
+  Eagerly (the CPU, ``capture=False``, ``torch.vmap``) every pass runs,
+  masked; while a graph is captured, the loop is one WHILE node whose body
+  is the pass, captured once and ended by the ``pass_tail`` kernel (it
+  writes the carry back, advances the pass index and sets the node's
+  condition from the carry's ``done`` flag and the cap), so the passes
+  after the stop do not run, as ``lax.while_loop`` runs none. The two forms
+  give the same bits, because a pass after the stop is the identity on the
+  carry. The pass index is a device int32 scalar in both.
 * ``cond(pred, body_fn, carry)`` runs ``body_fn`` only where ``pred`` holds:
   eagerly a host ``if`` (one read of ``pred``), while capturing an IF node.
 
-A body writes its results into the carry's buffers (one multi-tensor copy
-kernel per type), which are allocated before its node (the carry is cloned when a loop or branch
-starts), so a skipped body leaves them as they were; nothing a body
-allocates is read after it. Its allocations come from a memory pool that
-only bodies use. The launch counters count launch *slots* under a branch:
-a captured kernel in a body counts on every replay whether the body ran or
-not (``CapturedProgram.launches``). Each node's condition kernel also
-counts, on the device, the times its body ran, and ``launch_ledger()``
-turns these counts and the slots captured in each body into the launches
-that ran (``torch.profiler``, which could count them too, faults on the
-card over long runs of these graphs).
+A body's results go into the carry's buffers, which are allocated before
+its node (the carry is cloned when a loop or branch starts), so a skipped
+body leaves them as they were; nothing a body allocates is read after it.
+Its allocations come from a memory pool that only bodies use. The launch
+counters count launch *slots*: a captured kernel in an IF body counts one
+on every replay whether the body ran or not, one in a WHILE body ``n``
+(a slot per pass the cap allows) (``CapturedProgram.launches``). Each node
+also counts on the device the times its body ran (the IF node's condition
+kernel, the WHILE body's ``pass_tail``), and ``launch_ledger()`` turns
+these counts and the slots captured in each body into the launches that
+ran.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import time
+import weakref
 
 import torch
 from torch.utils import _pytree as pytree
@@ -92,26 +94,53 @@ from .ops.kernels.lu_solve import lu_substitute
 from .ops.kernels.rasterize import rasterize_bilinear
 
 _COND_LIB = None
+IF, WHILE = 0, 1
 
 
-def set_condition(parent, body, pred, taken):
-    """Add an IF node on the bool ``pred`` to the graph ``parent`` (a
-    stream) captures, after a launch of the condition kernel, which adds
-    one to the int64 ``taken`` where ``pred`` holds, and start capturing
-    ``body`` into the node's body (``csrc/graph_cond.cu``).
+def set_condition(parent, body, kind, pred, taken=None, counter=None):
+    """Add a conditional node (``kind`` ``IF`` on the bool ``pred``,
+    ``WHILE`` on ``~pred``) to the graph ``parent`` (a stream) captures,
+    after a launch of the condition kernel, which for an IF node adds one
+    to the int64 ``taken`` where ``pred`` holds and for a WHILE node sets
+    the int32 pass ``counter`` to 0; start capturing ``body`` into the
+    node's body (``csrc/graph_cond.cu``). Returns the node's handle.
     ``set_condition.launches`` counts the condition kernel's launches."""
     lib = _cond_lib().lib
-    _check_cond(lib, lib.graph_if_begin(parent.cuda_stream, body.cuda_stream,
-                                        pred.data_ptr(), taken.data_ptr()),
-                "the capture")
+    handle = ctypes.c_ulonglong()
+    _check_cond(lib, lib.graph_node_begin(
+        parent.cuda_stream, body.cuda_stream, kind, pred.data_ptr(),
+        int(kind == WHILE), None if taken is None else taken.data_ptr(),
+        None if counter is None else counter.data_ptr(),
+        ctypes.byref(handle)), "the capture")
     set_condition.launches += 1
+    return handle.value
 
 
 set_condition.launches = 0
 
+
+def pass_tail(stream, handle, records, n_leaves, counter, cap, done, taken,
+              nbytes):
+    """Launch the last kernel of a WHILE body on ``stream``: the carry
+    written back from the device array ``records`` of ``n_leaves`` (dst,
+    src, bytes) int64 triples (``nbytes`` the largest), the pass
+    ``counter`` advanced, the handle set to ``~done & (counter < cap)``,
+    ``taken`` advanced (``csrc/graph_cond.cu``). ``pass_tail.launches``
+    counts its launches."""
+    lib = _cond_lib().lib
+    blocks = max(1, min(64, -(-nbytes // (16 * 256))))
+    _check_cond(lib, lib.graph_pass_tail(
+        stream.cuda_stream, handle, records.data_ptr(), n_leaves,
+        counter.data_ptr(), cap, done.data_ptr(), taken.data_ptr(), blocks),
+        "the pass tail")
+    pass_tail.launches += 1
+
+
+pass_tail.launches = 0
+
 # the launch counters a replay has to advance
 COUNTED = (pattern_sample, pattern_sample_lanes, rasterize_bilinear,
-           lu_substitute, set_condition)
+           lu_substitute, set_condition, pass_tail)
 
 _SYNC_MODE = 0
 
@@ -146,15 +175,29 @@ def _counts():
     return [k.launches for k in COUNTED]
 
 
-# Launches run under IF nodes. Every IF node of the process has a number and,
-# per device, a counter in ``_TAKEN`` that its condition kernel advances
-# each time its body runs; ``_NODE_SLOTS`` keeps per node the launch slots
-# captured in its body outside any nested node's. A replay adds to
-# ``_REPLAYED`` all its program's slots (what it adds to the counters) and to
-# ``_OUTSIDE`` those outside every node (which run on every replay).
+# Launches run under conditional nodes. Every node of the process has a
+# number and, per device, a counter in ``_TAKEN`` that advances each time
+# its body runs (an IF node's condition kernel, a WHILE body's pass tail);
+# ``_NODE_SLOTS`` keeps per node the launch slots captured in one run of its
+# body outside any nested node's. A replay adds to ``_REPLAYED`` all its
+# program's slots (what it adds to the counters) and to ``_OUTSIDE`` those
+# outside every node (which run on every replay).
+# Node numbers are not reused: the ledger keeps the launches that ran under
+# the nodes of programs that are gone, so ``MAX_NODES`` bounds the nodes
+# captured over the process's life.
 MAX_NODES = 1 << 18
 _TAKEN = {}
 _NODE_SLOTS = {}
+# The pass tails' (dst, src, bytes) records, per device one int64 array
+# made outside any capture, with its free rows as (start, count) runs. A
+# record array made during a capture would take a block the graph's own
+# kernels write on every replay (a temporary freed before it was made), and
+# the records written once after the capture would not survive the first
+# replay. A program gives its rows back when it is collected, so
+# ``MAX_RECORDS`` bounds the carry leaves of the loops alive at once.
+MAX_RECORDS = 1 << 18
+_RECORDS = {}
+_RECORD_FREE = {}
 _NESTED = []
 _REPLAYED = [0] * len(COUNTED)
 _OUTSIDE = [0] * len(COUNTED)
@@ -164,10 +207,10 @@ def launch_ledger():
     """{kernel: (launch slots, launches run)} so far in the process, per
     kernel of ``COUNTED``: the slots are the counters; the launches run
     are the counters less the slots replays added, plus the launches that
-    ran in replays (those outside every IF node, and each node's times its
-    taken count). Reads the taken counts back (a synchronising copy).
-    Compare two ledgers taken with no change of a counter by hand between
-    them."""
+    ran in replays (those outside every node, and each node's body slots
+    times its taken count). Reads the taken counts back (a synchronising
+    copy). Compare two ledgers taken with no change of a counter by hand
+    between them."""
     slots = _counts()
     runs = [c - r + o for c, r, o in zip(slots, _REPLAYED, _OUTSIDE)]
     for dev, nodes in _NODE_SLOTS.items():
@@ -184,7 +227,7 @@ def ledger_delta(before, after):
                 "run": after[k][1] - before[k][1]} for k in after}
 
 # ---------------------------------------------------------------------------
-# branches on the device
+# branches and loops on the device
 # ---------------------------------------------------------------------------
 
 # per device: the body streams, one per nesting depth (a body is captured on
@@ -193,6 +236,10 @@ def ledger_delta(before, after):
 _BODY_STREAMS = {}
 _BODY_POOLS = {}
 _OPEN_BODIES = []
+# the capture in progress: its conditional nodes by kind, the nodes of its
+# bodies' graphs, and the pass tails' rows of ``_RECORDS`` with the records
+# to write into them once the capture has ended
+_CAPTURE = {}
 
 
 def _cond_lib():
@@ -200,16 +247,35 @@ def _cond_lib():
     if _COND_LIB is None:
         built = build_library("graph_cond", ["graph_cond.cu"])
         lib = built.lib
-        lib.graph_if_begin.argtypes = [ctypes.c_void_p] * 4
-        lib.graph_if_begin.restype = ctypes.c_int
-        lib.graph_if_end.argtypes = [ctypes.c_void_p]
-        lib.graph_if_end.restype = ctypes.c_int
+        lib.graph_node_begin.argtypes = ([ctypes.c_void_p] * 2
+                                         + [ctypes.c_int, ctypes.c_void_p,
+                                            ctypes.c_int]
+                                         + [ctypes.c_void_p] * 3)
+        lib.graph_node_begin.restype = ctypes.c_int
+        lib.graph_pass_tail.argtypes = [
+            ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int]
+        lib.graph_pass_tail.restype = ctypes.c_int
+        lib.graph_capture_nodes.argtypes = [ctypes.c_void_p] * 2
+        lib.graph_capture_nodes.restype = ctypes.c_int
+        lib.graph_node_end.argtypes = [ctypes.c_void_p]
+        lib.graph_node_end.restype = ctypes.c_int
         lib.graph_stream_create.argtypes = [ctypes.c_void_p]
         lib.graph_stream_create.restype = ctypes.c_int
         lib.graph_cond_error_string.argtypes = [ctypes.c_int]
         lib.graph_cond_error_string.restype = ctypes.c_char_p
         _COND_LIB = built
     return _COND_LIB
+
+
+def _driver_version():
+    v = ctypes.c_int()
+    try:
+        ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(v))
+    except OSError:
+        return "unknown"
+    return f"{v.value // 1000}.{v.value % 1000 // 10}"
 
 
 def _check_cond(lib, rc, what):
@@ -219,12 +285,13 @@ def _check_cond(lib, rc, what):
             f"{what} of a conditional graph node failed{step}, "
             f"{len(_OPEN_BODIES)} bodies deep: "
             f"{lib.graph_cond_error_string(rc % 1000).decode()} (torch "
-            f"{torch.__version__}, CUDA {torch.version.cuda}; IF nodes "
-            "under stream capture need CUDA 12.4 or later)")
+            f"{torch.__version__}, CUDA {torch.version.cuda}, driver "
+            f"{_driver_version()}; IF and WHILE nodes under stream capture "
+            "need CUDA 12.4 or later)")
 
 
 def prepare_branches(device):
-    """Build the IF node's library and make the body memory pool of
+    """Build the nodes' library and make the body memory pool of
     ``device``: done by ``CapturedProgram`` before it captures."""
     _cond_lib()
     dev = torch.device(device)
@@ -233,6 +300,35 @@ def prepare_branches(device):
         _BODY_STREAMS[dev] = []
         _TAKEN[dev] = torch.zeros(MAX_NODES, dtype=torch.int64, device=dev)
         _NODE_SLOTS[dev] = []
+        _RECORDS[dev] = torch.zeros((MAX_RECORDS, 3), dtype=torch.int64,
+                                    device=dev)
+        _RECORD_FREE[dev] = [(0, MAX_RECORDS)]
+
+
+def _take_rows(dev, n):
+    """The first run of ``n`` free rows of ``_RECORDS[dev]``: its start."""
+    free = _RECORD_FREE[dev]
+    for i, (start, count) in enumerate(free):
+        if count >= n:
+            free[i] = (start + n, count - n)
+            return start
+    raise RuntimeError(f"more than {MAX_RECORDS} carry leaves in the loops "
+                       "of the process's live programs")
+
+
+def _give_rows(taken):
+    """Return the rows ``taken`` ((device, start, count) runs) to their
+    device's free runs, merging neighbours."""
+    for dev in {d for d, _, _ in taken}:
+        runs = sorted(_RECORD_FREE[dev]
+                      + [(s, n) for d, s, n in taken if d == dev])
+        merged = []
+        for start, count in runs:
+            if merged and merged[-1][0] + merged[-1][1] == start:
+                merged[-1] = (merged[-1][0], merged[-1][1] + count)
+            elif count:
+                merged.append((start, count))
+        _RECORD_FREE[dev] = merged
 
 
 def _body_stream(dev, depth):
@@ -247,40 +343,70 @@ def _body_stream(dev, depth):
     return streams[depth]
 
 
+def capture_nodes(stream):
+    """The nodes of the graph ``stream`` captures now, at its own level;
+    None where the driver does not say (a count for the record only)."""
+    n = ctypes.c_ulonglong()
+    rc = _cond_lib().lib.graph_capture_nodes(stream.cuda_stream,
+                                             ctypes.byref(n))
+    return n.value if rc == 0 else None
+
+
 def capturing(x) -> bool:
     """Whether work on ``x``'s device is being captured into a graph now."""
     return x.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
+class _Node:
+    def __init__(self, kind, dev, number, handle, body, passes):
+        self.kind, self.dev, self.number = kind, dev, number
+        self.handle, self.body, self.passes = handle, body, passes
+
+    @property
+    def taken(self):
+        return _TAKEN[self.dev][self.number]
+
+
 @contextlib.contextmanager
-def _if_body(pred):
-    """Capture the block's work into an IF node on the device bool
-    ``pred``."""
+def _node_body(kind, pred, counter=None, passes=1):
+    """Capture the block's work into the body of a conditional node: an IF
+    node on the device bool ``pred``, or a WHILE node of at most ``passes``
+    passes that starts where ``pred`` (its ``done`` flag) is false and sets
+    ``counter`` to 0 first. The launch slots captured in the body count
+    ``passes`` times."""
     lib = _cond_lib().lib
     dev = pred.device
     pred = pred.to(torch.bool).contiguous()
     body = _body_stream(dev, len(_OPEN_BODIES))
     nodes = _NODE_SLOTS[dev]
     if len(nodes) >= MAX_NODES:
-        raise RuntimeError(f"more than {MAX_NODES} IF nodes in the process")
-    node = len(nodes)
+        raise RuntimeError(f"more than {MAX_NODES} conditional nodes in the "
+                           "process")
+    number = len(nodes)
     nodes.append(None)
-    set_condition(torch.cuda.current_stream(dev), body, pred,
-                  _TAKEN[dev][node])
+    handle = set_condition(torch.cuda.current_stream(dev), body, kind, pred,
+                           taken=_TAKEN[dev][number] if kind == IF else None,
+                           counter=counter)
+    if _CAPTURE:
+        _CAPTURE["nodes"][kind] += 1
     pool = (torch.cuda.use_mem_pool(_BODY_POOLS[dev], dev)
             if not _OPEN_BODIES else contextlib.nullcontext())
     _OPEN_BODIES.append(body)
     before = _counts()
     _NESTED.append([0] * len(COUNTED))
     with pool, torch.cuda.stream(body):
-        yield
+        yield _Node(kind, dev, number, handle, body, passes)
     nested = _NESTED.pop()
     total = [a - b for a, b in zip(_counts(), before)]
-    nodes[node] = [t - n for t, n in zip(total, nested)]
+    nodes[number] = [t - n for t, n in zip(total, nested)]
+    for k, t in zip(COUNTED, total):
+        k.launches += (passes - 1) * t
     if _NESTED:
-        _NESTED[-1] = [a + t for a, t in zip(_NESTED[-1], total)]
+        _NESTED[-1] = [a + passes * t for a, t in zip(_NESTED[-1], total)]
     _OPEN_BODIES.pop()
-    _check_cond(lib, lib.graph_if_end(body.cuda_stream), "the end")
+    if _CAPTURE:
+        _CAPTURE["body_graph_nodes"].append(capture_nodes(body))
+    _check_cond(lib, lib.graph_node_end(body.cuda_stream), "the end")
 
 
 def _write(dst, src):
@@ -294,29 +420,77 @@ def _buffers(carry):
         lambda x: x.clone(memory_format=torch.contiguous_format), carry)
 
 
-def while_loop(cond_fn, body_fn, carry, n: int):
-    """``n`` passes of ``carry = body_fn(i, carry)``, where a pass whose
-    ``cond_fn(carry)`` (a bool scalar) is false must return its carry (the
-    body masks itself, as a masked loop does). Eagerly every pass runs;
-    while a graph is captured, each pass is an IF node on ``cond_fn``, one
-    after the other in the loop's graph, so the passes after the first
-    false condition do no work but their condition kernel, as
-    ``lax.while_loop(cond, body, carry)`` with the cap ``n`` does no more
-    passes. ``carry`` is a pytree of tensors of fixed shapes.
+def _overlaps(a, others):
+    lo = a.data_ptr()
+    hi = lo + a.numel() * a.element_size()
+    return any(o is not a and o.data_ptr() < hi
+               and lo < o.data_ptr() + o.numel() * o.element_size()
+               for o in others)
 
-    (Nesting each pass's node in the pass before ends the loop at one
-    skipped node and replays the frame track 5.5% faster on an H100,
-    ``tools/cond_form_bench.py``; but ``torch.profiler`` faults at once
-    replaying the 50-deep nest of the coarse LM, and the device idle share
-    is read from it over a few frames, so the nodes are flat.)"""
-    if n <= 0 or not capturing(pytree.tree_leaves(carry)[0]):
-        for i in range(n):
-            carry = body_fn(i, carry)
+
+def _end_pass(node, dst, src, counter, cap, done):
+    """The WHILE body's last kernel: ``src`` (the pass's carry leaves) into
+    ``dst`` (the carry's buffers, made before the node), the pass index
+    advanced and the next pass's condition set from ``done`` (the leaf of
+    ``src`` that is the carry's flag). Each leaf is checked here: of its
+    buffer's type and shape, contiguous, its bytes apart from every other
+    buffer (else it is copied first, which costs a kernel in the pass)."""
+    if not _CAPTURE:
+        raise RuntimeError("a while_loop is captured only inside a "
+                           "graphs.CapturedProgram")
+    recs = []
+    for d, s in zip(dst, src):
+        if s.dtype != d.dtype or s.shape != d.shape or s.device != d.device:
+            raise ValueError(
+                f"while_loop: a pass returned a {s.dtype} leaf of shape "
+                f"{tuple(s.shape)} on {s.device} for a {d.dtype} carry leaf "
+                f"of shape {tuple(d.shape)} on {d.device}")
+        if not s.is_contiguous() or _overlaps(s, dst):
+            s = s.clone(memory_format=torch.contiguous_format)
+        recs.append((s, d))
+    start = _take_rows(node.dev, len(recs))
+    _CAPTURE["rows"].append((node.dev, start, len(recs)))
+    records = _RECORDS[node.dev][start:start + len(recs)]
+    rows = [[d.data_ptr(), s.data_ptr(), d.numel() * d.element_size()]
+            for s, d in recs]
+    # written once the capture has ended (a copy from the host cannot be
+    # captured)
+    _CAPTURE["records"].append((records, rows))
+    pass_tail(node.body, node.handle, records, len(rows), counter, cap,
+              recs[done][0], node.taken, max(r[2] for r in rows))
+
+
+def while_loop(done_fn, body_fn, carry, n: int):
+    """At most ``n`` passes of ``carry = body_fn(it, carry)`` while
+    ``done_fn(carry)`` (a bool scalar leaf of the carry) is false, ``it``
+    the pass index (an int32 scalar on the carry's device). A pass whose
+    carry is done must return its carry (the body masks itself, as a
+    masked loop does). Eagerly every pass runs; while a graph is captured
+    the loop is one WHILE node whose body, the pass, is captured once and
+    ends in the ``pass_tail`` kernel, so no pass runs after the first done
+    carry, as ``lax.while_loop`` with the cap ``n`` runs none. ``carry`` is
+    a pytree of tensors of fixed shapes and types, which every pass
+    returns."""
+    leaves = pytree.tree_leaves(carry)
+    if n <= 0 or not capturing(leaves[0]):
+        it = torch.zeros((), dtype=torch.int32, device=leaves[0].device)
+        for _ in range(n):
+            carry = body_fn(it, carry)
+            it = it + 1
         return carry
     carry = _buffers(carry)
-    for i in range(n):
-        with _if_body(cond_fn(carry)):
-            _write(carry, body_fn(i, carry))
+    dst = pytree.tree_leaves(carry)
+    done = done_fn(carry)
+    j = next((i for i, x in enumerate(dst) if x is done), None)
+    if j is None or done.dtype != torch.bool or done.numel() != 1:
+        raise ValueError("while_loop: done_fn must return the carry's bool "
+                         "scalar leaf")
+    it = torch.empty((), dtype=torch.int32, device=done.device)
+    with _node_body(WHILE, done, counter=it, passes=n) as node:
+        src = pytree.tree_leaves(body_fn(it, carry))
+        if len(src) != len(dst):
+            raise ValueError("while_loop: a pass returned another carry")
+        _end_pass(node, dst, src, it, n, j)
     return carry
 
 
@@ -327,7 +501,7 @@ def cond(pred, body_fn, carry):
     if not capturing(pred):
         return body_fn(carry) if bool(pred) else carry
     carry = _buffers(carry)
-    with _if_body(pred):
+    with _node_body(IF, pred):
         _write(carry, body_fn(carry))
     return carry
 
@@ -368,10 +542,33 @@ class CapturedProgram:
         before = _counts()
         self.graph = torch.cuda.CUDAGraph()
         _NESTED.append([0] * len(COUNTED))
-        # thread-local: another thread of the process (the runner's frame
-        # decoders) may use the CUDA API while this one captures
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.outputs = fn(static_tree)
+        _CAPTURE.update(nodes={IF: 0, WHILE: 0}, body_graph_nodes=[],
+                        records=[], rows=[])
+        try:
+            # thread-local: another thread of the process (the runner's
+            # frame decoders) may use the CUDA API while this one captures
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.outputs = fn(static_tree)
+                top = capture_nodes(torch.cuda.current_stream())
+            capture = dict(_CAPTURE)
+        except BaseException:
+            _give_rows(_CAPTURE["rows"])
+            raise
+        finally:
+            _CAPTURE.clear()
+        # the pass tails' rows go back when the program (its graph) goes
+        weakref.finalize(self, _give_rows, capture["rows"])
+        # the pass tails' records, now that the pass outputs have their
+        # addresses
+        self.records = [r for r, _ in capture["records"]]
+        for r, rows in capture["records"]:
+            r.copy_(torch.tensor(rows, dtype=torch.int64))
+        # the graph's nodes: its own level and every body's graph
+        counted = [top, *capture["body_graph_nodes"]]
+        self.nodes = {"graph": None if None in counted else sum(counted),
+                      "if": capture["nodes"][IF],
+                      "while": capture["nodes"][WHILE]}
         in_nodes = _NESTED.pop()
         after = _counts()
         self.launches = [a - b for a, b in zip(after, before)]
@@ -414,7 +611,8 @@ class GraphCache:
         if prog is None:
             t0 = time.perf_counter()
             prog = CapturedProgram(fn, inputs)
-            self.capture_s += time.perf_counter() - t0
+            prog.capture_s = time.perf_counter() - t0
+            self.capture_s += prog.capture_s
             self.programs[full_key] = prog
             for k, n in zip(COUNTED, prog.warmup_launches):
                 self.warmups[k.__name__] += n
@@ -422,6 +620,26 @@ class GraphCache:
 
     def replays(self) -> int:
         return sum(p.replays for p in self.programs.values())
+
+    def table(self):
+        """Per program name (its key's first element): how many programs,
+        the most graph nodes of one (its own level and every body's), WHILE
+        and IF nodes of one, the seconds their warm-ups and captures took,
+        and their replays."""
+        out = {}
+        for key, p in self.programs.items():
+            name = key[0][0] if isinstance(key[0], tuple) else key[0]
+            row = out.setdefault(str(name), {
+                "programs": 0, "graph_nodes": 0, "while_nodes": 0,
+                "if_nodes": 0, "capture_s": 0.0, "replays": 0})
+            row["programs"] += 1
+            row["graph_nodes"] = max(row["graph_nodes"],
+                                     p.nodes["graph"] or 0)
+            row["while_nodes"] = max(row["while_nodes"], p.nodes["while"])
+            row["if_nodes"] = max(row["if_nodes"], p.nodes["if"])
+            row["capture_s"] += p.capture_s
+            row["replays"] += p.replays
+        return out
 
 
 # the process's cache, which every pipeline uses, as jit's trace cache is

@@ -4,8 +4,8 @@ of ``slam_eds_tpu.ops.coarse_tracker`` (DSO's CoarseTracker).
 The per-level ``lax.while_loop``s (the cutoff escalation and the LM) are
 ``graphs.while_loop``s over the JAX loops' state, so a level reads nothing
 back to the host and ``track_newest_coarse`` can be captured in a CUDA
-graph, where each pass is an IF node that ends the loop at its stop
-(eagerly every pass to the cap runs, masked). Template packing is a stable descending sort, matching
+graph, where each loop is a WHILE node that ends at its stop (eagerly
+every pass to the cap runs, masked). Template packing is a stable descending sort, matching
 ``lax.top_k``'s order.
 """
 from __future__ import annotations
@@ -250,26 +250,27 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
 
     # cutoff escalation: double while > 60% saturate, as JAX's while_loop,
     # in at most ceil(log2(50)) = 6 passes (20 -> 1280 takes 6 doublings)
-    def grows(carry):
-        cutoff, sat, _ = carry
+    def grows(cutoff, sat):
         return (sat > 0.6) & (cutoff < cutoff_th * 50.0)
 
     def doubling(_, carry):
-        cutoff, sat, n = carry
-        grow = grows(carry)
+        cutoff, sat, n, stop = carry
+        grow = ~stop
         c2 = cutoff * 2.0
         _, _, sat2, _ = calc_res(tpl, dI, cam, pose0, rel_aff(aff0),
                                  huber_th, c2)
-        return (torch.where(grow, c2, cutoff), torch.where(grow, sat2, sat),
-                n + grow.to(torch.int32))
+        cutoff = torch.where(grow, c2, cutoff)
+        sat = torch.where(grow, sat2, sat)
+        return cutoff, sat, n + grow.to(torch.int32), ~grows(cutoff, sat)
 
     _, _, sat, _ = calc_res(tpl, dI, cam, pose0, rel_aff(aff0), huber_th,
                             cutoff_th)
     # grow is monotone (once false, the carry stays), so the doublings are
-    # a while_loop on it
+    # a while_loop on its negation, carried
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
-    cutoff, sat, doublings = graphs.while_loop(grows, doubling, (torch.full(
-        (), cutoff_th, dtype=torch.float32, device=dev), sat, zero_i),
+    cutoff = torch.full((), cutoff_th, dtype=torch.float32, device=dev)
+    cutoff, sat, doublings, _ = graphs.while_loop(
+        lambda c: c[3], doubling, (cutoff, sat, zero_i, ~grows(cutoff, sat)),
         CUTOFF_DOUBLINGS)
 
     E0, n0, _, buf0 = calc_res(tpl, dI, cam, pose0, rel_aff(aff0), huber_th,
@@ -347,7 +348,7 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
              torch.full((), lambda_init, dtype=torch.float32, device=dev),
              torch.zeros((), dtype=torch.bool, device=dev), zero_i)
     pose_R, pose_t, aff, _, _, res_old, _, _, its = graphs.while_loop(
-        lambda c: ~c[7], lm_pass, carry, max_iterations)
+        lambda c: c[7], lm_pass, carry, max_iterations)
     pose = SE3(pose_R, pose_t)
     rms = torch.sqrt(res_old[0] / torch.clamp(res_old[1], min=1.0))
     _, n_fin, sat, _ = calc_res(tpl, dI, cam, pose, rel_aff(aff), huber_th,

@@ -12,7 +12,7 @@ Differences from the JAX module are of form only:
 * ``ba_iterate``'s ``lax.while_loop`` (``break_tol > 0``) is a
   ``graphs.while_loop`` of GN passes carrying the same ``done`` flag, so
   the loop reads nothing back to the host: captured in a CUDA graph it ends
-  at the stop (IF nodes), eagerly (the CPU, ``torch.vmap`` in
+  at the stop (a WHILE node), eagerly (the CPU, ``torch.vmap`` in
   ``eval.batched_ba_windows``, the sharded BA) every pass runs masked;
 * ``orthogonalize`` solves its 7x7 Gram system with LU where JAX uses a
   Cholesky factorization: the same projector on a well-conditioned gauge
@@ -385,10 +385,14 @@ class SolveResult(NamedTuple):
 
 
 def solve_delta(state: BAState, asm: Assembled, lam: float = 1e-5,
-                use_orth: bool = True, reduce=None) -> SolveResult:
+                use_orth=True, reduce=None) -> SolveResult:
     """Damped Schur solve with the marginalization and frame/calib priors;
     back-substitutes the per-point idepth steps (solveSystemF +
     resubstituteF, FIX_LAMBDA).
+
+    use_orth: the gauge projection, a Python bool or a bool tensor (the GN
+    loop's predicate on its device pass index, ORTHOGONALIZE_X_LATER),
+    which selects the projected step (JAX ``jnp.where``): the same bits.
 
     reduce: with the point axis split over ranks (``parallel.sharded_ba``),
     a callable that sums a tensor over the ranks; the point-partial H, b and
@@ -443,7 +447,9 @@ def solve_delta(state: BAState, asm: Assembled, lam: float = 1e-5,
         Hs + 1e-10 * torch.eye(D, dtype=dtype, device=dev), bs)
     x = torch.where(act, x, zf)
 
-    if use_orth:
+    if torch.is_tensor(use_orth):
+        x = torch.where(use_orth, orthogonalize(x, nullspaces(state)), x)
+    elif use_orth:
         x = orthogonalize(x, nullspaces(state))
 
     step_d = torch.where(active_pt, (asm.V @ x - asm.bd) / Hdd_l, zf)
@@ -478,7 +484,9 @@ def ba_iterate(state: BAState, target_images, height: int, width: int,
     ``while_loop``: a ``graphs.while_loop`` whose passes after the stop
     select the state and energy they were given (eagerly every pass runs;
     captured, the loop ends at the stop), so nothing is read back to the
-    host."""
+    host. Its pass index is a device scalar, as in JAX: the gauge
+    projection from ``orth_from_iteration`` on and the stop from
+    ``min_iterations`` on are predicates on it."""
     def gn(it, st):
         lin = linearize(st, target_images, height, width,
                         huber_th=huber_th, outlier_th_sum=outlier_th_sum)
@@ -500,16 +508,15 @@ def ba_iterate(state: BAState, target_images, height: int, width: int,
             new_state, e = gn(it, st)
             active = ~done
             rel = torch.abs(e_last - e) / torch.clamp(e_last, min=1e-12)
-            if it + 1 >= min_iterations:
-                done = done | (active & (rel < break_tol)
-                               & torch.isfinite(e))
+            done = done | (active & (rel < break_tol) & torch.isfinite(e)
+                           & (it + 1 >= min_iterations))
             return (*(torch.where(active, getattr(new_state, k),
                                   getattr(st, k))
                       for k in ("delta", "c_delta", "p_idepth")),
                     torch.where(active, e, e_last), done)
 
         delta, c_delta, p_idepth, e_last, _ = graphs.while_loop(
-            lambda c: ~c[4], gn_pass,
+            lambda c: c[4], gn_pass,
             (state.delta, state.c_delta, state.p_idepth, e_last,
              torch.zeros((), dtype=torch.bool, device=dev)), iterations)
         state = state._replace(delta=delta, c_delta=c_delta,

@@ -12,8 +12,9 @@ State: translation px, unit quaternion qx [w, x, y, z], unit-norm 6-dof
 velocity vx. The LM runs over the 12-dof local increment with the analytic
 Jacobian (``event_residuals_and_jac``). Where the JAX module loops with
 ``lax.while_loop``, this one runs ``graphs.while_loop`` over the same
-``(state, lam, energy, it, done)``: captured in a CUDA graph, each pass is
-an IF node on ``~done``, so the loop ends on the device at its stop;
+``(state, lam, energy, it, done)``: captured in a CUDA graph, the loop is
+one WHILE node on ``~done``, its pass captured once, so it ends on the
+device at its stop;
 eagerly (the CPU, ``torch.vmap`` in ``eval.batched_event_solves``, the
 sharded solve of ``parallel``) every pass to the cap runs masked, as JAX's
 ``vmap`` of a ``while_loop`` runs every lane to the last lane's stop. The
@@ -300,7 +301,7 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
              torch.zeros((), dtype=torch.int32, device=dev),
              torch.zeros((), dtype=torch.bool, device=dev))
     state, _, energy, it, _ = graphs.while_loop(
-        lambda c: ~c[4], lm_pass, carry, max_iterations)
+        lambda c: c[4], lm_pass, carry, max_iterations)
 
     r_final = residuals(state)
     # MAD re-estimation of the robust scale for the next solve

@@ -14,11 +14,16 @@ same functions run on a card without a synchronisation and can be captured.
   that the escalation doubles.
 * ``ba_iterate`` with ``break_tol > 0`` against JAX's ``while_loop`` branch:
   energy within 1e-4 relative, the state within 1e-2 of its scale
-  (``test_torch_energy``'s), at a tolerance that stops the loop early.
+  (``test_torch_energy``'s), at a tolerance that stops the loop early; with
+  ``min_iterations`` and ``orth_from_iteration`` binding too (predicates on
+  the device pass index), bitwise a run pinned before the index moved to
+  the device.
 * One packet step whose live count changes between two calls of the same
   program: each call agrees with JAX's fused step at that count, so a count
   frozen into the program would show.
 """
+import hashlib
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -284,6 +289,55 @@ def test_ba_break_tol_read_free(ba_world, break_tol):
         full, _, _ = ten.ba_iterate(tst, timgs, Hw, Ww, iterations=6,
                                     orth_from_iteration=0)
         assert not torch.equal(full.delta, st_.delta)
+
+
+# (break_tol, min_iterations, orth_from_iteration): the passes the loop
+# runs, and the SHA-256 of its delta, c_delta, p_idepth and last energy
+# (their float32 bytes, final_linearize=False) as the eager masked loop
+# gave them while its pass index was a Python int (one CPU thread): the
+# index is a device scalar now, and the bits must not move. In both cases
+# min_iterations binds (at min_iterations 1 the loop stops after 3).
+BA_PINNED = {
+    (0.2, 4, 2): (4, "fed72fe3f41318f5a5c79d08fd78f672"
+                     "2bce14028b93c52962f7022c00f6d066"),
+    (0.2, 5, 3): (5, "1d4ca52d3f2f88d520b745a784c0f86b"
+                     "93ef78c1554d85c9bb232aea154a3ec2"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BA_PINNED))
+def test_ba_loop_pass_index_on_the_device(ba_world, case):
+    """``ba_iterate`` with ``break_tol``, ``min_iterations`` and
+    ``orth_from_iteration`` all binding: bitwise the pinned run, the same
+    bits with the passes after the stop skipped and under the read guard,
+    and JAX's ``while_loop`` within ``test_torch_energy``'s tolerances."""
+    tol, min_it, orth = case
+    passes, digest = BA_PINNED[case]
+    jst, jimgs, tst, timgs = ba_world
+    Hw, Ww = timgs.shape[1:3]
+    kw = dict(iterations=6, orth_from_iteration=orth, min_iterations=min_it,
+              break_tol=tol, final_linearize=False)
+
+    def run():
+        return ten.ba_iterate(tst, timgs, Hw, Ww, **kw)
+    st_, et, _ = run()
+    h = hashlib.sha256()
+    for x in (st_.delta, st_.c_delta, st_.p_idepth, et):
+        h.update(x.contiguous().numpy().tobytes())
+    assert h.hexdigest() == digest
+    with skipped_passes() as runs:
+        skipped = run()
+    assert runs == [(passes, 6)]
+    with no_host_reads():
+        guarded = run()
+    for a, b, c in zip(tree_leaves(skipped[:2]), tree_leaves(guarded[:2]),
+                       tree_leaves((st_, et))):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    sj, ej, _ = jen.ba_iterate(jst, jimgs, Hw, Ww, **kw)
+    assert abs(float(et) - float(ej)) <= 1e-4 * abs(float(ej))
+    for name in ("delta", "p_idepth"):
+        a, b = np.asarray(getattr(sj, name)), getattr(st_, name).numpy()
+        assert np.abs(b - a).max() <= 1e-2 * np.abs(a).max(), name
 
 
 # ---------------------------------------------------------------------------

@@ -109,6 +109,18 @@ def test_solve_delta_parity(world, use_orth):
     assert rel(st.H_final.numpy(), sj.H_final) <= 1e-5
 
 
+@pytest.mark.parametrize("use_orth", [False, True])
+def test_solve_delta_tensor_use_orth(world, use_orth):
+    """``use_orth`` as a bool tensor (the GN loop's predicate on its device
+    pass index) selects the projected step: bitwise the Python-bool call."""
+    _, _, tst, timgs = world
+    asm = ten.assemble(tst, ten.linearize(tst, timgs, H, W))
+    want = ten.solve_delta(tst, asm, use_orth=use_orth)
+    got = ten.solve_delta(tst, asm, use_orth=torch.tensor(use_orth))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_nullspace_orthogonalize_parity(world, rng):
     jst, _, tst, _ = world
     Nj, Nt = jen.nullspaces(jst), ten.nullspaces(tst)

@@ -457,7 +457,7 @@ def test_graph_replays_count_kernel_launches(card):
     assert n1 == (n0[0] + 2, n0[1] + 2)
     assert cache.warmups == {"pattern_sample": 1, "pattern_sample_lanes": 0,
                              "rasterize_bilinear": 1, "lu_substitute": 0,
-                             "set_condition": 0}
+                             "set_condition": 0, "pass_tail": 0}
     with graphs.sync_check("error"):
         for k in range(3):
             x2 = dict(x, xs=torch.rand(4096, device=card) * 64)
@@ -551,7 +551,8 @@ def test_packet_program_replayed_on_two_live_counts(card):
 
 def _solve_loop(stop, cap):
     """A while_loop of ``cap`` LM-like passes (a 12x12 solve each) that
-    stops after ``stop``; its carry ends in the pass counter."""
+    stops after ``stop`` (at once where ``stop`` is 0); its carry ends in
+    the pass counter."""
     from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.utils.linalg import solve
 
@@ -564,24 +565,30 @@ def _solve_loop(stop, cap):
             return v, it, done | (it >= stop)
         dev = x["v"].device
         return graphs.while_loop(
-            lambda c: ~c[2], one,
+            lambda c: c[2], one,
             (x["v"], torch.zeros((), dtype=torch.int32, device=dev),
-             torch.zeros((), dtype=torch.bool, device=dev)), cap)
+             torch.full((), stop <= 0, dtype=torch.bool, device=dev)), cap)
     return fn
 
 
+def _loop_inputs(card, seed):
+    rng = np.random.default_rng(seed)
+    return {"v": torch.as_tensor(rng.normal(size=12).astype(np.float32),
+                                 device=card),
+            "H": torch.as_tensor((rng.normal(size=(12, 12))
+                                  + 12 * np.eye(12)).astype(np.float32),
+                                 device=card)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("stop", [3, 10])
+@pytest.mark.parametrize("stop", [0, 3, 10])
 def test_captured_if_loop_is_bitwise_its_eager_run(card, stop):
-    """A loop captured with an IF node per pass replays bitwise its eager
-    masked run, whether it stops early or runs to the cap."""
+    """A loop captured as one WHILE node (its pass captured once) replays
+    bitwise its eager masked run, whether it stops at once, early or runs
+    to the cap; the captured program holds one WHILE node and no IF
+    node."""
     from slam_eds_tpu_torch import graphs
-    rng = np.random.default_rng(stop)
-    x = {"v": torch.as_tensor(rng.normal(size=12).astype(np.float32),
-                              device=card),
-         "H": torch.as_tensor((rng.normal(size=(12, 12))
-                               + 12 * np.eye(12)).astype(np.float32),
-                              device=card)}
+    x = _loop_inputs(card, stop)
     fn = _solve_loop(stop, 10)
     cache = graphs.GraphCache()
     cache.run("loop", fn, x)
@@ -591,22 +598,20 @@ def test_captured_if_loop_is_bitwise_its_eager_run(card, stop):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert int(got[1]) == min(stop, 10)
+    (prog,) = cache.programs.values()
+    assert prog.nodes["while"] == 1 and prog.nodes["if"] == 0
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stop", [3, 10])
+@pytest.mark.parametrize("stop", [0, 3, 10])
 def test_launch_ledger_counts_the_passes_that_ran(card, stop):
-    """Over one replay of a loop of 10 IF nodes that stops after ``stop``
-    passes, ``graphs.launch_ledger`` counts 10 slots of the LU substitution
-    and ``stop`` launches run; the condition kernel runs on every pass (the
-    nodes are flat)."""
+    """Over one replay of a loop with a cap of 10 that stops after
+    ``stop`` passes, ``graphs.launch_ledger`` counts 10 slots of the LU
+    substitution and of the pass tail (a slot per pass the cap allows) and
+    ``stop`` launches run of each (the pass tail's ``taken`` count); the
+    condition kernel, which starts the loop, runs once."""
     from slam_eds_tpu_torch import graphs
-    rng = np.random.default_rng(stop)
-    x = {"v": torch.as_tensor(rng.normal(size=12).astype(np.float32),
-                              device=card),
-         "H": torch.as_tensor((rng.normal(size=(12, 12))
-                               + 12 * np.eye(12)).astype(np.float32),
-                              device=card)}
+    x = _loop_inputs(card, stop)
     fn = _solve_loop(stop, 10)
     cache = graphs.GraphCache()
     cache.run("loop", fn, x)                  # warm-up, capture, replay
@@ -614,7 +619,94 @@ def test_launch_ledger_counts_the_passes_that_ran(card, stop):
     cache.run("loop", fn, x)
     d = graphs.ledger_delta(before, graphs.launch_ledger())
     assert d["lu_substitute"] == {"slots": 10, "run": stop}
-    assert d["set_condition"] == {"slots": 10, "run": 10}
+    assert d["pass_tail"] == {"slots": 10, "run": stop}
+    assert d["set_condition"] == {"slots": 1, "run": 1}
+
+
+@pytest.mark.cuda
+def test_loop_records_go_back_with_their_program(card):
+    """A captured loop takes rows of the pass tails' record array; they go
+    back to the free rows when its program is collected, and the next
+    capture takes them again."""
+    import gc
+    from slam_eds_tpu_torch import graphs
+    x = _loop_inputs(card, 3)
+    dev = x["v"].device
+    fn = _solve_loop(3, 10)
+    graphs.GraphCache().run("warm", fn, x)    # the device's arrays exist
+    gc.collect()
+    free = list(graphs._RECORD_FREE[dev])
+    cache = graphs.GraphCache()
+    cache.run("loop", fn, x)
+    assert graphs._RECORD_FREE[dev] != free
+    del cache
+    gc.collect()
+    assert graphs._RECORD_FREE[dev] == free
+    cache = graphs.GraphCache()
+    got = graphs.copy_out(cache.run("loop", fn, x))
+    assert int(got[1]) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taken", [False, True])
+def test_while_node_nested_in_an_if_body(card, taken):
+    """A WHILE node inside an IF node's body (the event LM inside the
+    gate's retries): bitwise the eager run (a host ``if`` around the masked
+    loop) on both branches, the loop's passes run only where the branch
+    was taken."""
+    from slam_eds_tpu_torch import graphs
+    x = dict(_loop_inputs(card, 5), p=torch.full((), taken, device=card))
+    loop = _solve_loop(4, 10)
+
+    def fn(x):
+        def branch(c):
+            v, it, _ = loop({"v": c[0] * 2.0, "H": x["H"]})
+            return v, c[1] + it
+        return graphs.cond(x["p"], branch,
+                           (x["v"], torch.zeros((), dtype=torch.int32,
+                                                device=card)))
+    cache = graphs.GraphCache()
+    cache.run("nest", fn, x)
+    before = graphs.launch_ledger()
+    with graphs.sync_check("error"):
+        got = graphs.copy_out(cache.run("nest", fn, x))
+    d = graphs.ledger_delta(before, graphs.launch_ledger())
+    want = fn(_contiguous(x))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[1]) == (4 if taken else 0)
+    assert d["pass_tail"] == {"slots": 10, "run": 4 if taken else 0}
+    (prog,) = cache.programs.values()
+    assert prog.nodes["while"] == 1 and prog.nodes["if"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,batch", [(6, 1), (7, 1), (7, 2), (8, 1), (12, 1),
+                                     (12, 4), (68, 1)])
+def test_loop_solve_is_solve_ex_at_the_path_sizes(card, n, batch, dtype):
+    """``utils.linalg.solve`` (torch's factorization and the substitution
+    kernel up to 32 unknowns, two triangular solves above) at every size
+    and batch of the path (the coarse LM's 6 and 8, the BA gauge's 7, the
+    event LM's 12, the window BA's reduced 68) in float32 and float64:
+    bitwise ``torch.linalg.solve_ex``, and its normwise relative residual
+    ||A x - b|| / (||A|| ||x|| + ||b||) (max norms, in float64) at most
+    n eps on these systems, which need row swaps."""
+    from slam_eds_tpu_torch.utils.linalg import solve
+    rng = np.random.default_rng(n * 10 + batch)
+    A = rng.normal(size=(batch, n, n)) + 0.05 * np.eye(n)
+    b = rng.normal(size=(batch, n))
+    A, b = (torch.as_tensor(a, dtype=dtype, device=card) for a in (A, b))
+    if batch == 1:
+        A, b = A[0], b[0]
+    x = solve(A, b)
+    assert torch.equal(x, torch.linalg.solve_ex(
+        A, b[..., None], check_errors=False)[0][..., 0])
+    A64, b64, x64 = A.double(), b.double(), x.double()
+    r = (A64 @ x64[..., None])[..., 0] - b64
+    res = r.abs().amax(-1) / (A64.abs().sum(-1).amax(-1)
+                              * x64.abs().amax(-1) + b64.abs().amax(-1))
+    assert float(res.max()) <= n * torch.finfo(dtype).eps, float(res.max())
 
 
 @pytest.mark.cuda

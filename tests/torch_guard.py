@@ -133,18 +133,21 @@ def masked_branches():
 @contextlib.contextmanager
 def skipped_passes():
     """``graphs.while_loop`` with a host ``if`` around every pass: a pass
-    whose condition is false does not run, as in a captured loop. Yields a
+    whose carry is done does not run, as in a captured loop. Yields a
     list that gets (passes run, passes) for every loop."""
     from slam_eds_tpu_torch import graphs
     orig = graphs.while_loop
     runs = []
 
-    def loop(cond_fn, body_fn, carry, n):
+    def loop(done_fn, body_fn, carry, n):
         ran = 0
-        for i in range(n):
-            if bool(cond_fn(carry)):
-                carry = body_fn(i, carry)
+        it = torch.zeros((), dtype=torch.int32,
+                         device=done_fn(carry).device)
+        for _ in range(n):
+            if not bool(done_fn(carry)):
+                carry = body_fn(it, carry)
                 ran += 1
+            it = it + 1
         runs.append((ran, n))
         return carry
     graphs.while_loop = loop
