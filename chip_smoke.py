@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``slam_eds_tpu_torch``) on one GPU.
 
 Builds the hand-written ``sm_90a`` kernels (the pattern sampler, the
-event raster, the LU substitution, and the conditional nodes' condition
-and pass-tail kernels)
+event raster, the loops' small solve and the LU substitution, and the
+conditional nodes' condition and pass-tail kernels)
 from ``slam_eds_tpu_torch/csrc``, one ``nvcc`` each, started together;
 holds each against its plain PyTorch version; runs the keyframe BA
 at the reference operating point, the frame-only path
@@ -51,9 +51,15 @@ not count more. Phases, one output line each:
                a host ``if``'s; the loops' solve (``utils.linalg.solve``)
                bitwise ``torch.linalg.solve_ex`` at every size and batch
                of the path, in float32 and float64 (and within n eps of
-               backward error), timed against it at n = 6, 7, 8 and 12,
-               single and batched; the LU substitution kernel bitwise its
-               plain version (``torch.linalg.lu_solve``) and timed
+               backward error); the small solve kernel (one system)
+               bitwise ``solve_ex`` at every n of 1..32 in float32 and
+               float64 on two draws (failing by name) and within kappa n
+               eps of its plain version; at n = 6, 7, 8 and 12 the small
+               solve, the chain it replaced (``lu_factor_ex`` and the
+               substitution kernel), ``lu_factor_ex`` alone and
+               ``solve_ex`` timed, and the path's solve single and
+               batched; the LU substitution kernel bitwise its plain
+               version (``torch.linalg.lu_solve``) and timed
 3. eds-first -- the event cell (phase 9) first in the process
 3a. batched -- ``eval.batched_event_solves`` at B=4 on the event cell's
                shapes and ``eval.batched_ba_windows`` at B=2 on phase 5's BA
@@ -648,6 +654,12 @@ class ProfiledRun:
 
     def stop(self):
         self.launches = _delta(self.l0, _ledger())
+        # the small solves per number of unknowns, under the kernel's row
+        by_n = {k: self.launches.pop(k) for k in list(self.launches)
+                if k.startswith("small_solve_n")}
+        self.launches["small_solve"]["by_n"] = {
+            int(k[len("small_solve_n"):]): v for k, v in by_n.items()
+            if v["slots"]}
         # the passes run per kind of loop: the pass tails that ran
         loops = loop_passes(self.taken0, _taken())
         if sum(loops.values()) != self.launches["pass_tail"]["run"]:
@@ -718,6 +730,7 @@ def phase_build_host(ok):
 KERNEL_NAMES = {"pattern_sample": "pattern_sample_kernel",
                 "rasterize_bilinear": "raster_cluster_kernel",
                 "lu_substitute": "lu_substitute",
+                "small_solve": "small_solve_kernel",
                 "set_condition": "set_condition",
                 "pass_tail": "pass_tail"}
 
@@ -765,6 +778,88 @@ SOLVE_SIZES = ((6, 1, "coarse LM, fixed affine"), (7, 1, "BA gauge"),
                (68, 1, "window BA, F=8"), (68, 2, "window BA, lanes"))
 
 
+# systems per size, type and draw in the small solve's sweep over n = 1..32
+SWEEP_SYSTEMS = 16
+
+
+def solve_systems(kind, n, systems, dtype, device, gen):
+    """``systems`` seeded n x n systems [systems, n, n]: ``path`` as the LM
+    loops build theirs, ``J^T J + lam diag(J^T J) + 1e-10 I`` (J with 3n + 2
+    rows, its columns scaled over 1e-2..1e2, lam over 1e-4..1e2), formed in
+    ``dtype`` on ``device``; ``general`` N(0, 1) + 0.05 I, which needs row
+    swaps."""
+    if kind == "general":
+        A = (torch.randn(systems, n, n, generator=gen, dtype=torch.float64)
+             + 0.05 * torch.eye(n, dtype=torch.float64))
+        return A.to(dtype).to(device).contiguous()
+    m = 3 * n + 2
+    scale = 10.0 ** (4 * torch.rand(systems, 1, n, generator=gen,
+                                    dtype=torch.float64) - 2)
+    lam = 10.0 ** (6 * torch.rand(systems, 1, 1, generator=gen,
+                                  dtype=torch.float64) - 4)
+    J = (torch.randn(systems, m, n, generator=gen, dtype=torch.float64)
+         * scale).to(dtype).to(device)
+    H = J.transpose(-1, -2) @ J
+    eye = torch.eye(n, dtype=dtype, device=device)
+    return (H + lam.to(dtype).to(device) * torch.diag_embed(
+        torch.diagonal(H, dim1=-2, dim2=-1)) + 1e-10 * eye).contiguous()
+
+
+def plain_gap(x, ref, A):
+    """max over systems of ||x - ref|| / (||ref|| kappa(A) n eps), infinity
+    norms, kappa the condition number of A: two backward-stable solves of
+    the same system differ by at most about kappa n eps."""
+    n = A.shape[-1]
+    A64 = A.double().cpu()
+    kappa = torch.linalg.norm(A64, float("inf"), dim=(-2, -1)) \
+        * torch.linalg.norm(torch.linalg.inv(A64), float("inf"),
+                            dim=(-2, -1))
+    rel = ((x - ref).double().abs().amax(-1)
+           / ref.double().abs().amax(-1)).cpu()
+    return float((rel / (kappa * n * torch.finfo(A.dtype).eps)).max())
+
+
+def small_solve_sweep(dev, gen):
+    """``utils.linalg.solve`` on one system (the small solve kernel) at
+    every n of 1..32 against ``torch.linalg.solve_ex`` on each system
+    alone, bit for bit, in float32 and float64 on both draws of
+    ``solve_systems`` (SWEEP_SYSTEMS each); the kernel against its plain
+    version within kappa n eps (``plain_gap``). Fails naming every n that
+    is not bitwise."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    from slam_eds_tpu_torch.utils.linalg import solve
+    misses, worst, calls = {}, 0.0, 0
+    before = lu.small_solve.launches
+    for dt in (torch.float32, torch.float64):
+        ints = torch.int32 if dt == torch.float32 else torch.int64
+        for kind in ("path", "general"):
+            bad = []
+            for n in range(1, lu.MAX_N + 1):
+                A = solve_systems(kind, n, SWEEP_SYSTEMS, dt, dev, gen)
+                b = torch.randn(SWEEP_SYSTEMS, n, generator=gen,
+                                dtype=torch.float64).to(dt).to(dev)
+                x = torch.stack([solve(A[i], b[i])
+                                 for i in range(SWEEP_SYSTEMS)])
+                want = torch.stack([torch.linalg.solve_ex(
+                    A[i], b[i][:, None], check_errors=False)[0][:, 0]
+                    for i in range(SWEEP_SYSTEMS)])
+                calls += SWEEP_SYSTEMS
+                if not torch.equal(x.view(ints), want.view(ints)):
+                    bad.append(n)
+                worst = max(worst, plain_gap(
+                    x, lu.small_solve_reference(A, b), A))
+            misses[f"{str(dt)[6:]}_{kind}"] = bad
+    if lu.small_solve.launches - before != calls:
+        fail(f"utils.linalg.solve took the small solve "
+             f"{lu.small_solve.launches - before} times of {calls}")
+    if any(misses.values()):
+        fail(f"the small solve is not torch.linalg.solve_ex at n = {misses}")
+    if not worst <= 1.0:
+        fail(f"the small solve is {worst} kappa n eps from its plain version")
+    return {"systems_per_n": SWEEP_SYSTEMS, "not_bitwise_at": misses,
+            "max_gap_to_plain_kappa_n_eps": worst}
+
+
 def relative_residual(A, x, b):
     """||A x - b|| / (||A|| ||x|| + ||b||) per system, max norms, in
     float64: the backward error of a solve."""
@@ -787,9 +882,12 @@ def phase_conditional(dev):
     at every size and batch of the path in float32 and float64 (its
     backward error at most n eps, ``SOLVE_RESIDUAL_EPS``), timed against
     ``solve_ex`` at n = 6, 7, 8 and 12, single and batched as the path
-    batches them, and the substitution kernel against its plain version.
-    Returns the kernels-line entries of the substitution and the condition
-    kernel."""
+    batches them; the small solve kernel swept over n = 1..32
+    (``small_solve_sweep``) and timed at n = 6, 7, 8 and 12 beside the
+    chain it replaced (``lu_factor_ex`` and the substitution kernel),
+    ``lu_factor_ex`` alone and ``solve_ex``. Returns the kernels-line
+    entries of the small solve and the condition kernel (the substitution
+    kernel's is ``phase_batched``'s, on its path's inputs)."""
     from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
     from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.utils.linalg import solve
@@ -964,11 +1062,14 @@ def phase_conditional(dev):
                     and res <= SOLVE_RESIDUAL_EPS * n_ * torch.finfo(dt).eps):
                 fail(f"the loops' solve at {name} is not torch's: "
                      f"{solves[name]}")
-    # the whole solve (torch's factorization and the substitution kernel)
-    # against solve_ex (its library call) at the loops' sizes, single and
-    # batched as the path batches them, device time per call; and the
-    # kernel against its plain version (torch.linalg.lu_solve) at the event
-    # LM's shape, with its times
+    sweep = small_solve_sweep(dev, gen)
+    # device us per call at the loops' sizes, single and batched as the
+    # path batches them: the path's solve and solve_ex (its library call);
+    # for one system also the small solve kernel, the chain it replaced
+    # (torch's factorization and the substitution kernel), the
+    # factorization alone and the small solve's plain version. At the
+    # event LM's shape the small solve against its plain version, with
+    # their times.
     solve_us = {}
     for n_, batch in ((6, 1), (7, 1), (7, 2), (8, 1), (12, 1), (12, 4)):
         G = torch.randn(batch, n_, n_, generator=gen, dtype=torch.float64)
@@ -977,26 +1078,41 @@ def phase_conditional(dev):
         b = torch.randn(batch, n_, generator=gen).to(dev)
         if batch == 1:
             A, b = A[0], b[0]
-        solve_us[f"{n_}x{batch}"] = {
-            "factor_and_substitute": device_us(lambda: solve(A, b)),
-            "solve_ex": device_us(lambda: torch.linalg.solve_ex(
-                A, b[..., None], check_errors=False))}
-        if (n_, batch) != (12, 1):
+        t = {"solve": device_us(lambda: solve(A, b)),
+             "solve_ex": device_us(lambda: torch.linalg.solve_ex(
+                 A, b[..., None], check_errors=False))}
+        solve_us[f"{n_}x{batch}"] = t
+        if batch != 1:
             continue
-        LU, piv, _ = torch.linalg.lu_factor_ex(A)
-        x_k = lu.lu_substitute_cuda(LU, piv, b)
-        x_p = lu.lu_substitute_reference(LU, piv, b)
-        err = float((x_k - x_p).abs().max())
-        if not torch.equal(x_k, x_p):
-            fail(f"the LU substitution kernel differs from lu_solve by {err}")
-        k_us = device_us(lambda: lu.lu_substitute_cuda(LU, piv, b))
-        p_us = device_us(lambda: lu.lu_substitute_reference(LU, piv, b))
-        # bytes: the factors, pivots and b in, x out; operations: n^2 FMAs
-        entry = kernel_entry(
-            err, k_us, p_us,
-            cuda_time_ms(lambda: lu.lu_substitute_cuda(LU, piv, b), 200),
-            cuda_time_ms(lambda: lu.lu_substitute_reference(LU, piv, b), 200),
-            roofline(4 * (n_ * n_ + 3 * n_), 2 * n_ * n_, k_us), p_us)
+        t["small_solve"] = device_us(lambda: lu.small_solve_cuda(A, b))
+        t["lu_factor_ex"] = device_us(lambda: torch.linalg.lu_factor_ex(A))
+        t["chain"] = device_us(lambda: lu.lu_substitute_cuda(
+            *torch.linalg.lu_factor_ex(A)[:2], b))
+        t["small_solve_plain"] = device_us(
+            lambda: lu.small_solve_reference(A, b))
+        if n_ != 12:
+            continue
+        x_k = lu.small_solve_cuda(A, b)
+        x_p = lu.small_solve_reference(A, b)
+        # bytes: A and b in, x out; operations: the factorization's
+        # 2n^3/3 and the substitutions' 2n^2
+        small = kernel_entry(
+            float((x_k - x_p).abs().max()), t["small_solve"],
+            t["small_solve_plain"],
+            cuda_time_ms(lambda: lu.small_solve_cuda(A, b), 200),
+            cuda_time_ms(lambda: lu.small_solve_reference(A, b), 200),
+            roofline(4 * (n_ * n_ + 2 * n_),
+                     2 * n_ ** 3 // 3 + 2 * n_ * n_, t["small_solve"]),
+            t["solve_ex"], cuda_time_ms(lambda: torch.linalg.solve_ex(
+                A, b[..., None], check_errors=False), 200))
+        if not plain_gap(x_k[None], x_p[None], A[None]) <= 1.0:
+            fail("the small solve kernel is more than kappa n eps from its "
+                 "plain version")
+    slower = [k for k, t in solve_us.items()
+              if "chain" in t and not t["small_solve"] < t["chain"]]
+    if slower:
+        fail(f"the small solve is slower than the chain it replaced at "
+             f"{slower}: {solve_us}")
     phase("conditional", checks=checks, timing_ms=timing,
           while_us_per_live_pass=live_us, pass_tail_us=tail_us,
           while_node_us_per_live_pass=None if tail_us is None
@@ -1004,10 +1120,10 @@ def phase_conditional(dev):
           while_us_stop_at_once=stop_us, set_condition_us=start_us,
           while_us_per_live_masked_pass=masked_us, host_if_us=host_if_us,
           us_added_per_kernel_in_a_body=body_kernel_us, solves=solves,
-          solve_device_us=solve_us)
+          small_solve_sweep=sweep, solve_device_us=solve_us)
     cond_roof = roofline(9, 0, start_us or stop_us)
-    return {"lu_substitute": {**entry, "solves": solves,
-                              "solve_device_us": solve_us},
+    return {"small_solve": {**small, "sweep": sweep,
+                            "solve_device_us": solve_us},
             "set_condition": {
                 "max_abs_err": 0.0,
                 "ms": None if start_us is None else start_us * 1e-3,
@@ -1445,8 +1561,8 @@ def phase_pipeline(dev):
     torch.cuda.synchronize()
 
     from slam_eds_tpu_torch.ops.coarse_tracker import CUTOFF_DOUBLINGS
-    from slam_eds_tpu_torch.ops.kernels.lu_solve import lu_substitute
-    for k in graphs.COUNTED:
+    from slam_eds_tpu_torch.ops.kernels.lu_solve import small_solve
+    for k in graphs.counters():
         k.launches = 0
     walls, syncs, passes = [], [], []
     window = ProfiledRun()
@@ -1479,7 +1595,7 @@ def phase_pipeline(dev):
     est = pipe.positions()
     launches = window.launches
     if any(launches[k.__name__]["slots"] != k.launches for k in (
-            pattern_sample, rasterize_bilinear, lu_substitute,
+            pattern_sample, rasterize_bilinear, small_solve,
             graphs.set_condition, graphs.pass_tail)):
         fail(f"the ledger's slots are not the counters: {launches}")
     captured = frame_captured_checks(pipe, frames[-1][1], rec.programs)
@@ -1529,10 +1645,13 @@ def phase_pipeline(dev):
         fail("no BA run or no frame marginalized")
     if counters.get("full_resets", 0) != 0:
         fail("the pipeline fell back to a full reset")
-    idle = [k for k in ("pattern_sample", "lu_substitute", "set_condition",
+    idle = [k for k in ("pattern_sample", "small_solve", "set_condition",
                         "pass_tail") if launches[k]["run"] <= 0]
     if idle:
-        fail(f"the frame path ran no launch of {idle} (profiler)")
+        fail(f"the frame path ran no launch of {idle} (ledger)")
+    if launches["lu_substitute"]["slots"]:
+        fail(f"the frame path solved a batch of systems: "
+             f"{launches['lu_substitute']}")
     if len(est) != PIPE_FRAMES or not np.isfinite(est).all():
         fail(f"trajectory has {len(est)} entries or is not finite")
     off = [tuple(x.shape) for x in _window_tensors(win)
@@ -1807,7 +1926,7 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
     torch.cuda.synchronize()
 
     warm0 = dict(graphs.CACHE.warmups)
-    for k in graphs.COUNTED:
+    for k in graphs.counters():
         k.launches = 0
     frame_s, packet_s, frame_syncs, packet_syncs = [], [], [], []
     ev_pos, ev_gt, usable, poses = [], [], [], []
@@ -2124,9 +2243,13 @@ def phase_eds(dev, label="eds", profiled=True):
     if sum(usable) < min_solves:
         fail(f"{sum(usable)} usable event solves, fewer than {min_solves}")
     if min(launches.values()) <= 0 or (window and min(
-            window.launches[k]["run"] for k in launches) <= 0):
+            window.launches[k]["run"] for k in (*launches, "small_solve"))
+            <= 0):
         fail(f"a kernel was not launched on the event path: "
              f"{window.launches}")
+    if window and window.launches["lu_substitute"]["slots"]:
+        fail(f"the event path solved a batch of systems: "
+             f"{window.launches['lu_substitute']}")
     raster = launches["rasterize_bilinear"] \
         - run["warmup_launches"]["rasterize_bilinear"]
     if raster != c["event_packets"]:
@@ -2963,6 +3086,54 @@ def event_lanes(eds, B):
     return states, torch.stack(efs), pts, iters
 
 
+def record_substitutions(fn):
+    """{(systems, n): (LU, piv, b)}: the inputs of the last substitution
+    kernel launch of each shape while ``fn()`` runs (copies)."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    seen, launch = {}, lu.lu_substitute_cuda
+
+    def record(LU, piv, b):
+        n = b.shape[-1]
+        seen[(b.numel() // n, n)] = (LU.clone(), piv.clone(), b.clone())
+        return launch(LU, piv, b)
+    lu.lu_substitute_cuda = record
+    try:
+        fn()
+    finally:
+        lu.lu_substitute_cuda = launch
+    return seen
+
+
+def substitution_entry(LU, piv, b):
+    """The substitution kernel against its plain version,
+    ``torch.linalg.lu_solve`` (also its library call), on one launch's
+    inputs: bitwise (the kernel takes the route torch's solve takes for
+    that many systems), device times, and the bound (the factors, pivots
+    and b read, x written; n^2 multiply-adds a system)."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    x_k = lu.lu_substitute_cuda(LU, piv, b)
+    x_p = lu.lu_substitute_reference(LU, piv, b)
+    err = float((x_k - x_p).abs().max())
+    if not torch.equal(x_k, x_p):
+        fail(f"the LU substitution kernel differs from lu_solve by {err} at "
+             f"{tuple(LU.shape)}")
+    n = b.shape[-1]
+    systems = b.numel() // n
+    k_us = device_us(lambda: lu.lu_substitute_cuda(LU, piv, b))
+    p_us = device_us(lambda: lu.lu_substitute_reference(LU, piv, b))
+    p_ms = cuda_time_ms(lambda: lu.lu_substitute_reference(LU, piv, b), 200)
+    return {"shape": list(LU.shape), "dtype": str(LU.dtype)[6:],
+            "reciprocal_route": lu.reciprocal_route(n, systems),
+            **kernel_entry(
+                err, k_us, p_us,
+                cuda_time_ms(lambda: lu.lu_substitute_cuda(LU, piv, b), 200),
+                p_ms,
+                roofline(LU.numel() * LU.element_size()
+                         + 4 * piv.numel() + 2 * b.numel() * b.element_size(),
+                         2 * systems * n * n, k_us),
+                p_us, p_ms)}
+
+
 def phase_batched(dev, eds):
     """The batched solver surface: ``batched_event_solves`` at B=4 on the
     event cell's shapes (its last keyframe, the finest event frames of four
@@ -2995,10 +3166,15 @@ def phase_batched(dev, eds):
     points' idepths nearly free: their largest gap, printed, reached
     1.8e-2 in a CPU rehearsal at this size, 2.6e-4 at the 99th percentile);
     then the lane-axis sampler on the BA lanes' taps and planes. Times: the
-    batched call against the B single calls."""
+    batched call against the B single calls. The substitution kernel, the
+    lanes' solve: its launches over one batched call of each kind (its
+    counter set to 0 just before), and against its plain version on the
+    inputs each last gave it (``substitution_entry``). Returns the
+    kernels-line entries of the lane-axis sampler and the substitution."""
     from slam_eds_tpu_torch import eval as ev
     from slam_eds_tpu_torch.ops import energy
     from slam_eds_tpu_torch.ops import event_tracker as et
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
     from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
     pipe = eds["pipe"]
     cam, cfg = pipe.cam, pipe.cfg
@@ -3050,6 +3226,11 @@ def phase_batched(dev, eds):
                 fail(f"batched_event_solves lane {b} differs from its single "
                      f"solve after {k} passes: {d}")
     ev_cpu = cpu_event_lane_gaps(states, efs, cam, pts, pipe.loss_scale, caps)
+    lu.lu_substitute.launches = 0
+    no_sync(lambda: batched_ev(cap))
+    ev_solves = lu.lu_substitute.launches
+    if ev_solves <= 0:
+        fail("batched_event_solves launched no LU substitution")
     ev_batched_s = wall_s(lambda: batched_ev(cap))
     ev_singles_s = wall_s(lambda: singles_ev(cap))
 
@@ -3068,8 +3249,12 @@ def phase_batched(dev, eds):
         return [energy.ba_iterate(lanes[b], planes[b], H, W, iterations=6)
                 for b in range(2)]
     ps.pattern_sample_lanes.launches = 0
+    lu.lu_substitute.launches = 0
     bst, be = no_sync(batched_ba)
     lane_launches = ps.pattern_sample_lanes.launches
+    lane_solves = lu.lu_substitute.launches
+    if lane_solves <= 0:
+        fail("batched_ba_windows launched no LU substitution")
     if lane_launches != 7:
         fail(f"batched_ba_windows launched the lane-axis sampler "
              f"{lane_launches} times, not 6 GN passes + 1")
@@ -3092,6 +3277,20 @@ def phase_batched(dev, eds):
     ba_singles_s = wall_s(singles_ba)
 
     taps = [record_taps(st_, planes[b], H, W) for b, st_ in enumerate(lanes)]
+    subs = record_substitutions(lambda: (batched_ev(cap), batched_ba()))
+    if not {(B, 12), (2, 7)} <= set(subs):
+        fail(f"the batched calls gave the substitution kernel (systems, n) "
+             f"{sorted(subs)}, not ({B}, 12) and (2, 7)")
+    subst = {"path": "eval.batched_ba_windows (B=2, the BA cell): the "
+                     "gauge projector's 7x7 systems, one per lane",
+             "launches": lane_solves, "launch_slots": lane_solves,
+             "shapes_seen": sorted(subs),
+             **substitution_entry(*subs[(2, 7)]),
+             "event_lanes": {
+                 "path": f"eval.batched_event_solves (B={B}): the event "
+                         "LM's 12x12 systems, one per lane",
+                 "launches": ev_solves, "launch_slots": ev_solves,
+                 **substitution_entry(*subs[(B, 12)])}}
     sampler = lane_sampler_entry(
         planes, torch.stack([t[1] for t in taps]),
         torch.stack([t[2] for t in taps]))
@@ -3103,8 +3302,9 @@ def phase_batched(dev, eds):
           event_batched_s=ev_batched_s,
           event_singles_s=ev_singles_s, ba_lanes=2,
           ba_lane_vs_single=ba_gaps, ba_batched_s=ba_batched_s,
-          ba_singles_s=ba_singles_s, lane_sampler=sampler)
-    return sampler
+          ba_singles_s=ba_singles_s, lane_sampler=sampler,
+          lu_substitute=subst)
+    return sampler, subst
 
 
 def wall_s(fn):
@@ -3150,7 +3350,7 @@ def main():
     phase_build_host(built["host"])
     cond = phase_conditional(dev)
     first = phase_eds(dev, label="eds-first", profiled=False)
-    lanes = phase_batched(dev, first)
+    lanes, subst = phase_batched(dev, first)
     kern = phase_kernel(dev)
     phase_ba(dev)
     frame_launches = phase_pipeline(dev)
@@ -3205,12 +3405,21 @@ def main():
          "source": "slam_eds_tpu_torch/csrc/pattern_sample.cu",
          "replaces": "slam_eds_tpu/ops/pallas/sample.py:84",
          "path": "eval.batched_ba_windows (B=2, the BA cell)", **lanes},
-        {"name": "lu_substitute", "route": "cuda",
+        {"name": "small_solve", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/lu_solve.cu",
          "replaces": "slam_eds_tpu/ops/event_tracker.py:273 (jnp.linalg."
                      "solve under XLA, no TPU kernel; also coarse_tracker."
                      "py:329, :333, energy.py:522)",
-         **counts("lu_substitute", frame), **cond["lu_substitute"]},
+         **counts("small_solve", frame),
+         "solves_by_n_frame_cell": frame["small_solve"]["by_n"],
+         "solves_by_n_event_cell": event["small_solve"]["by_n"],
+         **cond["small_solve"]},
+        {"name": "lu_substitute", "route": "cuda",
+         "source": "slam_eds_tpu_torch/csrc/lu_solve.cu",
+         "replaces": "slam_eds_tpu/ops/event_tracker.py:273 (jnp.linalg."
+                     "solve under XLA, no TPU kernel), for a batch of "
+                     "systems",
+         **subst},
         {"name": "set_condition", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/graph_cond.cu",
          "replaces": "slam_eds_tpu/models/pipeline.py:127-139 (lax.cond's "

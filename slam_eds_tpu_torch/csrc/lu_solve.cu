@@ -1,7 +1,11 @@
-// The substitution half of a small dense LU solve, A x = b from
-// P A = L U: the row interchanges, forward substitution with the unit
-// lower factor, back substitution with the upper one (sm_90a). One thread
-// per system; float32 or float64.
+// The loops' small dense solves, A x = b by LU with partial pivoting
+// (sm_90a), float32 or float64, two kernels:
+//
+// small_solve: the whole solve of a system in one warp (one launch; the
+// route of one system of 1 to 32 unknowns, utils/linalg.py).
+// lu_substitute: the substitution half alone, after torch's factorization
+// (torch.linalg.lu_factor_ex), one thread per system (the route of several
+// systems: vmapped lanes or a leading batch axis).
 //
 // The port's LM and GN loops solve a small system on every pass (the event
 // LM's 12x12, the coarse LM's 8x8 or 6x6, the window BA's 7x7 gauge
@@ -9,30 +13,66 @@
 // slam_eds_tpu/ops/event_tracker.py:273, ops/coarse_tracker.py:329 and
 // :333, ops/energy.py:522; cho_solve at :439); there is no TPU kernel. When
 // captured, each pass is the body of a conditional node of a CUDA graph
-// (graphs.py), and torch.linalg.solve_ex cannot be held there for a single
-// system of 9 to 32 unknowns: its solve is cuBLAS's batched getrs, whose
-// info is a host pointer, and a conditional body holds no copy to the host.
-// The factorization (torch.linalg.lu_factor_ex: cuSOLVER's getrf, or
-// cuBLAS's batched getrf for several systems) is held, so the port factors
-// with torch and substitutes here (utils/linalg.py).
+// (graphs.py), which holds no copy to the host, so torch.linalg.solve_ex
+// (whose single-system getrs reads its info on the host) cannot be used.
 //
-// Per system, with ipiv the factorization's 1-based LAPACK pivots:
+// Both kernels round as torch.linalg.solve_ex does on an H100 with torch
+// 2.11 and CUDA 12.8, operation by operation, so the loops keep the bits
+// they had before they could skip a pass.
+//
+// The factorization (small_solve), the order of cuSOLVER's getrf for one
+// system (its getrf_pivot kernel): right-looking and unblocked; at step k
+// the pivot is the largest |a_ik| over the rows i >= k of the current
+// order, ties to the lowest (isamax); rows k and p swap whole; the column
+// below the pivot is scaled by the pivot's reciprocal, l_ik = a_ik *
+// (1 / a_kk) (left as it is where the pivot is 0); every trailing element
+// takes a_ij = fma(-l_ik, a_kj, a_ij), k by k. tools/lu_order_probe.py
+// compared this order and 14 others (division, unfused or summed updates,
+// left-looking, LAPACK's recursive getrf2, blocked panels of 2 to 16) with
+// lu_factor_ex on 10,000 seeded systems at every n of 1..32, in float32
+// and float64, as the loops build them (J^T J + lam diag + 1e-10 I) and
+// general (N(0, 1) + 0.05 I): this order alone agrees in every factor and
+// pivot, at every n (0 of 1,280,000 systems differ); every other differs
+// in 10% to 100% of the systems at every n where it is not this order
+// (above 1; above the panel width for the blocked forms). The probe also
+// runs small_solve itself on the same systems: its x is bitwise
+// torch.linalg.solve_ex's on each system alone on all 1,280,000.
+//
+// The substitution (both kernels), with ipiv the factorization's 1-based
+// LAPACK pivots:
 //   for i = 0 .. n-1: swap y_i, y_{ipiv_i - 1}
 //   for i = 0 .. n-1: for j = 0 .. i-1: y_i = fma(-L_ij, y_j, y_i)
 //   for i = n-1 .. 0: for j = n-1 .. i+1: y_i = fma(-U_ij, y_j, y_i);
 //                     y_i = y_i * (1 / U_ii) (recip) or y_i / U_ii
-// Every operation rounds once, in this order: the order of torch's own
-// solve on an H100 with torch 2.11 and CUDA 12.8, measured
+// the order of torch's own solve after the factorization, measured
 // (chip_smoke.py, phase "conditional"): the reciprocal where torch takes
 // cuBLAS's batched getrs (9 to 32 unknowns, at most 2 systems), the
 // division where it takes two triangular solves (up to 8 unknowns, or 3
-// systems and more up to 17). So the solve is bitwise torch.linalg.solve_ex
-// at the path's sizes, and a captured loop bitwise its eager run.
+// systems and more up to 17); the wrapper passes the choice
+// (ops/kernels/lu_solve.reciprocal_route).
 //
-// What bounds it: n^2 + 2n values in, n out (1 KB at n = 12): far below a
-// microsecond of memory time at 3.35 TB/s; n^2 FMAs in one dependent chain
-// per system, so its time is latency, a few microseconds. A singular system
-// gives non-finite entries, as an LU solve does; nothing is checked.
+// small_solve's design: lane i of the warp holds row i of [A | b] in
+// registers (every index a compile-time one: loops unrolled over the
+// instance's width N, predicated on the runtime n where the instance is
+// generic). A row swap swaps the two lanes' row numbers, not their data.
+// Per pivot step: the arg-max over the lanes in five __shfl_xor_sync
+// rounds, a ballot to find the pivot's lane, one shuffle per column of the
+// pivot row (the b column included), one scale and the row's updates per
+// lane. Carrying b as column n does the forward substitution inside the
+// factorization in the order above (row i takes fma(-l_ik, y_k, y_i), k by
+// k). Back substitution: a ballot and one shuffle a step. Only x is
+// written; factors and pivots never leave the registers. One warp per
+// system, up to 4 warps a block.
+//
+// What bounds them: n^2 + n values in, n out (672 B at n = 12, float32):
+// under 0.001 us of memory time at 3.35 TB/s, and 2n^3/3 + 2n^2
+// operations, less still. small_solve's time is its dependent chain: n
+// pivot steps of five shuffle rounds, a ballot and the pivot row's
+// shuffles, then n back-substitution steps of a ballot and a shuffle;
+// about 1-2 us at n = 12 by that count, 5.5 us measured with the launch
+// (PERF.md). lu_substitute: n^2 FMAs in one dependent chain per system,
+// the factors read from device memory. A singular system gives non-finite
+// entries, as an LU solve does; nothing is checked.
 #include <cuda_runtime.h>
 
 namespace {
@@ -105,7 +145,161 @@ int launch(const T* LU, const int* ipiv, const T* b, T* x, int n,
   return (int)cudaGetLastError();
 }
 
+__device__ __forceinline__ float mul_(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float rcp_(float a) { return __frcp_rn(a); }
+__device__ __forceinline__ double rcp_(double a) { return __drcp_rn(a); }
+__device__ __forceinline__ float abs_(float a) { return fabsf(a); }
+__device__ __forceinline__ double abs_(double a) { return fabs(a); }
+__device__ __forceinline__ float inf_(float) {
+  return __int_as_float(0x7f800000);
+}
+__device__ __forceinline__ double inf_(double) {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarpsPerBlock = 4;
+
+// One system per warp. N is the instance's register width: the exact size
+// where FIXED (n == N, no predicate survives compilation), a bound on n
+// otherwise. Every shuffle and ballot is executed by all 32 lanes; the
+// predicates on k < n and j < n are uniform over the warp. No
+// __launch_bounds__: with one of 128 threads ptxas spilled 4 and 16 bytes
+// of the float64 instances at n = 7 and 12 to local memory; without it no
+// instance spills (nvcc -Xptxas -v, CUDA 12.8).
+template <typename T, int N, bool FIXED>
+__global__ void small_solve_kernel(const T* __restrict__ A,
+                                   const T* __restrict__ b, T* __restrict__ x,
+                                   int n_arg, long long systems, int recip) {
+  const int n = FIXED ? N : n_arg;
+  const long long s =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (s >= systems) return;  // the whole warp
+  const bool live = lane < n;
+  const T* a = A + s * n * n;
+  T r[N + 1];  // row `row` of [A | b]: r[j] for column j, r[N] for b
+#pragma unroll
+  for (int j = 0; j < N; ++j) r[j] = (live && j < n) ? a[lane * n + j] : T(0);
+  r[N] = live ? b[s * n + lane] : T(0);
+  int row = lane;  // the row of the current order this lane holds
+
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (k < n) {
+      // the pivot: the largest |a_ik| over the rows i >= k, ties to the
+      // lowest row (isamax); a NaN ranks as infinite, so that every lane
+      // agrees on the pivot whatever the values
+      const bool cand = live && row >= k;
+      T best = cand ? abs_(r[k]) : T(-1);
+      if (best != best) best = inf_(best);
+      int arg = cand ? row : 64;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        const T ob = __shfl_xor_sync(kFullMask, best, off);
+        const int oa = __shfl_xor_sync(kFullMask, arg, off);
+        if (ob > best || (ob == best && oa < arg)) {
+          best = ob;
+          arg = oa;
+        }
+      }
+      const int src = __ffs(__ballot_sync(kFullMask, row == arg)) - 1;
+      if (row == k)
+        row = arg;
+      else if (row == arg)
+        row = k;
+      const T piv = __shfl_sync(kFullMask, r[k], src);
+      const bool below = live && row > k;
+      T l = r[k];
+      if (below && piv != T(0)) l = mul_(r[k], rcp_(piv));
+      if (below) r[k] = l;
+#pragma unroll
+      for (int j = k + 1; j <= N; ++j) {
+        if (j < n || j == N) {  // the trailing columns and b
+          const T u = __shfl_sync(kFullMask, r[j], src);
+          if (below) r[j] = fma_(-l, u, r[j]);
+        }
+      }
+    }
+  }
+
+  // back substitution: r[N] holds y_row after the forward substitution
+  T y = r[N];
+#pragma unroll
+  for (int j = N - 1; j >= 0; --j) {
+    if (j < n) {
+      const int src = __ffs(__ballot_sync(kFullMask, row == j)) - 1;
+      T yj = y;
+      if (row == j) yj = recip ? mul_(y, rcp_(r[j])) : div_(y, r[j]);
+      yj = __shfl_sync(kFullMask, yj, src);
+      if (row == j) y = yj;
+      if (live && row < j) y = fma_(-r[j], yj, y);
+    }
+  }
+  if (live) x[s * n + row] = y;
+}
+
+template <typename T, int N, bool FIXED>
+void small_solve_launch(const T* A, const T* b, T* x, int n,
+                        long long systems, int recip, cudaStream_t st) {
+  const long long warps =
+      systems < kWarpsPerBlock ? systems : (long long)kWarpsPerBlock;
+  const unsigned blocks =
+      (unsigned)((systems + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  small_solve_kernel<T, N, FIXED><<<blocks, (unsigned)(32 * warps), 0, st>>>(
+      A, b, x, n, systems, recip);
+}
+
+// The instances: the loops' sizes exactly (the coarse LM's 6 and 8, the BA
+// gauge's 7, the event LM's 12), every other n by the next width of 8, 16
+// or 32. The exact ones are about 0.7 to 3 us a launch faster than the
+// width that would take their n, the most at n = 12 (an H100, PERF.md;
+// tools/lu_order_probe.py times both, the widths at those n built from
+// tools/small_solve_instances.cu).
+template <typename T>
+int small_solve(const T* A, const T* b, T* x, int n, long long systems,
+                int recip, void* stream) {
+  if (systems == 0 || n == 0) return 0;
+  if (n < 0 || n > kMaxN || systems < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n) {
+    case 6: small_solve_launch<T, 6, true>(A, b, x, n, systems, recip, st);
+      break;
+    case 7: small_solve_launch<T, 7, true>(A, b, x, n, systems, recip, st);
+      break;
+    case 8: small_solve_launch<T, 8, true>(A, b, x, n, systems, recip, st);
+      break;
+    case 12: small_solve_launch<T, 12, true>(A, b, x, n, systems, recip, st);
+      break;
+    default:
+      if (n <= 8)
+        small_solve_launch<T, 8, false>(A, b, x, n, systems, recip, st);
+      else if (n <= 16)
+        small_solve_launch<T, 16, false>(A, b, x, n, systems, recip, st);
+      else
+        small_solve_launch<T, 32, false>(A, b, x, n, systems, recip, st);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int small_solve_f32(const float* A, const float* b, float* x,
+                               int n, long long systems, int recip,
+                               void* stream) {
+  return small_solve<float>(A, b, x, n, systems, recip, stream);
+}
+
+extern "C" int small_solve_f64(const double* A, const double* b, double* x,
+                               int n, long long systems, int recip,
+                               void* stream) {
+  return small_solve<double>(A, b, x, n, systems, recip, stream);
+}
 
 extern "C" int lu_solve_f32(const float* LU, const int* ipiv, const float* b,
                             float* x, int n, long long systems, int recip,

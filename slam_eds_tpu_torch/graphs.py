@@ -82,6 +82,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import itertools
 import time
 import weakref
 
@@ -90,7 +91,8 @@ from torch.utils import _pytree as pytree
 
 from .ops.kernels.build import build_library
 from .ops.kernels.pattern_sample import pattern_sample, pattern_sample_lanes
-from .ops.kernels.lu_solve import lu_substitute
+from .ops.kernels.lu_solve import (SMALL_SOLVE_BY_N, lu_substitute,
+                                   small_solve)
 from .ops.kernels.rasterize import rasterize_bilinear
 
 _COND_LIB = None
@@ -140,7 +142,7 @@ pass_tail.launches = 0
 
 # the launch counters a replay has to advance
 COUNTED = (pattern_sample, pattern_sample_lanes, rasterize_bilinear,
-           lu_substitute, set_condition, pass_tail)
+           lu_substitute, small_solve, set_condition, pass_tail)
 
 _SYNC_MODE = 0
 
@@ -171,8 +173,26 @@ def _sync_mode():
         torch.cuda.set_sync_debug_mode(prev)
 
 
+def counters():
+    """The launch counters a replay has to advance: ``COUNTED``, then the
+    small solve's per number of unknowns, each made at the small solve's
+    first launch at that size. The tuple only
+    grows at its end, so a list of counts taken earlier is a prefix, its
+    missing counts 0 (``_sub``, ``_add``)."""
+    return (*COUNTED, *SMALL_SOLVE_BY_N.values())
+
+
 def _counts():
-    return [k.launches for k in COUNTED]
+    return [k.launches for k in counters()]
+
+
+def _sub(a, b):
+    return [x - y for x, y in itertools.zip_longest(a, b, fillvalue=0)]
+
+
+def _add(a, b, times=1):
+    return [x + times * y
+            for x, y in itertools.zip_longest(a, b, fillvalue=0)]
 
 
 # Launches run under conditional nodes. Every node of the process has a
@@ -199,32 +219,34 @@ MAX_RECORDS = 1 << 18
 _RECORDS = {}
 _RECORD_FREE = {}
 _NESTED = []
-_REPLAYED = [0] * len(COUNTED)
-_OUTSIDE = [0] * len(COUNTED)
+_REPLAYED = []
+_OUTSIDE = []
 
 
 def launch_ledger():
     """{kernel: (launch slots, launches run)} so far in the process, per
-    kernel of ``COUNTED``: the slots are the counters; the launches run
+    counter (``counters``): the slots are the counters; the launches run
     are the counters less the slots replays added, plus the launches that
     ran in replays (those outside every node, and each node's body slots
     times its taken count). Reads the taken counts back (a synchronising
     copy). Compare two ledgers taken with no change of a counter by hand
     between them."""
     slots = _counts()
-    runs = [c - r + o for c, r, o in zip(slots, _REPLAYED, _OUTSIDE)]
+    runs = _add(_sub(slots, _REPLAYED), _OUTSIDE)
     for dev, nodes in _NODE_SLOTS.items():
         taken = _TAKEN[dev][:len(nodes)].tolist()
         for t, direct in zip(taken, nodes):
             if t:
-                runs = [r + t * d for r, d in zip(runs, direct)]
-    return {k.__name__: (s, r) for k, s, r in zip(COUNTED, slots, runs)}
+                runs = _add(runs, direct, t)
+    return {k.__name__: (s, r) for k, s, r in zip(counters(), slots, runs)}
 
 
 def ledger_delta(before, after):
-    """{kernel: {"slots": ..., "run": ...}} between two ``launch_ledger``s."""
-    return {k: {"slots": after[k][0] - before[k][0],
-                "run": after[k][1] - before[k][1]} for k in after}
+    """{kernel: {"slots": ..., "run": ...}} between two ``launch_ledger``s
+    (a counter made between them starts from 0)."""
+    return {k: {"slots": s - before.get(k, (0, 0))[0],
+                "run": r - before.get(k, (0, 0))[1]}
+            for k, (s, r) in after.items()}
 
 # ---------------------------------------------------------------------------
 # branches and loops on the device
@@ -393,16 +415,16 @@ def _node_body(kind, pred, counter=None, passes=1):
             if not _OPEN_BODIES else contextlib.nullcontext())
     _OPEN_BODIES.append(body)
     before = _counts()
-    _NESTED.append([0] * len(COUNTED))
+    _NESTED.append([])
     with pool, torch.cuda.stream(body):
         yield _Node(kind, dev, number, handle, body, passes)
     nested = _NESTED.pop()
-    total = [a - b for a, b in zip(_counts(), before)]
-    nodes[number] = [t - n for t, n in zip(total, nested)]
-    for k, t in zip(COUNTED, total):
+    total = _sub(_counts(), before)
+    nodes[number] = _sub(total, nested)
+    for k, t in zip(counters(), total):
         k.launches += (passes - 1) * t
     if _NESTED:
-        _NESTED[-1] = [a + passes * t for a, t in zip(_NESTED[-1], total)]
+        _NESTED[-1] = _add(_NESTED[-1], total, passes)
     _OPEN_BODIES.pop()
     if _CAPTURE:
         _CAPTURE["body_graph_nodes"].append(capture_nodes(body))
@@ -538,10 +560,10 @@ class CapturedProgram:
         with torch.cuda.stream(side):
             fn(static_tree)
         torch.cuda.current_stream().wait_stream(side)
-        self.warmup_launches = [a - b for a, b in zip(_counts(), before)]
+        self.warmup_launches = _sub(_counts(), before)
         before = _counts()
         self.graph = torch.cuda.CUDAGraph()
-        _NESTED.append([0] * len(COUNTED))
+        _NESTED.append([])
         _CAPTURE.update(nodes={IF: 0, WHILE: 0}, body_graph_nodes=[],
                         records=[], rows=[])
         try:
@@ -570,10 +592,9 @@ class CapturedProgram:
                       "if": capture["nodes"][IF],
                       "while": capture["nodes"][WHILE]}
         in_nodes = _NESTED.pop()
-        after = _counts()
-        self.launches = [a - b for a, b in zip(after, before)]
-        self.outside = [a - n for a, n in zip(self.launches, in_nodes)]
-        for k, n in zip(COUNTED, before):
+        self.launches = _sub(_counts(), before)
+        self.outside = _sub(self.launches, in_nodes)
+        for k, n in itertools.zip_longest(counters(), before, fillvalue=0):
             k.launches = n
         self.replays = 0
 
@@ -584,10 +605,10 @@ class CapturedProgram:
         with _sync_mode():
             torch._foreach_copy_(self.static, leaves)
             self.graph.replay()
-        for i, (k, n) in enumerate(zip(COUNTED, self.launches)):
+        for k, n in zip(counters(), self.launches):
             k.launches += n
-            _REPLAYED[i] += n
-            _OUTSIDE[i] += self.outside[i]
+        _REPLAYED[:] = _add(_REPLAYED, self.launches)
+        _OUTSIDE[:] = _add(_OUTSIDE, self.outside)
         self.replays += 1
         return self.outputs
 
@@ -599,7 +620,7 @@ class GraphCache:
 
     def __init__(self):
         self.programs = {}
-        # warm-up launches per kernel of ``COUNTED``, over every capture,
+        # warm-up launches per counter (``counters``), over every capture,
         # and the host seconds the warm-ups and captures took
         self.warmups = {k.__name__: 0 for k in COUNTED}
         self.capture_s = 0.0
@@ -614,8 +635,10 @@ class GraphCache:
             prog.capture_s = time.perf_counter() - t0
             self.capture_s += prog.capture_s
             self.programs[full_key] = prog
-            for k, n in zip(COUNTED, prog.warmup_launches):
-                self.warmups[k.__name__] += n
+            for k, n in zip(counters(), prog.warmup_launches):
+                if n:
+                    self.warmups[k.__name__] = \
+                        self.warmups.get(k.__name__, 0) + n
         return prog(inputs)
 
     def replays(self) -> int:

@@ -1,18 +1,35 @@
-"""The substitution half of a small dense LU solve on the card.
+"""The loops' small dense solves on the card: two kernels of
+``csrc/lu_solve.cu`` (hand-written for ``sm_90a``, float32 or float64, up
+to 32 unknowns). Which route each size and system count takes is
+``utils.linalg.solve``'s:
 
-The CUDA kernel ``csrc/lu_solve.cu`` (hand-written for ``sm_90a``: one
-thread per system, up to 32 unknowns, float32 or float64) takes the factors
-and pivots of ``torch.linalg.lu_factor_ex`` and a right-hand side, and
-substitutes in the order of torch's own solve (see the header of the .cu
-file), so ``utils.linalg.solve`` is bitwise ``torch.linalg.solve_ex`` at
-the loops' sizes and can be captured inside a conditional node.
-``lu_substitute_reference`` is the plain version, ``torch.linalg.lu_solve``.
+* ``small_solve``, one system (A [n, n], b [n]): the whole solve in one
+  launch, a warp per system, factors and pivots kept in registers. It
+  factors in the order of cuSOLVER's getrf for one system (the order of
+  ``torch.linalg.lu_factor_ex`` on one system, bit for bit at every n of
+  1..32 on an H100 with torch 2.11 and CUDA 12.8,
+  ``tools/lu_order_probe.py``) and substitutes in the order of torch's own
+  solve (``reciprocal_route(n, 1)``), so it is bitwise
+  ``torch.linalg.solve_ex`` there. Leading axes are taken too, each system
+  solved as if alone (a test over many systems; the path gives one).
+  ``small_solve_reference`` is its algorithm step by step in torch ops
+  (each product rounded before it is subtracted, where the kernel fuses
+  them: within kappa n eps of the kernel, kappa the condition number).
+* ``lu_substitute``, several systems (vmapped lanes, through ``lu_op``, or
+  a leading batch axis): the substitution half after torch's factorization
+  (``torch.linalg.lu_factor_ex``, cuBLAS's batched getrf for several
+  systems), one thread per system, in the order of torch's own solve for
+  that many systems. ``lu_substitute_reference`` is its plain version,
+  ``torch.linalg.lu_solve``.
 
-``lu_substitute`` dispatches on the device: a CPU tensor takes the plain
-version, a CUDA tensor launches the kernel (a build or launch failure
-raises). ``lu_substitute.launches`` counts kernel launches. ``lu_op`` is
-the same as an operator whose ``torch.vmap`` rule substitutes every lane in
-one launch.
+Each wrapper dispatches on the device: a CPU tensor takes the plain
+version, a CUDA tensor launches the kernel (every check, build or launch
+failure raises; nothing falls back). ``small_solve.launches`` and
+``lu_substitute.launches`` count kernel launches, and
+``SMALL_SOLVE_BY_N[n].launches`` the small solves of n unknowns (a counter
+made at the first launch at that n). ``lu_op``
+is ``lu_substitute`` as an operator whose ``torch.vmap`` rule substitutes
+every lane in one launch.
 """
 from __future__ import annotations
 
@@ -36,10 +53,67 @@ def reciprocal_route(n: int, systems: int) -> bool:
     return 9 <= n <= 32 and systems <= 2
 
 
+class LaunchCount:
+    """A launch counter of one size of a kernel, kept beside the kernel's
+    own and counted by ``graphs.launch_ledger`` as a kernel is."""
+
+    def __init__(self, name):
+        self.__name__ = name
+        self.launches = 0
+
+
+# {n: the small solve's launch counter at n}, in the order of first launch
+SMALL_SOLVE_BY_N = {}
+
+
 def lu_substitute_reference(LU, piv, b):
     """Plain torch version: LU [..., n, n], piv [..., n] int32 (1-based),
     b [..., n] -> x [..., n]."""
     return torch.linalg.lu_solve(LU, piv, b[..., None])[..., 0]
+
+
+def small_lu_reference(A, b):
+    """The small solve's factorization in torch ops, each system as if
+    alone: A [..., n, n], b [..., n] -> ([L\\U | y] [..., n, n + 1], the
+    1-based LAPACK pivots [..., n] int32). LU with partial pivoting on
+    [A | b], right-looking: the pivot the largest |a_ik| over the rows i >=
+    k (ties to the lowest row, a NaN the largest), rows k and p swapped
+    whole, the column below scaled by the pivot's reciprocal (left as it is
+    where the pivot is 0), the trailing rows and b updated, so the last
+    column ends as the forward substitution's y."""
+    n = A.shape[-1]
+    M = torch.cat([A, b[..., None]], -1)
+    lead = M.shape[:-2]
+    pivots = []
+    for k in range(n):
+        p = k + M[..., k:, k].abs().argmax(-1)
+        pivots.append(p + 1)
+        idx = p[..., None, None].expand(*lead, 1, n + 1)
+        row_p = M.gather(-2, idx)
+        M.scatter_(-2, idx, M[..., k:k + 1, :].clone())
+        M[..., k:k + 1, :] = row_p
+        piv = M[..., k, k:k + 1]
+        col = M[..., k + 1:, k]
+        M[..., k + 1:, k] = torch.where(piv != 0, col * (1 / piv), col)
+        M[..., k + 1:, k + 1:] -= M[..., k + 1:, k, None] * M[..., k, None,
+                                                             k + 1:]
+    return M, torch.stack(pivots, -1).to(torch.int32)
+
+
+def small_solve_reference(A, b):
+    """The small solve's algorithm in torch ops: A [..., n, n], b [..., n]
+    -> x [..., n], each system as if alone: ``small_lu_reference``, then
+    back substitution, by the reciprocal of each diagonal entry or by
+    division as ``reciprocal_route(n, 1)`` says."""
+    n = A.shape[-1]
+    M, _ = small_lu_reference(A, b)
+    y = M[..., n].clone()
+    recip = reciprocal_route(n, 1)
+    for j in reversed(range(n)):
+        u = M[..., j, j]
+        y[..., j] = y[..., j] * (1 / u) if recip else y[..., j] / u
+        y[..., :j] -= M[..., :j, j] * y[..., j, None]
+    return y
 
 
 def load():
@@ -51,6 +125,12 @@ def load():
         for name in ("lu_solve_f32", "lu_solve_f64"):
             fn = getattr(built.lib, name)
             fn.argtypes = ([ctypes.c_void_p] * 4
+                           + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        for name in ("small_solve_f32", "small_solve_f64"):
+            fn = getattr(built.lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * 3
                            + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                               ctypes.c_void_p])
             fn.restype = ctypes.c_int
@@ -92,6 +172,53 @@ def lu_substitute_cuda(LU, piv, b):
         raise RuntimeError(f"lu_solve kernel launch failed: {msg}")
     lu_substitute.launches += 1
     return x
+
+
+def small_solve_cuda(A, b):
+    """Launch the small solve, one warp per system over the leading axes;
+    every check raises on what it does not take."""
+    if not (A.is_cuda and b.is_cuda and A.device == b.device):
+        raise ValueError("small_solve_cuda needs A and b on one CUDA device")
+    if A.dtype != b.dtype or A.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"float32 or float64 required, got {A.dtype}, "
+                        f"{b.dtype}")
+    n = A.shape[-1]
+    if (A.dim() < 2 or A.shape[-2] != n or b.shape != A.shape[:-1]
+            or not 1 <= n <= MAX_N):
+        raise ValueError(f"A must be [..., n, n] and b [..., n] with 1 <= n "
+                         f"<= {MAX_N}; got {tuple(A.shape)}, "
+                         f"{tuple(b.shape)}")
+    if not (A.is_contiguous() and b.is_contiguous()):
+        raise ValueError("small_solve_cuda needs contiguous A and b")
+    x = torch.empty_like(b)
+    lib = load().lib
+    fn = lib.small_solve_f32 if A.dtype == torch.float32 \
+        else lib.small_solve_f64
+    with torch.cuda.device(A.device):
+        rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), n, b.numel() // n,
+                int(reciprocal_route(n, 1)),
+                torch.cuda.current_stream(A.device).cuda_stream)
+    if rc != 0:
+        msg = lib.lu_solve_error_string(rc).decode()
+        raise RuntimeError(f"small_solve kernel launch failed: {msg}")
+    small_solve.launches += 1
+    if n not in SMALL_SOLVE_BY_N:
+        SMALL_SOLVE_BY_N[n] = LaunchCount(f"small_solve_n{n}")
+    SMALL_SOLVE_BY_N[n].launches += 1
+    return x
+
+
+def small_solve(A, b):
+    """Device dispatch: CPU tensors -> ``small_solve_reference``; CUDA
+    tensors -> the kernel (raises on failure)."""
+    if b.device.type == "cpu":
+        return small_solve_reference(A, b)
+    if b.device.type == "cuda":
+        return small_solve_cuda(A, b)
+    raise ValueError(f"small_solve: unsupported device {b.device}")
+
+
+small_solve.launches = 0
 
 
 def lu_substitute(LU, piv, b):

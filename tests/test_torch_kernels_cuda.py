@@ -26,6 +26,14 @@ call on the CPU within 1e-3 px.
 ``splat_idepth`` sums in 64-bit fixed point with integer ``index_add_``: two
 launches on the card, and the CPU, give the same grid bitwise.
 
+The loops' small solve (``csrc/lu_solve.cu``'s ``small_solve``, one warp
+per system): ``utils.linalg.solve`` on one system takes it at every n of
+1..32 and is bitwise ``torch.linalg.solve_ex`` there, in float32 and
+float64; over many systems in one launch it is within kappa n eps of its
+plain version (it fuses each product into its update, the plain version
+rounds it first); captured in a WHILE body, also nested in an IF body, it
+runs only in the passes that run (``graphs.launch_ledger``).
+
 ``parallel.dryrun.dryrun_multichip(2, "cuda")`` runs with two spawned ranks
 sharing the card over gloo and holds itself to the JAX dry run's bounds.
 
@@ -455,9 +463,8 @@ def test_graph_replays_count_kernel_launches(card):
     first = cache.run("t", fn, x)       # warm-up, capture, then a replay
     n1 = (ps.pattern_sample.launches, rz.rasterize_bilinear.launches)
     assert n1 == (n0[0] + 2, n0[1] + 2)
-    assert cache.warmups == {"pattern_sample": 1, "pattern_sample_lanes": 0,
-                             "rasterize_bilinear": 1, "lu_substitute": 0,
-                             "set_condition": 0, "pass_tail": 0}
+    assert cache.warmups == {**{k.__name__: 0 for k in graphs.COUNTED},
+                             "pattern_sample": 1, "rasterize_bilinear": 1}
     with graphs.sync_check("error"):
         for k in range(3):
             x2 = dict(x, xs=torch.rand(4096, device=card) * 64)
@@ -606,10 +613,11 @@ def test_captured_if_loop_is_bitwise_its_eager_run(card, stop):
 @pytest.mark.parametrize("stop", [0, 3, 10])
 def test_launch_ledger_counts_the_passes_that_ran(card, stop):
     """Over one replay of a loop with a cap of 10 that stops after
-    ``stop`` passes, ``graphs.launch_ledger`` counts 10 slots of the LU
-    substitution and of the pass tail (a slot per pass the cap allows) and
-    ``stop`` launches run of each (the pass tail's ``taken`` count); the
-    condition kernel, which starts the loop, runs once."""
+    ``stop`` passes, ``graphs.launch_ledger`` counts 10 slots of the small
+    solve (also under its size, 12) and of the pass tail (a slot per pass
+    the cap allows) and ``stop`` launches run of each (the pass tail's
+    ``taken`` count), none of the LU substitution; the condition kernel,
+    which starts the loop, runs once."""
     from slam_eds_tpu_torch import graphs
     x = _loop_inputs(card, stop)
     fn = _solve_loop(stop, 10)
@@ -618,9 +626,63 @@ def test_launch_ledger_counts_the_passes_that_ran(card, stop):
     before = graphs.launch_ledger()
     cache.run("loop", fn, x)
     d = graphs.ledger_delta(before, graphs.launch_ledger())
-    assert d["lu_substitute"] == {"slots": 10, "run": stop}
+    assert d["small_solve"] == {"slots": 10, "run": stop}
+    assert d["small_solve_n12"] == {"slots": 10, "run": stop}
+    assert d["lu_substitute"] == {"slots": 0, "run": 0}
     assert d["pass_tail"] == {"slots": 10, "run": stop}
     assert d["set_condition"] == {"slots": 1, "run": 1}
+
+
+# A size's first small solve captured in an IF body that the warm-up skips
+# (its branch false): run in a fresh process, where no size has launched.
+_FIRST_SIZE_IN_A_CAPTURE = """
+import json, torch
+from slam_eds_tpu_torch import graphs
+from slam_eds_tpu_torch.device import set_numerics
+from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+from slam_eds_tpu_torch.utils.linalg import solve
+set_numerics()
+dev = torch.device("cuda")
+A12 = torch.eye(12, device=dev) * 2.0
+solve(A12, torch.ones(12, device=dev))
+def fn(x):
+    return graphs.cond(x["p"], lambda c: (solve(x["A"], c[0]),), (x["b"],))
+x = {"p": torch.zeros((), dtype=torch.bool, device=dev),
+     "A": torch.eye(5, device=dev) * 2.0, "b": torch.ones(5, device=dev)}
+cache = graphs.GraphCache()
+cache.run("f", fn, x)                # warm-up (branch skipped), capture
+made = sorted(lu.SMALL_SOLVE_BY_N)
+before = graphs.launch_ledger()
+cache.run("f", fn, x)
+x["p"].fill_(True)
+out = graphs.copy_out(cache.run("f", fn, x))[0]
+d = graphs.ledger_delta(before, graphs.launch_ledger())
+print(json.dumps({"made": made, "n5": d["small_solve_n5"],
+                  "n12": d["small_solve_n12"], "all": d["small_solve"],
+                  "x": out.tolist()}))
+"""
+
+
+@pytest.mark.cuda
+def test_launch_ledger_takes_a_size_first_launched_in_a_capture(card):
+    """In a fresh process one 12x12 solve runs eagerly, then a 5x5 solve
+    is first met while an IF body that the warm-up skipped is captured: its
+    counter is made during the capture and joins the ledger, two replays
+    (the branch false, then true) count two slots and one launch run of
+    it, the 12x12 counter keeps its count, and the taken branch solves."""
+    import json
+    import subprocess
+    proc = subprocess.run([sys.executable, "-c", _FIRST_SIZE_IN_A_CAPTURE],
+                          cwd=Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["made"] == [5, 12]
+    assert got["n5"] == {"slots": 2, "run": 1}
+    assert got["all"] == {"slots": 2, "run": 1}
+    assert got["n12"] == {"slots": 0, "run": 0}
+    assert got["x"] == [0.5] * 5
 
 
 @pytest.mark.cuda
@@ -652,8 +714,8 @@ def test_loop_records_go_back_with_their_program(card):
 def test_while_node_nested_in_an_if_body(card, taken):
     """A WHILE node inside an IF node's body (the event LM inside the
     gate's retries): bitwise the eager run (a host ``if`` around the masked
-    loop) on both branches, the loop's passes run only where the branch
-    was taken."""
+    loop) on both branches, the loop's passes, and its small solves, run
+    only where the branch was taken."""
     from slam_eds_tpu_torch import graphs
     x = dict(_loop_inputs(card, 5), p=torch.full((), taken, device=card))
     loop = _solve_loop(4, 10)
@@ -676,6 +738,7 @@ def test_while_node_nested_in_an_if_body(card, taken):
         assert torch.equal(a, b)
     assert int(got[1]) == (4 if taken else 0)
     assert d["pass_tail"] == {"slots": 10, "run": 4 if taken else 0}
+    assert d["small_solve"] == {"slots": 10, "run": 4 if taken else 0}
     (prog,) = cache.programs.values()
     assert prog.nodes["while"] == 1 and prog.nodes["if"] == 1
 
@@ -685,8 +748,9 @@ def test_while_node_nested_in_an_if_body(card, taken):
 @pytest.mark.parametrize("n,batch", [(6, 1), (7, 1), (7, 2), (8, 1), (12, 1),
                                      (12, 4), (68, 1)])
 def test_loop_solve_is_solve_ex_at_the_path_sizes(card, n, batch, dtype):
-    """``utils.linalg.solve`` (torch's factorization and the substitution
-    kernel up to 32 unknowns, two triangular solves above) at every size
+    """``utils.linalg.solve`` (the small solve kernel for one system up to
+    32 unknowns, torch's factorization and the substitution kernel for a
+    batch, two triangular solves above 32) at every size
     and batch of the path (the coarse LM's 6 and 8, the BA gauge's 7, the
     event LM's 12, the window BA's reduced 68) in float32 and float64:
     bitwise ``torch.linalg.solve_ex``, and its normwise relative residual
@@ -707,6 +771,81 @@ def test_loop_solve_is_solve_ex_at_the_path_sizes(card, n, batch, dtype):
     res = r.abs().amax(-1) / (A64.abs().sum(-1).amax(-1)
                               * x64.abs().amax(-1) + b64.abs().amax(-1))
     assert float(res.max()) <= n * torch.finfo(dtype).eps, float(res.max())
+
+
+def _sweep_systems(card, kind, n, dtype, seed, systems=8):
+    gen = torch.Generator().manual_seed(seed)
+    A = chip_smoke.solve_systems(kind, n, systems, dtype, card, gen)
+    b = torch.randn(systems, n, generator=gen,
+                    dtype=torch.float64).to(dtype).to(card)
+    return A, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["path", "general"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_small_solve_is_solve_ex_at_every_size(card, dtype, kind):
+    """``utils.linalg.solve`` on one system takes the small solve kernel
+    at every n of 1..32 and is bitwise ``torch.linalg.solve_ex`` on that
+    system, on both of ``chip_smoke.solve_systems``' draws; the sizes that
+    are not are named."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    from slam_eds_tpu_torch.utils.linalg import solve
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    bad = []
+    for n in range(1, lu.MAX_N + 1):
+        A, b = _sweep_systems(card, kind, n, dtype, n)
+        before = lu.small_solve.launches
+        x = torch.stack([solve(A[i], b[i]) for i in range(len(A))])
+        assert lu.small_solve.launches - before == len(A)
+        want = torch.stack([torch.linalg.solve_ex(
+            A[i], b[i][:, None], check_errors=False)[0][:, 0]
+            for i in range(len(A))])
+        if not torch.equal(x.view(ints), want.view(ints)):
+            bad.append(n)
+    assert not bad, f"not bitwise solve_ex at n = {bad}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_small_solve_kernel_matches_its_plain_version(card, dtype):
+    """The kernel over many systems in one launch (a warp each) against
+    ``small_solve_reference``: within kappa n eps in the infinity norm
+    (``chip_smoke.plain_gap``; the kernel fuses each product into its
+    update, the plain version rounds it first), each system as if alone."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    for kind in ("path", "general"):
+        for n in (1, 2, 5, 6, 7, 8, 9, 12, 16, 17, 31, 32):
+            A, b = _sweep_systems(card, kind, n, dtype, 50 + n, systems=37)
+            x = lu.small_solve_cuda(A, b)
+            assert torch.isfinite(x).all()
+            assert chip_smoke.plain_gap(
+                x, lu.small_solve_reference(A, b), A) <= 1.0
+            one = lu.small_solve_cuda(A[5].contiguous(), b[5].contiguous())
+            assert torch.equal(one, x[5])
+
+
+@pytest.mark.cuda
+def test_small_solve_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    A = torch.eye(6, device=card)
+    b = torch.ones(6, device=card)
+    with pytest.raises(ValueError):
+        lu.small_solve_cuda(A.cpu(), b)
+    with pytest.raises(TypeError):
+        lu.small_solve_cuda(A.half(), b.half())
+    with pytest.raises(TypeError):
+        lu.small_solve_cuda(A, b.double())
+    with pytest.raises(ValueError):
+        lu.small_solve_cuda(A, torch.ones(5, device=card))
+    with pytest.raises(ValueError):
+        lu.small_solve_cuda(torch.eye(33, device=card),
+                            torch.ones(33, device=card))
+    with pytest.raises(ValueError):
+        lu.small_solve_cuda(torch.eye(12, device=card).t()[:6, :6],
+                            b)
+    with pytest.raises(ValueError):
+        lu.small_solve_cuda(A, torch.ones(12, device=card)[::2])
 
 
 @pytest.mark.cuda
