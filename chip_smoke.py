@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``slam_eds_tpu_torch``) on one GPU.
 
 Builds the hand-written ``sm_90a`` kernels (the pattern sampler, the
-event raster, the loops' small solve and the LU substitution, and the
-conditional nodes' condition and pass-tail kernels)
+event raster, the loops' small solve, and the conditional nodes'
+condition and pass-tail kernels)
 from ``slam_eds_tpu_torch/csrc``, one ``nvcc`` each, started together;
 holds each against its plain PyTorch version; runs the keyframe BA
 at the reference operating point, the frame-only path
@@ -49,26 +49,32 @@ not count more. Phases, one output line each:
                device time of a live pass split into the pass tail and the
                node, of a loop that stops at once, of a kernel in a body,
                a host ``if``'s; the loops' solve (``utils.linalg.solve``)
-               bitwise ``torch.linalg.solve_ex`` at every size and batch
-               of the path, in float32 and float64 (and within n eps of
-               backward error); the small solve kernel (one system)
-               bitwise ``solve_ex`` at every n of 1..32 in float32 and
-               float64 on two draws (failing by name) and within kappa n
-               eps of its plain version; at n = 6, 7, 8 and 12 the small
-               solve, the chain it replaced (``lu_factor_ex`` and the
-               substitution kernel), ``lu_factor_ex`` alone and
-               ``solve_ex`` timed, and the path's solve single and
-               batched; the LU substitution kernel bitwise its plain
-               version (``torch.linalg.lu_solve``) and timed
+               at every size and batch of the path, in float32 and
+               float64: up to 32 unknowns one small solve launch a call,
+               each system bitwise ``torch.linalg.solve_ex`` on it alone,
+               above bitwise ``solve_ex`` (and within n eps of backward
+               error); the small solve kernel (one system) bitwise
+               ``solve_ex`` at every n of 1..32 in float32 and float64 on
+               two draws (failing by name) and within kappa n eps of its
+               plain version; at n = 6, 7, 8 and 12 the small solve,
+               ``lu_factor_ex`` alone and ``solve_ex`` timed, and the
+               path's solve single and batched; the host cost of the
+               kernel's operator (``solve_op``, every small solve's route)
+               against the wrapper's direct call
 3. eds-first -- the event cell (phase 9) first in the process
 3a. batched -- ``eval.batched_event_solves`` at B=4 on the event cell's
                shapes and ``eval.batched_ba_windows`` at B=2 on phase 5's BA
                world (lane 1 on other planes), one ``torch.vmap`` each:
                every lane against its single solve (see ``phase_batched``
-               for the bounds and the readings behind them), the batched
-               calls' and the single calls' seconds; the lane-axis sampler
-               on the BA lanes' taps held bitwise to its plain version and
-               timed (its row in the kernels line)
+               for the bounds and the readings behind them; the event
+               lanes bitwise), beside the same with the retired batched
+               ``solve_ex`` route, the batched calls' and the single calls'
+               seconds; the small solve's launches per batched call (one a
+               solve over every lane) and each batched system bitwise
+               ``solve_ex`` and the kernel on it alone, timed (the
+               ``batched`` entry of its kernels-line row); the lane-axis
+               sampler on the BA lanes' taps held bitwise to its plain
+               version and timed (its row in the kernels line)
 4. kernel   -- kernel vs ``pattern_sample_reference`` at the BA operating
                point (F=8, P=2048, K=8, 640x480, 0-255 planes) on random
                taps, on the taps one ``linearize`` call of phase 5's BA
@@ -220,7 +226,9 @@ result. Imports no JAX.
 
     python3 chip_smoke.py
 """
+import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -694,8 +702,8 @@ def phase_device():
 
 
 def build_kernels():
-    """The kernel libraries (the sampler, the raster, the LU substitution
-    and the conditional nodes' kernels), one nvcc each, and the host
+    """The kernel libraries (the sampler, the raster, the small solve and
+    the conditional nodes' kernels), one nvcc each, and the host
     runtime, all started together. Returns the build records and whether
     the host runtime built."""
     from slam_eds_tpu_torch import graphs
@@ -729,7 +737,6 @@ def phase_build_host(ok):
 # the kernels of the port, by the name of their device function
 KERNEL_NAMES = {"pattern_sample": "pattern_sample_kernel",
                 "rasterize_bilinear": "raster_cluster_kernel",
-                "lu_substitute": "lu_substitute",
                 "small_solve": "small_solve_kernel",
                 "set_condition": "set_condition",
                 "pass_tail": "pass_tail"}
@@ -770,8 +777,8 @@ def kernel_us_in(fn, name, reps=50):
 
 # the loops' systems (size, batch, path): the coarse LM's 6 and 8, the BA
 # gauge's 7 (2 lanes in the batched BA), the event LM's 12 (4 lanes in the
-# batched event solves), the window BA's reduced 68 (F=8; two triangular
-# solves after torch's factorization, not the substitution kernel)
+# batched event solves), all one small solve launch a call; the window BA's
+# reduced 68 (F=8; two triangular solves after torch's factorization)
 SOLVE_SIZES = ((6, 1, "coarse LM, fixed affine"), (7, 1, "BA gauge"),
                (7, 2, "BA gauge, lanes"), (8, 1, "coarse LM"),
                (12, 1, "event LM"), (12, 4, "event LM, lanes"),
@@ -860,6 +867,37 @@ def small_solve_sweep(dev, gen):
             "max_gap_to_plain_kappa_n_eps": worst}
 
 
+def solve_op_host_us(dev, gen, calls=2000):
+    """Host microseconds a call of the small solve on one 12x12 system: the
+    kernel's operator ``solve_op`` (the route of ``utils.linalg.solve``)
+    against the wrapper ``small_solve`` it calls, and ``torch.vmap`` of
+    ``utils.linalg.solve`` over 4 lanes; the seconds of
+    the operator's first call, the process's first (no earlier phase maps
+    a solve), which imports torch's operator machinery."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    from slam_eds_tpu_torch.utils.linalg import solve
+    A = solve_systems("path", 12, 4, torch.float32, dev, gen)
+    b = torch.randn(4, 12, generator=gen).to(dev)
+    A1, b1 = A[0].contiguous(), b[0].contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lu.solve_op(A1, b1)
+    torch.cuda.synchronize()
+    out = {"first_operator_call_s": time.perf_counter() - t0}
+    for name, fn in (("small_solve", lambda: lu.small_solve(A1, b1)),
+                     ("solve_op", lambda: lu.solve_op(A1, b1)),
+                     ("vmap_solve_4_lanes",
+                      lambda: torch.vmap(solve)(A, b))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
 def relative_residual(A, x, b):
     """||A x - b|| / (||A|| ||x|| + ||b||) per system, max norms, in
     float64: the backward error of a solve."""
@@ -877,17 +915,19 @@ def phase_conditional(dev):
     ``graphs.cond`` leaving its carry; the cost of a live pass split into
     the pass tail and the node, of a loop that stops at once, of a kernel
     inside a body and of a host ``if``; the loops' solve
-    (``utils.linalg.solve``: torch's factorization and the ``lu_solve``
-    substitution kernel up to 32 unknowns) bitwise ``torch.linalg.solve_ex``
-    at every size and batch of the path in float32 and float64 (its
-    backward error at most n eps, ``SOLVE_RESIDUAL_EPS``), timed against
+    (``utils.linalg.solve``: the small solve kernel up to 32 unknowns, one
+    launch a call whatever its batch) at every size and batch of the path
+    in float32 and float64, each system bitwise ``torch.linalg.solve_ex``
+    on that system alone (above 32 unknowns bitwise ``solve_ex``), its
+    backward error at most n eps (``SOLVE_RESIDUAL_EPS``), timed against
     ``solve_ex`` at n = 6, 7, 8 and 12, single and batched as the path
     batches them; the small solve kernel swept over n = 1..32
-    (``small_solve_sweep``) and timed at n = 6, 7, 8 and 12 beside the
-    chain it replaced (``lu_factor_ex`` and the substitution kernel),
-    ``lu_factor_ex`` alone and ``solve_ex``. Returns the kernels-line
-    entries of the small solve and the condition kernel (the substitution
-    kernel's is ``phase_batched``'s, on its path's inputs)."""
+    (``small_solve_sweep``) and timed at n = 6, 7, 8 and 12 beside
+    ``lu_factor_ex`` alone (the factorization it replaced; the kernel must
+    be faster) and ``solve_ex``; the host time of a call through the
+    kernel's operator (``solve_op``, every small solve's route) against
+    the wrapper's direct call. Returns the kernels-line entries of the
+    small solve and the condition kernel."""
     from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
     from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.utils.linalg import solve
@@ -1049,26 +1089,35 @@ def phase_conditional(dev):
                             dtype=torch.float64).to(dt).to(dev)
             if batch == 1:
                 A, b = A[0], b[0]
+            before = lu.small_solve.launches
             x_s = solve(A, b)
-            x_p = torch.linalg.solve_ex(A, b[..., None],
-                                        check_errors=False)[0][..., 0]
+            launches = lu.small_solve.launches - before
+            if n_ <= lu.MAX_N:
+                # each system against solve_ex on it alone
+                A3, b3 = A.reshape(-1, n_, n_), b.reshape(-1, n_)
+                x_p = torch.stack([torch.linalg.solve_ex(
+                    A3[i], b3[i][:, None], check_errors=False)[0][:, 0]
+                    for i in range(len(A3))]).reshape(b.shape)
+            else:
+                x_p = torch.linalg.solve_ex(A, b[..., None],
+                                            check_errors=False)[0][..., 0]
             res = float(relative_residual(A, x_s, b).max())
             name = f"{n_}x{batch}_{str(dt)[6:]}"
             solves[name] = {"path": what, "bitwise": bool(
                 torch.equal(x_s, x_p)),
                 "max_abs_err": float((x_s - x_p).abs().max()),
-                "residual": res}
+                "residual": res, "small_solve_launches": launches}
             if not (solves[name]["bitwise"]
+                    and launches == int(n_ <= lu.MAX_N)
                     and res <= SOLVE_RESIDUAL_EPS * n_ * torch.finfo(dt).eps):
-                fail(f"the loops' solve at {name} is not torch's: "
-                     f"{solves[name]}")
+                fail(f"the loops' solve at {name} is not torch's on each "
+                     f"system alone: {solves[name]}")
     sweep = small_solve_sweep(dev, gen)
     # device us per call at the loops' sizes, single and batched as the
     # path batches them: the path's solve and solve_ex (its library call);
-    # for one system also the small solve kernel, the chain it replaced
-    # (torch's factorization and the substitution kernel), the
-    # factorization alone and the small solve's plain version. At the
-    # event LM's shape the small solve against its plain version, with
+    # for one system also the small solve kernel, the factorization it
+    # replaced (lu_factor_ex alone) and the small solve's plain version. At
+    # the event LM's shape the small solve against its plain version, with
     # their times.
     solve_us = {}
     for n_, batch in ((6, 1), (7, 1), (7, 2), (8, 1), (12, 1), (12, 4)):
@@ -1086,8 +1135,6 @@ def phase_conditional(dev):
             continue
         t["small_solve"] = device_us(lambda: lu.small_solve_cuda(A, b))
         t["lu_factor_ex"] = device_us(lambda: torch.linalg.lu_factor_ex(A))
-        t["chain"] = device_us(lambda: lu.lu_substitute_cuda(
-            *torch.linalg.lu_factor_ex(A)[:2], b))
         t["small_solve_plain"] = device_us(
             lambda: lu.small_solve_reference(A, b))
         if n_ != 12:
@@ -1109,10 +1156,12 @@ def phase_conditional(dev):
             fail("the small solve kernel is more than kappa n eps from its "
                  "plain version")
     slower = [k for k, t in solve_us.items()
-              if "chain" in t and not t["small_solve"] < t["chain"]]
+              if "small_solve" in t and not t["small_solve"]
+              < t["lu_factor_ex"]]
     if slower:
-        fail(f"the small solve is slower than the chain it replaced at "
-             f"{slower}: {solve_us}")
+        fail(f"the small solve is slower than the factorization it replaced "
+             f"at {slower}: {solve_us}")
+    dispatch = solve_op_host_us(dev, gen)
     phase("conditional", checks=checks, timing_ms=timing,
           while_us_per_live_pass=live_us, pass_tail_us=tail_us,
           while_node_us_per_live_pass=None if tail_us is None
@@ -1120,10 +1169,12 @@ def phase_conditional(dev):
           while_us_stop_at_once=stop_us, set_condition_us=start_us,
           while_us_per_live_masked_pass=masked_us, host_if_us=host_if_us,
           us_added_per_kernel_in_a_body=body_kernel_us, solves=solves,
-          small_solve_sweep=sweep, solve_device_us=solve_us)
+          small_solve_sweep=sweep, solve_device_us=solve_us,
+          solve_op_host_us=dispatch)
     cond_roof = roofline(9, 0, start_us or stop_us)
     return {"small_solve": {**small, "sweep": sweep,
-                            "solve_device_us": solve_us},
+                            "solve_device_us": solve_us,
+                            "solve_op_host_us": dispatch},
             "set_condition": {
                 "max_abs_err": 0.0,
                 "ms": None if start_us is None else start_us * 1e-3,
@@ -1649,9 +1700,6 @@ def phase_pipeline(dev):
                         "pass_tail") if launches[k]["run"] <= 0]
     if idle:
         fail(f"the frame path ran no launch of {idle} (ledger)")
-    if launches["lu_substitute"]["slots"]:
-        fail(f"the frame path solved a batch of systems: "
-             f"{launches['lu_substitute']}")
     if len(est) != PIPE_FRAMES or not np.isfinite(est).all():
         fail(f"trajectory has {len(est)} entries or is not finite")
     off = [tuple(x.shape) for x in _window_tensors(win)
@@ -2247,9 +2295,6 @@ def phase_eds(dev, label="eds", profiled=True):
             <= 0):
         fail(f"a kernel was not launched on the event path: "
              f"{window.launches}")
-    if window and window.launches["lu_substitute"]["slots"]:
-        fail(f"the event path solved a batch of systems: "
-             f"{window.launches['lu_substitute']}")
     raster = launches["rasterize_bilinear"] \
         - run["warmup_launches"]["rasterize_bilinear"]
     if raster != c["event_packets"]:
@@ -3086,52 +3131,114 @@ def event_lanes(eds, B):
     return states, torch.stack(efs), pts, iters
 
 
-def record_substitutions(fn):
-    """{(systems, n): (LU, piv, b)}: the inputs of the last substitution
-    kernel launch of each shape while ``fn()`` runs (copies)."""
-    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
-    seen, launch = {}, lu.lu_substitute_cuda
-
-    def record(LU, piv, b):
-        n = b.shape[-1]
-        seen[(b.numel() // n, n)] = (LU.clone(), piv.clone(), b.clone())
-        return launch(LU, piv, b)
-    lu.lu_substitute_cuda = record
+@contextlib.contextmanager
+def solve_route(route):
+    """The loops' solve (the ``solve`` each of ``ops.event_tracker``,
+    ``ops.energy`` and ``ops.coarse_tracker`` holds) replaced by
+    ``route(solve, A, b)`` while the context is open."""
+    from slam_eds_tpu_torch.ops import coarse_tracker, energy
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    mods = (et, energy, coarse_tracker)
+    kept = [m.solve for m in mods]
+    for m in mods:
+        m.solve = functools.partial(route, m.solve)
     try:
-        fn()
+        yield
     finally:
-        lu.lu_substitute_cuda = launch
-    return seen
+        for m, f in zip(mods, kept):
+            m.solve = f
 
 
-def substitution_entry(LU, piv, b):
-    """The substitution kernel against its plain version,
-    ``torch.linalg.lu_solve`` (also its library call), on one launch's
-    inputs: bitwise (the kernel takes the route torch's solve takes for
-    that many systems), device times, and the bound (the factors, pivots
-    and b read, x written; n^2 multiply-adds a system)."""
+def retired_lanes(solve, A, b):
+    """The loops' solve with the route ``torch.vmap`` lanes took before the
+    small solve took every shape: torch's batched factorization and a
+    substitution kernel, which was bitwise the batched
+    ``torch.linalg.solve_ex`` at the lanes' shapes (2 x 7x7, 4 x 12x12) on
+    torch 2.11 + CUDA 12.8; outside a map the solve as it is."""
+    if torch._C._are_functorch_transforms_active():
+        return torch.linalg.solve_ex(A, b[..., None],
+                                     check_errors=False)[0][..., 0]
+    return solve(A, b)
+
+
+def record_small_solves(fn):
+    """Run ``fn()`` with the small solve's counter set to 0 just before and
+    read just after: {"launches": the counter, "calls": the loops' solve
+    calls of up to 32 unknowns, "shapes": (systems, n) of each launch,
+    "inputs": {(systems, n): (A, b) of the last launch of that shape}
+    (copies)}."""
     from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
-    x_k = lu.lu_substitute_cuda(LU, piv, b)
-    x_p = lu.lu_substitute_reference(LU, piv, b)
-    err = float((x_k - x_p).abs().max())
-    if not torch.equal(x_k, x_p):
-        fail(f"the LU substitution kernel differs from lu_solve by {err} at "
-             f"{tuple(LU.shape)}")
-    n = b.shape[-1]
-    systems = b.numel() // n
-    k_us = device_us(lambda: lu.lu_substitute_cuda(LU, piv, b))
-    p_us = device_us(lambda: lu.lu_substitute_reference(LU, piv, b))
-    p_ms = cuda_time_ms(lambda: lu.lu_substitute_reference(LU, piv, b), 200)
-    return {"shape": list(LU.shape), "dtype": str(LU.dtype)[6:],
-            "reciprocal_route": lu.reciprocal_route(n, systems),
+    calls, shapes, inputs = [0], [], {}
+    launch = lu.small_solve_cuda
+
+    def record(A, b):
+        n = b.shape[-1]
+        shapes.append((b.numel() // n, n))
+        inputs[shapes[-1]] = (A.clone(), b.clone())
+        return launch(A, b)
+
+    def counted(solve, A, b):
+        calls[0] += int(A.shape[-1] <= lu.MAX_N)
+        return solve(A, b)
+    lu.small_solve_cuda = record
+    try:
+        with solve_route(counted):
+            lu.small_solve.launches = 0
+            fn()
+            launches = lu.small_solve.launches
+    finally:
+        lu.small_solve_cuda = launch
+    return {"launches": launches, "calls": calls[0], "shapes": shapes,
+            "inputs": inputs}
+
+
+def batched_solve_entry(A, b, label):
+    """The small solve on one batched launch's systems (A [B, n, n], b [B,
+    n]): each system bitwise ``torch.linalg.solve_ex`` on that system
+    alone and bitwise the kernel on that system alone (failing by name);
+    within kappa n eps of its plain version; device times of the kernel,
+    its plain version and, as library yardsticks, the batched
+    ``torch.linalg.solve_ex`` (``library_ms``) and ``lu_factor_ex`` +
+    ``lu_solve`` (the retired route's library half); the bound (A and b
+    read, x written; 2n^3/3 + 2n^2 operations a system)."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    B, n = b.shape
+    x = lu.small_solve_cuda(A, b)
+    alone_ex = torch.stack([torch.linalg.solve_ex(
+        A[i], b[i][:, None], check_errors=False)[0][:, 0] for i in range(B)])
+    alone_k = torch.stack([lu.small_solve_cuda(A[i].contiguous(),
+                                               b[i].contiguous())
+                           for i in range(B)])
+    if not torch.equal(x, alone_ex):
+        fail(f"{label}: the small solve over {B} x {n}x{n} systems is not "
+             f"torch.linalg.solve_ex on each system alone (max "
+             f"{float((x - alone_ex).abs().max())})")
+    if not torch.equal(x, alone_k):
+        fail(f"{label}: the small solve over {B} x {n}x{n} systems is not "
+             f"the kernel on each system alone")
+    plain = lu.small_solve_reference(A, b)
+    gap = plain_gap(x, plain, A)
+    if not gap <= 1.0:
+        fail(f"{label}: the small solve is {gap} kappa n eps from its plain "
+             f"version")
+    k_us = device_us(lambda: lu.small_solve_cuda(A, b))
+    p_us = device_us(lambda: lu.small_solve_reference(A, b))
+    lib_us = device_us(lambda: torch.linalg.solve_ex(
+        A, b[..., None], check_errors=False))
+    lu_us = device_us(lambda: torch.linalg.lu_solve(
+        *torch.linalg.lu_factor_ex(A)[:2], b[..., None]))
+    return {"path": label, "shape": [B, n, n], "dtype": str(A.dtype)[6:],
+            "bitwise_solve_ex_alone": True, "bitwise_kernel_alone": True,
+            "gap_to_plain_kappa_n_eps": gap,
+            "lu_factor_ex_lu_solve_us": lu_us,
             **kernel_entry(
-                err, k_us, p_us,
-                cuda_time_ms(lambda: lu.lu_substitute_cuda(LU, piv, b), 200),
-                p_ms,
-                roofline(LU.numel() * LU.element_size()
-                         + 4 * piv.numel() + 2 * b.numel() * b.element_size(),
-                         2 * systems * n * n, k_us),
-                p_us, p_ms)}
+                float((x - plain).abs().max()), k_us, p_us,
+                cuda_time_ms(lambda: lu.small_solve_cuda(A, b), 200),
+                cuda_time_ms(lambda: lu.small_solve_reference(A, b), 50),
+                roofline(A.element_size() * B * (n * n + 2 * n),
+                         B * (2 * n ** 3 // 3 + 2 * n * n), k_us),
+                lib_us, cuda_time_ms(lambda: torch.linalg.solve_ex(
+                    A, b[..., None], check_errors=False), 200))}
 
 
 def phase_batched(dev, eds):
@@ -3150,14 +3257,15 @@ def phase_batched(dev, eds):
     2 and 5 passes also the residuals within 2e-4 (the tracker tests'
     bound), the energy within 1e-3 relative (the JAX package's
     batched-against-single tolerance) and the gap's cost d^T H d within
-    1e-3 of the energy. The batched products sum in another order, and on
-    this problem (condition about 7e9 to 4e13 over the 11 non-null
-    directions) the LM carries that rounding along the 5 weak directions: on
-    the card the translation moves up to 4e-2 after 2 and 5 passes with the
-    gap's cost under 1e-5 of the energy, and at the cap of 10 one lane ends
-    0.75 apart along them with its energy 2.3% apart (printed, not held);
-    on the CPU, from the same inputs, the translation gaps are of the same
-    order (``cpu_event_lane_gaps``, printed).
+    1e-3 of the energy. On this problem (condition about 7e9 to 4e13 over
+    the 11 non-null directions) an LM carries any rounding of a lane along
+    the 5 weak directions, where the pose and the energy move with no
+    effect on the determined ones; so the LM's reductions run lane by lane
+    (``ops.lanes``) and its solves in the small solve kernel, each lane as
+    if alone, and every lane is expected bitwise its single solve (printed
+    per lane as ``bitwise``; the bounds hold whatever remains); the lanes
+    on the CPU from the same inputs likewise (``cpu_event_lane_gaps``,
+    printed).
 
     The BA lanes within the card-against-CPU bounds of the card tests
     (energy 1e-4 relative, frame deltas 1e-2 of their scale: another
@@ -3166,11 +3274,18 @@ def phase_batched(dev, eds):
     points' idepths nearly free: their largest gap, printed, reached
     1.8e-2 in a CPU rehearsal at this size, 2.6e-4 at the 99th percentile);
     then the lane-axis sampler on the BA lanes' taps and planes. Times: the
-    batched call against the B single calls. The substitution kernel, the
-    lanes' solve: its launches over one batched call of each kind (its
-    counter set to 0 just before), and against its plain version on the
-    inputs each last gave it (``substitution_entry``). Returns the
-    kernels-line entries of the lane-axis sampler and the substitution."""
+    batched call against the B single calls. Every gap is printed beside
+    the same gap with the lanes' former solve (``retired_lanes``: the
+    batched ``solve_ex``, its rounding the only difference), run in this
+    process on the same inputs.
+
+    The small solve, the lanes' solve: its launches over one batched call
+    of each kind (its counter set to 0 just before), one per solve call of
+    the loops, each over every lane ((4, 12) and (2, 7)); on the inputs each
+    last gave it, each system bitwise ``solve_ex`` and the kernel on that
+    system alone (``batched_solve_entry``). Returns the kernels-line
+    entries of the lane-axis sampler and of the small solve's batched
+    shapes."""
     from slam_eds_tpu_torch import eval as ev
     from slam_eds_tpu_torch.ops import energy
     from slam_eds_tpu_torch.ops import event_tracker as et
@@ -3206,6 +3321,10 @@ def phase_batched(dev, eds):
                                   - float(want[b].energy)) \
                 / abs(float(want[b].energy))
             d["n_iter"] = [int(lane.n_iter), int(want[b].n_iter)]
+            d["bitwise"] = all(torch.equal(getattr(lane.state, n),
+                                           getattr(want[b].state, n))
+                               for n in ("px", "qx", "vx")) and torch.equal(
+                lane.residuals, want[b].residuals)
             d.update(event_lane_reading(lane.state, want[b].state, efs[b],
                                         cam, pts, pipe.loss_scale))
             out.append(d)
@@ -3213,6 +3332,8 @@ def phase_batched(dev, eds):
     cap = iters[0]
     caps = sorted({*EVENT_LANE_ITERATIONS, cap})
     ev_gaps = {k: gaps(k) for k in caps}
+    with solve_route(retired_lanes):
+        ev_gaps_retired = {k: gaps(k) for k in caps}
     for k in caps:
         for b, d in enumerate(ev_gaps[k]):
             tol = EVENT_LANE_POSE_TOL if k in EVENT_LANE_ITERATIONS \
@@ -3226,11 +3347,7 @@ def phase_batched(dev, eds):
                 fail(f"batched_event_solves lane {b} differs from its single "
                      f"solve after {k} passes: {d}")
     ev_cpu = cpu_event_lane_gaps(states, efs, cam, pts, pipe.loss_scale, caps)
-    lu.lu_substitute.launches = 0
-    no_sync(lambda: batched_ev(cap))
-    ev_solves = lu.lu_substitute.launches
-    if ev_solves <= 0:
-        fail("batched_event_solves launched no LU substitution")
+    ev_rec = record_small_solves(lambda: no_sync(lambda: batched_ev(cap)))
     ev_batched_s = wall_s(lambda: batched_ev(cap))
     ev_singles_s = wall_s(lambda: singles_ev(cap))
 
@@ -3248,27 +3365,40 @@ def phase_batched(dev, eds):
     def singles_ba():
         return [energy.ba_iterate(lanes[b], planes[b], H, W, iterations=6)
                 for b in range(2)]
+
+    def ba_lane_gaps():
+        bst, be = no_sync(batched_ba)
+        single = no_sync(singles_ba)
+        out = []
+        for b in range(2):
+            st, e, _ = single[b]
+            d = {"energy_rel": abs(float(be[b]) - float(e)) / abs(float(e))}
+            for n in ("delta", "p_idepth"):
+                a, c = getattr(bst, n)[b], getattr(st, n)
+                d[n] = float((a - c).abs().max()) / float(c.abs().max())
+            gap = (bst.p_idepth[b] - st.p_idepth).abs() \
+                / st.p_idepth.abs().max()
+            d["p_idepth_q99"] = float(torch.quantile(gap, 0.99))
+            out.append(d)
+        return out
     ps.pattern_sample_lanes.launches = 0
-    lu.lu_substitute.launches = 0
-    bst, be = no_sync(batched_ba)
+    ba_rec = record_small_solves(lambda: no_sync(batched_ba))
     lane_launches = ps.pattern_sample_lanes.launches
-    lane_solves = lu.lu_substitute.launches
-    if lane_solves <= 0:
-        fail("batched_ba_windows launched no LU substitution")
     if lane_launches != 7:
         fail(f"batched_ba_windows launched the lane-axis sampler "
              f"{lane_launches} times, not 6 GN passes + 1")
-    single = no_sync(singles_ba)
-    ba_gaps = []
-    for b in range(2):
-        st, e, _ = single[b]
-        d = {"energy_rel": abs(float(be[b]) - float(e)) / abs(float(e))}
-        for n in ("delta", "p_idepth"):
-            a, c = getattr(bst, n)[b], getattr(st, n)
-            d[n] = float((a - c).abs().max()) / float(c.abs().max())
-        gap = (bst.p_idepth[b] - st.p_idepth).abs() / st.p_idepth.abs().max()
-        d["p_idepth_q99"] = float(torch.quantile(gap, 0.99))
-        ba_gaps.append(d)
+    for label, rec, shape in (("batched_event_solves", ev_rec, (B, 12)),
+                              ("batched_ba_windows", ba_rec, (2, 7))):
+        if not (rec["launches"] > 0 and rec["launches"] == rec["calls"]
+                == len(rec["shapes"])
+                and set(rec["shapes"]) == {shape}):
+            fail(f"{label}: {rec['launches']} small solve launches for "
+                 f"{rec['calls']} solves, shapes {sorted(set(rec['shapes']))}"
+                 f", not one launch of {shape} per solve")
+    ba_gaps = ba_lane_gaps()
+    with solve_route(retired_lanes):
+        ba_gaps_retired = ba_lane_gaps()
+    for b, d in enumerate(ba_gaps):
         if not (d["energy_rel"] <= 1e-4 and d["delta"] <= 1e-2
                 and d["p_idepth_q99"] <= 1e-3):
             fail(f"batched_ba_windows lane {b} differs from its single "
@@ -3277,34 +3407,47 @@ def phase_batched(dev, eds):
     ba_singles_s = wall_s(singles_ba)
 
     taps = [record_taps(st_, planes[b], H, W) for b, st_ in enumerate(lanes)]
-    subs = record_substitutions(lambda: (batched_ev(cap), batched_ba()))
-    if not {(B, 12), (2, 7)} <= set(subs):
-        fail(f"the batched calls gave the substitution kernel (systems, n) "
-             f"{sorted(subs)}, not ({B}, 12) and (2, 7)")
-    subst = {"path": "eval.batched_ba_windows (B=2, the BA cell): the "
-                     "gauge projector's 7x7 systems, one per lane",
-             "launches": lane_solves, "launch_slots": lane_solves,
-             "shapes_seen": sorted(subs),
-             **substitution_entry(*subs[(2, 7)]),
-             "event_lanes": {
-                 "path": f"eval.batched_event_solves (B={B}): the event "
-                         "LM's 12x12 systems, one per lane",
-                 "launches": ev_solves, "launch_slots": ev_solves,
-                 **substitution_entry(*subs[(B, 12)])}}
+    solves = [
+        {"launches": rec["launches"], "launch_slots": rec["launches"],
+         "solve_calls": rec["calls"],
+         **batched_solve_entry(*rec["inputs"][shape], label)}
+        for label, rec, shape in (
+            (f"eval.batched_event_solves (B={B}): the event LM's 12x12 "
+             f"systems, one per lane", ev_rec, (B, 12)),
+            ("eval.batched_ba_windows (B=2, the BA cell): the gauge "
+             "projector's 7x7 systems, one per lane", ba_rec, (2, 7)))]
     sampler = lane_sampler_entry(
         planes, torch.stack([t[1] for t in taps]),
         torch.stack([t[2] for t in taps]))
     sampler["launches"] = lane_launches
+
+    def widest(gaps, keys):
+        out = {k: max(d[k] for lanes_ in gaps for d in lanes_)
+               for k in keys}
+        if "bitwise" in gaps[0][0]:
+            out["all_bitwise"] = all(d["bitwise"] for lanes_ in gaps
+                                     for d in lanes_)
+        return out
+    ev_keys = ("px", "qx", "vx", "residuals", "energy_rel", "gap_determined")
+    ba_keys = ("energy_rel", "delta", "p_idepth", "p_idepth_q99")
     phase("batched", event_lanes=B, event_iterations=caps,
           event_pose_tol=[EVENT_LANE_POSE_TOL, EVENT_LANE_CAP_POSE_TOL],
           event_lane_vs_single=ev_gaps,
+          event_lane_vs_single_retired_route=ev_gaps_retired,
+          event_widest_gap_by_cap={
+              k: {"small_solve": widest([ev_gaps[k]], ev_keys),
+                  "retired_route": widest([ev_gaps_retired[k]], ev_keys)}
+              for k in caps},
           event_lane_vs_single_cpu=ev_cpu,
           event_batched_s=ev_batched_s,
           event_singles_s=ev_singles_s, ba_lanes=2,
-          ba_lane_vs_single=ba_gaps, ba_batched_s=ba_batched_s,
+          ba_lane_vs_single=ba_gaps, ba_lane_vs_single_retired_route=ba_gaps_retired,
+          ba_widest_gap={"small_solve": widest([ba_gaps], ba_keys),
+                         "retired_route": widest([ba_gaps_retired], ba_keys)},
+          ba_batched_s=ba_batched_s,
           ba_singles_s=ba_singles_s, lane_sampler=sampler,
-          lu_substitute=subst)
-    return sampler, subst
+          small_solve_batched=solves)
+    return sampler, solves
 
 
 def wall_s(fn):
@@ -3350,7 +3493,7 @@ def main():
     phase_build_host(built["host"])
     cond = phase_conditional(dev)
     first = phase_eds(dev, label="eds-first", profiled=False)
-    lanes, subst = phase_batched(dev, first)
+    lanes, batched_solves = phase_batched(dev, first)
     kern = phase_kernel(dev)
     phase_ba(dev)
     frame_launches = phase_pipeline(dev)
@@ -3413,13 +3556,7 @@ def main():
          **counts("small_solve", frame),
          "solves_by_n_frame_cell": frame["small_solve"]["by_n"],
          "solves_by_n_event_cell": event["small_solve"]["by_n"],
-         **cond["small_solve"]},
-        {"name": "lu_substitute", "route": "cuda",
-         "source": "slam_eds_tpu_torch/csrc/lu_solve.cu",
-         "replaces": "slam_eds_tpu/ops/event_tracker.py:273 (jnp.linalg."
-                     "solve under XLA, no TPU kernel), for a batch of "
-                     "systems",
-         **subst},
+         **cond["small_solve"], "batched": batched_solves},
         {"name": "set_condition", "route": "cuda",
          "source": "slam_eds_tpu_torch/csrc/graph_cond.cu",
          "replaces": "slam_eds_tpu/models/pipeline.py:127-139 (lax.cond's "

@@ -1,78 +1,77 @@
 // The loops' small dense solves, A x = b by LU with partial pivoting
-// (sm_90a), float32 or float64, two kernels:
-//
-// small_solve: the whole solve of a system in one warp (one launch; the
-// route of one system of 1 to 32 unknowns, utils/linalg.py).
-// lu_substitute: the substitution half alone, after torch's factorization
-// (torch.linalg.lu_factor_ex), one thread per system (the route of several
-// systems: vmapped lanes or a leading batch axis).
+// (sm_90a), float32 or float64, 1 to 32 unknowns: small_solve, the whole
+// solve of each system in one warp, every system of a call in one launch
+// (the one route of utils/linalg.py up to 32 unknowns: one system, a
+// leading batch axis, or the lanes of torch.vmap, gathered by the
+// operator's vmap rule in ops/kernels/lu_solve.py).
 //
 // The port's LM and GN loops solve a small system on every pass (the event
 // LM's 12x12, the coarse LM's 8x8 or 6x6, the window BA's 7x7 gauge
 // projector). The JAX package leaves them to XLA (jnp.linalg.solve at
 // slam_eds_tpu/ops/event_tracker.py:273, ops/coarse_tracker.py:329 and
-// :333, ops/energy.py:522; cho_solve at :439); there is no TPU kernel. When
-// captured, each pass is the body of a conditional node of a CUDA graph
-// (graphs.py), which holds no copy to the host, so torch.linalg.solve_ex
-// (whose single-system getrs reads its info on the host) cannot be used.
+// :333, ops/energy.py:522; cho_solve at :439), batched by jax.vmap; there
+// is no TPU kernel. When captured, each pass is the body of a conditional
+// node of a CUDA graph (graphs.py), which holds no copy to the host, so
+// torch.linalg.solve_ex (whose single-system getrs reads its info on the
+// host) cannot be used.
 //
-// Both kernels round as torch.linalg.solve_ex does on an H100 with torch
-// 2.11 and CUDA 12.8, operation by operation, so the loops keep the bits
-// they had before they could skip a pass.
+// Each system rounds as torch.linalg.solve_ex does on that system alone on
+// an H100 with torch 2.11 and CUDA 12.8, operation by operation, so the
+// loops keep the bits they had before they could skip a pass.
 //
-// The factorization (small_solve), the order of cuSOLVER's getrf for one
-// system (its getrf_pivot kernel): right-looking and unblocked; at step k
-// the pivot is the largest |a_ik| over the rows i >= k of the current
-// order, ties to the lowest (isamax); rows k and p swap whole; the column
-// below the pivot is scaled by the pivot's reciprocal, l_ik = a_ik *
-// (1 / a_kk) (left as it is where the pivot is 0); every trailing element
-// takes a_ij = fma(-l_ik, a_kj, a_ij), k by k. tools/lu_order_probe.py
-// compared this order and 14 others (division, unfused or summed updates,
-// left-looking, LAPACK's recursive getrf2, blocked panels of 2 to 16) with
-// lu_factor_ex on 10,000 seeded systems at every n of 1..32, in float32
-// and float64, as the loops build them (J^T J + lam diag + 1e-10 I) and
-// general (N(0, 1) + 0.05 I): this order alone agrees in every factor and
-// pivot, at every n (0 of 1,280,000 systems differ); every other differs
-// in 10% to 100% of the systems at every n where it is not this order
-// (above 1; above the panel width for the blocked forms). The probe also
-// runs small_solve itself on the same systems: its x is bitwise
-// torch.linalg.solve_ex's on each system alone on all 1,280,000.
+// The factorization, the order of cuSOLVER's getrf for one system (its
+// getrf_pivot kernel): right-looking and unblocked; at step k the pivot is
+// the largest |a_ik| over the rows i >= k of the current order, ties to
+// the lowest (isamax); rows k and p swap whole; the column below the pivot
+// is scaled by the pivot's reciprocal, l_ik = a_ik * (1 / a_kk) (left as
+// it is where the pivot is 0); every trailing element takes a_ij =
+// fma(-l_ik, a_kj, a_ij), k by k. tools/lu_order_probe.py compared this
+// order and 14 others (division, unfused or summed updates, left-looking,
+// LAPACK's recursive getrf2, blocked panels of 2 to 16) with lu_factor_ex
+// on 10,000 seeded systems at every n of 1..32, in float32 and float64, as
+// the loops build them (J^T J + lam diag + 1e-10 I) and general (N(0, 1) +
+// 0.05 I): this order alone agrees in every factor and pivot, at every n
+// (0 of 1,280,000 systems differ); every other differs in 10% to 100% of
+// the systems at every n where it is not this order (above 1; above the
+// panel width for the blocked forms). The probe also runs small_solve
+// itself on the same systems: its x is bitwise torch.linalg.solve_ex's on
+// each system alone on all 1,280,000.
 //
-// The substitution (both kernels), with ipiv the factorization's 1-based
-// LAPACK pivots:
+// The substitution, with ipiv the factorization's 1-based LAPACK pivots:
 //   for i = 0 .. n-1: swap y_i, y_{ipiv_i - 1}
 //   for i = 0 .. n-1: for j = 0 .. i-1: y_i = fma(-L_ij, y_j, y_i)
 //   for i = n-1 .. 0: for j = n-1 .. i+1: y_i = fma(-U_ij, y_j, y_i);
 //                     y_i = y_i * (1 / U_ii) (recip) or y_i / U_ii
-// the order of torch's own solve after the factorization, measured
-// (chip_smoke.py, phase "conditional"): the reciprocal where torch takes
-// cuBLAS's batched getrs (9 to 32 unknowns, at most 2 systems), the
-// division where it takes two triangular solves (up to 8 unknowns, or 3
-// systems and more up to 17); the wrapper passes the choice
-// (ops/kernels/lu_solve.reciprocal_route).
+// the order of torch's own solve of one system after the factorization,
+// measured (chip_smoke.py, phase "conditional"): the reciprocal where
+// torch takes cuBLAS's batched getrs (9 to 32 unknowns), the division
+// where it takes two triangular solves (up to 8 unknowns); the wrapper
+// passes the choice (ops/kernels/lu_solve.reciprocal_route).
 //
-// small_solve's design: lane i of the warp holds row i of [A | b] in
-// registers (every index a compile-time one: loops unrolled over the
-// instance's width N, predicated on the runtime n where the instance is
-// generic). A row swap swaps the two lanes' row numbers, not their data.
-// Per pivot step: the arg-max over the lanes in five __shfl_xor_sync
-// rounds, a ballot to find the pivot's lane, one shuffle per column of the
-// pivot row (the b column included), one scale and the row's updates per
-// lane. Carrying b as column n does the forward substitution inside the
+// The design: lane i of the warp holds row i of [A | b] in registers
+// (every index a compile-time one: loops unrolled over the instance's
+// width N, predicated on the runtime n where the instance is generic). A
+// row swap swaps the two lanes' row numbers, not their data. Per pivot
+// step: the arg-max over the lanes in five __shfl_xor_sync rounds, a
+// ballot to find the pivot's lane, one shuffle per column of the pivot row
+// (the b column included), one scale and the row's updates per lane.
+// Carrying b as column n does the forward substitution inside the
 // factorization in the order above (row i takes fma(-l_ik, y_k, y_i), k by
 // k). Back substitution: a ballot and one shuffle a step. Only x is
 // written; factors and pivots never leave the registers. One warp per
-// system, up to 4 warps a block.
+// system, up to 4 warps a block, the last block's surplus warps idle; a
+// warp reads and writes only its own system, so nothing past the last
+// system is touched. Systems are indexed in 64 bits; a call takes at most
+// 4 (2^31 - 1) systems, the grid's limit in x.
 //
-// What bounds them: n^2 + n values in, n out (672 B at n = 12, float32):
+// What bounds it: n^2 + n values in, n out (672 B at n = 12, float32):
 // under 0.001 us of memory time at 3.35 TB/s, and 2n^3/3 + 2n^2
-// operations, less still. small_solve's time is its dependent chain: n
-// pivot steps of five shuffle rounds, a ballot and the pivot row's
-// shuffles, then n back-substitution steps of a ballot and a shuffle;
-// about 1-2 us at n = 12 by that count, 5.5 us measured with the launch
-// (PERF.md). lu_substitute: n^2 FMAs in one dependent chain per system,
-// the factors read from device memory. A singular system gives non-finite
-// entries, as an LU solve does; nothing is checked.
+// operations, less still. Its time is its dependent chain: n pivot steps
+// of five shuffle rounds, a ballot and the pivot row's shuffles, then n
+// back-substitution steps of a ballot and a shuffle; about 1-2 us at
+// n = 12 by that count, 5.5 us measured with the launch (PERF.md). A
+// singular system gives non-finite entries, as an LU solve does; nothing
+// is checked.
 #include <cuda_runtime.h>
 
 namespace {
@@ -85,64 +84,11 @@ __device__ __forceinline__ float fma_(float a, float b, float c) {
 __device__ __forceinline__ double fma_(double a, double b, double c) {
   return fma(a, b, c);
 }
-__device__ __forceinline__ float recip_mul(float y, float u) {
-  return __fmul_rn(y, __frcp_rn(u));
-}
-__device__ __forceinline__ double recip_mul(double y, double u) {
-  return __dmul_rn(y, __drcp_rn(u));
-}
 __device__ __forceinline__ float div_(float y, float u) {
   return __fdiv_rn(y, u);
 }
 __device__ __forceinline__ double div_(double y, double u) {
   return __ddiv_rn(y, u);
-}
-
-template <typename T, bool RECIP>
-__global__ void lu_substitute(const T* __restrict__ LU,
-                              const int* __restrict__ ipiv,
-                              const T* __restrict__ b, T* __restrict__ x,
-                              int n, long long systems) {
-  long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= systems) return;
-  const T* A = LU + s * n * n;  // row-major, as torch stores the factors
-  const int* p = ipiv + s * n;
-  T y[kMaxN];
-  for (int i = 0; i < n; ++i) y[i] = b[s * n + i];
-  for (int i = 0; i < n; ++i) {
-    int j = p[i] - 1;
-    T t = y[i];
-    y[i] = y[j];
-    y[j] = t;
-  }
-  for (int i = 0; i < n; ++i) {
-    T acc = y[i];
-    for (int j = 0; j < i; ++j) acc = fma_(-A[i * n + j], y[j], acc);
-    y[i] = acc;
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    T acc = y[i];
-    for (int j = n - 1; j > i; --j) acc = fma_(-A[i * n + j], y[j], acc);
-    y[i] = RECIP ? recip_mul(acc, A[i * n + i]) : div_(acc, A[i * n + i]);
-  }
-  for (int i = 0; i < n; ++i) x[s * n + i] = y[i];
-}
-
-template <typename T>
-int launch(const T* LU, const int* ipiv, const T* b, T* x, int n,
-           long long systems, int recip, void* stream) {
-  if (systems == 0 || n == 0) return 0;
-  if (n < 0 || n > kMaxN || systems < 0) return (int)cudaErrorInvalidValue;
-  const int threads = 32;
-  unsigned blocks = (unsigned)((systems + threads - 1) / threads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (recip)
-    lu_substitute<T, true><<<blocks, threads, 0, st>>>(LU, ipiv, b, x, n,
-                                                       systems);
-  else
-    lu_substitute<T, false><<<blocks, threads, 0, st>>>(LU, ipiv, b, x, n,
-                                                        systems);
-  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ float mul_(float a, float b) {
@@ -164,6 +110,7 @@ __device__ __forceinline__ double inf_(double) {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarpsPerBlock = 4;
+constexpr long long kMaxBlocks = 2147483647LL;  // the grid's limit in x
 
 // One system per warp. N is the instance's register width: the exact size
 // where FIXED (n == N, no predicate survives compilation), a bound on n
@@ -265,7 +212,9 @@ template <typename T>
 int small_solve(const T* A, const T* b, T* x, int n, long long systems,
                 int recip, void* stream) {
   if (systems == 0 || n == 0) return 0;
-  if (n < 0 || n > kMaxN || systems < 0) return (int)cudaErrorInvalidValue;
+  if (n < 0 || n > kMaxN || systems < 0 ||
+      systems > kMaxBlocks * kWarpsPerBlock)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n) {
     case 6: small_solve_launch<T, 6, true>(A, b, x, n, systems, recip, st);
@@ -299,18 +248,6 @@ extern "C" int small_solve_f64(const double* A, const double* b, double* x,
                                int n, long long systems, int recip,
                                void* stream) {
   return small_solve<double>(A, b, x, n, systems, recip, stream);
-}
-
-extern "C" int lu_solve_f32(const float* LU, const int* ipiv, const float* b,
-                            float* x, int n, long long systems, int recip,
-                            void* stream) {
-  return launch<float>(LU, ipiv, b, x, n, systems, recip, stream);
-}
-
-extern "C" int lu_solve_f64(const double* LU, const int* ipiv,
-                            const double* b, double* x, int n,
-                            long long systems, int recip, void* stream) {
-  return launch<double>(LU, ipiv, b, x, n, systems, recip, stream);
 }
 
 extern "C" const char* lu_solve_error_string(int code) {

@@ -91,8 +91,7 @@ from torch.utils import _pytree as pytree
 
 from .ops.kernels.build import build_library
 from .ops.kernels.pattern_sample import pattern_sample, pattern_sample_lanes
-from .ops.kernels.lu_solve import (SMALL_SOLVE_BY_N, lu_substitute,
-                                   small_solve)
+from .ops.kernels.lu_solve import SMALL_SOLVE_BY_N, small_solve
 from .ops.kernels.rasterize import rasterize_bilinear
 
 _COND_LIB = None
@@ -142,7 +141,7 @@ pass_tail.launches = 0
 
 # the launch counters a replay has to advance
 COUNTED = (pattern_sample, pattern_sample_lanes, rasterize_bilinear,
-           lu_substitute, small_solve, set_condition, pass_tail)
+           small_solve, set_condition, pass_tail)
 
 _SYNC_MODE = 0
 

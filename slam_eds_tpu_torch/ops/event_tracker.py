@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from .. import graphs
+from . import lanes
 from ..models.ba_state import tuple_from_numpy, tuple_to_numpy
 from ..utils import lie
 from ..utils.lie import SE3
@@ -92,13 +93,13 @@ def _project(state: TrackerState, cam: Pinhole, norm_coord, idp):
     returns (R X [P, 3], p = R X + t [P, 3])."""
     z = 1.0 / (idp + 1e-5)
     X = torch.stack([norm_coord[:, 0] * z, norm_coord[:, 1] * z, z], -1)
-    RX = X @ lie.quat_to_mat(state.qx).T
+    RX = lanes.matmul(X, lie.quat_to_mat(state.qx).T)
     return RX, RX + state.px[None, :]
 
 
 def _summed(x, reduce):
     """``torch.sum(x)``, summed over ranks too when ``reduce`` is given."""
-    s = torch.sum(x)
+    s = lanes.total(x)
     return s if reduce is None else reduce(s)
 
 
@@ -160,18 +161,18 @@ def event_residuals_and_jac(state: TrackerState, event_frame, cam: Pinhole,
 
     # ---- model branch (velocity block)
     L = interaction_matrix(norm_coord, idp)                       # [P, 2, 6]
-    A = -torch.einsum("pgx,pg->px", L, grad) * maskf[:, None]     # [P, 6]
+    A = -lanes.einsum("pgx,pg->px", L, grad) * maskf[:, None]     # [P, 6]
     v = state.vx
-    m = A @ v
-    m2 = torch.sum(m * m)
-    mTA = m @ A
+    m = lanes.matmul(A, v)
+    m2 = lanes.total(m * m)
+    mTA = lanes.matmul(m, A)
     if reduce is not None:
         m2, mTA = reduce(m2), reduce(mTA)
     norm = torch.sqrt(norm_eps + m2)
     mh = m / norm
     Jv = (A - mh[:, None] * (mTA / norm)[None, :]) / norm
-    Jv = Jv @ (torch.eye(6, dtype=dtype, device=v.device)
-               - torch.outer(v, v))
+    Jv = lanes.matmul(Jv, torch.eye(6, dtype=dtype, device=v.device)
+                      - torch.outer(v, v))
 
     # ---- event-frame branch (pose block)
     RX, p = _project(state, cam, norm_coord, idp)
@@ -186,13 +187,13 @@ def event_residuals_and_jac(state: TrackerState, event_frame, cam: Pinhole,
     dv_ = torch.stack([zz, cam.fy * inv_z,
                        -cam.fy * p[:, 1] * inv_z * inv_z], -1)
     gE = dEdx[:, None] * du + dEdy[:, None] * dv_                 # [P, 3]
-    D = torch.cat([gE, -torch.einsum("pi,pij->pj", gE, lie.hat(RX))],
+    D = torch.cat([gE, -lanes.einsum("pi,pij->pj", gE, lie.hat(RX))],
                   -1) * maskf[:, None]                            # [P, 6]
 
     if norm_event:
         ev = ev * maskf
-        e2 = torch.sum(ev * ev)
-        s = ev @ D
+        e2 = lanes.total(ev * ev)
+        s = lanes.matmul(ev, D)
         if reduce is not None:
             e2, s = reduce(e2), reduce(s)
         en = torch.sqrt(norm_eps + e2)
@@ -216,7 +217,7 @@ def _apply_local(state: TrackerState, delta):
     px = state.px + delta[0:3]
     qx = lie.quat_normalize(lie.quat_mul(lie.quat_exp(delta[3:6]), state.qx))
     v = state.vx + delta[6:12]
-    vx = v / torch.clamp(torch.linalg.vector_norm(v), min=1e-12)
+    vx = v / torch.clamp(lanes.norm(v), min=1e-12)
     return TrackerState(px=px, qx=qx, vx=vx)
 
 
@@ -275,8 +276,8 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
                                        grad, idp, weights, mask,
                                        norm_event=norm_event, reduce=reduce)
         Jw = J * (robust_weights(r) * maskf)[:, None]
-        H = Jw.T @ J
-        g = Jw.T @ r
+        H = lanes.matmul(Jw.T, J)
+        g = lanes.matmul(Jw.T, r)
         if reduce is not None:
             H, g = reduce(H), reduce(g)
         Hl = H + lam * torch.diag(torch.diagonal(H)) + 1e-10 * eye

@@ -255,10 +255,10 @@ torch.library.register_vmap("slam_eds_tpu_torch::pattern_sample",
 
 def sample(planes, u, v):
     """The sampler for a caller that ``torch.vmap`` may map: the operator
-    (and so its vmap rule) where an input is a vmap-batched tensor, the
-    wrapper ``pattern_sample`` otherwise. The operator's first call in a
-    process imports much of torch (its dispatcher machinery, seconds), so
-    the unmapped path does not go through it."""
-    if any(torch._C._functorch.is_batchedtensor(t) for t in (planes, u, v)):
+    (and so its vmap rule) under a ``torch.vmap``, the wrapper
+    ``pattern_sample`` otherwise. The operator's first call in a process
+    imports much of torch (its dispatcher machinery, seconds), so the
+    unmapped path does not go through it."""
+    if torch._C._are_functorch_transforms_active():
         return sample_op(planes, u, v)
     return pattern_sample(planes, u, v)

@@ -27,12 +27,16 @@ call on the CPU within 1e-3 px.
 launches on the card, and the CPU, give the same grid bitwise.
 
 The loops' small solve (``csrc/lu_solve.cu``'s ``small_solve``, one warp
-per system): ``utils.linalg.solve`` on one system takes it at every n of
-1..32 and is bitwise ``torch.linalg.solve_ex`` there, in float32 and
-float64; over many systems in one launch it is within kappa n eps of its
-plain version (it fuses each product into its update, the plain version
-rounds it first); captured in a WHILE body, also nested in an IF body, it
-runs only in the passes that run (``graphs.launch_ledger``).
+per system, the one route of ``utils.linalg.solve`` up to 32 unknowns):
+on one system it is taken at every n of 1..32 and is bitwise
+``torch.linalg.solve_ex`` there, in float32 and float64; a batch and
+``torch.vmap`` lanes (also nested) take one launch, each system bitwise
+``solve_ex`` on that system alone; the launcher holds from 1 to 4097
+systems and at 2^31; over many systems in one launch it is within kappa n
+eps of its plain version (it fuses each product into its update, the
+plain version rounds it first); captured in a WHILE body, also nested in
+an IF body, it runs only in the passes that run
+(``graphs.launch_ledger``).
 
 ``parallel.dryrun.dryrun_multichip(2, "cuda")`` runs with two spawned ranks
 sharing the card over gloo and holds itself to the JAX dry run's bounds.
@@ -616,8 +620,9 @@ def test_launch_ledger_counts_the_passes_that_ran(card, stop):
     ``stop`` passes, ``graphs.launch_ledger`` counts 10 slots of the small
     solve (also under its size, 12) and of the pass tail (a slot per pass
     the cap allows) and ``stop`` launches run of each (the pass tail's
-    ``taken`` count), none of the LU substitution; the condition kernel,
-    which starts the loop, runs once."""
+    ``taken`` count); the condition kernel, which starts the loop, runs
+    once. The ledger has no LU substitution: the small solve is the one
+    route of the loops' solves."""
     from slam_eds_tpu_torch import graphs
     x = _loop_inputs(card, stop)
     fn = _solve_loop(stop, 10)
@@ -628,7 +633,7 @@ def test_launch_ledger_counts_the_passes_that_ran(card, stop):
     d = graphs.ledger_delta(before, graphs.launch_ledger())
     assert d["small_solve"] == {"slots": 10, "run": stop}
     assert d["small_solve_n12"] == {"slots": 10, "run": stop}
-    assert d["lu_substitute"] == {"slots": 0, "run": 0}
+    assert "lu_substitute" not in d
     assert d["pass_tail"] == {"slots": 10, "run": stop}
     assert d["set_condition"] == {"slots": 1, "run": 1}
 
@@ -748,14 +753,16 @@ def test_while_node_nested_in_an_if_body(card, taken):
 @pytest.mark.parametrize("n,batch", [(6, 1), (7, 1), (7, 2), (8, 1), (12, 1),
                                      (12, 4), (68, 1)])
 def test_loop_solve_is_solve_ex_at_the_path_sizes(card, n, batch, dtype):
-    """``utils.linalg.solve`` (the small solve kernel for one system up to
-    32 unknowns, torch's factorization and the substitution kernel for a
-    batch, two triangular solves above 32) at every size
-    and batch of the path (the coarse LM's 6 and 8, the BA gauge's 7, the
-    event LM's 12, the window BA's reduced 68) in float32 and float64:
-    bitwise ``torch.linalg.solve_ex``, and its normwise relative residual
+    """``utils.linalg.solve`` at every size and batch of the path (the
+    coarse LM's 6 and 8, the BA gauge's 7, the event LM's 12, the window
+    BA's reduced 68) in float32 and float64: up to 32 unknowns one launch
+    of the small solve kernel per call, one system or a batch, each system
+    bitwise ``torch.linalg.solve_ex`` on that system alone; above 32
+    (torch's factorization and two triangular solves) bitwise
+    ``torch.linalg.solve_ex``; and its normwise relative residual
     ||A x - b|| / (||A|| ||x|| + ||b||) (max norms, in float64) at most
     n eps on these systems, which need row swaps."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
     from slam_eds_tpu_torch.utils.linalg import solve
     rng = np.random.default_rng(n * 10 + batch)
     A = rng.normal(size=(batch, n, n)) + 0.05 * np.eye(n)
@@ -763,14 +770,155 @@ def test_loop_solve_is_solve_ex_at_the_path_sizes(card, n, batch, dtype):
     A, b = (torch.as_tensor(a, dtype=dtype, device=card) for a in (A, b))
     if batch == 1:
         A, b = A[0], b[0]
+    before = lu.small_solve.launches
     x = solve(A, b)
-    assert torch.equal(x, torch.linalg.solve_ex(
-        A, b[..., None], check_errors=False)[0][..., 0])
+    if n <= lu.MAX_N:
+        assert lu.small_solve.launches - before == 1
+        A3, b3 = A.reshape(-1, n, n), b.reshape(-1, n)
+        want = torch.stack([torch.linalg.solve_ex(
+            A3[i], b3[i][:, None], check_errors=False)[0][:, 0]
+            for i in range(len(A3))]).reshape(b.shape)
+    else:
+        assert lu.small_solve.launches == before
+        want = torch.linalg.solve_ex(A, b[..., None],
+                                     check_errors=False)[0][..., 0]
+    assert torch.equal(x, want)
     A64, b64, x64 = A.double(), b.double(), x.double()
     r = (A64 @ x64[..., None])[..., 0] - b64
     res = r.abs().amax(-1) / (A64.abs().sum(-1).amax(-1)
                               * x64.abs().amax(-1) + b64.abs().amax(-1))
     assert float(res.max()) <= n * torch.finfo(dtype).eps, float(res.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("systems", [1, 2, 3, 4, 33, 4097])
+@pytest.mark.parametrize("n", [7, 12, 17])
+def test_small_solve_launcher_over_many_systems(card, n, systems):
+    """The launcher at many systems (a warp each, four a block, the last
+    block partial for 1, 2, 3, 33 and 4097): one launch for all; each
+    system bitwise the kernel on that system alone and
+    ``torch.linalg.solve_ex`` on it alone; an output buffer longer than
+    the systems keeps its sentinel past the last one, and inputs followed
+    by NaNs give the same x (nothing past the last system is read into a
+    result or written)."""
+    import ctypes
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    gen = torch.Generator().manual_seed(systems * 100 + n)
+    A = chip_smoke.solve_systems("general", n, systems, torch.float32, card,
+                                 gen)
+    b = torch.randn(systems, n, generator=gen).to(card)
+    before = lu.small_solve.launches
+    x = lu.small_solve(A, b)
+    assert lu.small_solve.launches - before == 1
+    for i in sorted({0, 1 % systems, systems // 2, systems - 1}):
+        one = lu.small_solve(A[i].contiguous(), b[i].contiguous())
+        assert torch.equal(one, x[i])
+        assert torch.equal(one, torch.linalg.solve_ex(
+            A[i], b[i][:, None], check_errors=False)[0][:, 0])
+    if systems <= 33:
+        assert torch.equal(x, torch.stack([lu.small_solve(
+            A[i].contiguous(), b[i].contiguous()) for i in range(systems)]))
+    pad = 5
+    Ap = torch.full((systems + pad, n, n), float("nan"), device=card)
+    bp = torch.full((systems + pad, n), float("nan"), device=card)
+    xp = torch.full((systems + pad, n), -7.0, device=card)
+    Ap[:systems], bp[:systems] = A, b
+    lib = lu.load().lib
+    rc = lib.small_solve_f32(Ap.data_ptr(), bp.data_ptr(), xp.data_ptr(), n,
+                             systems, int(lu.reciprocal_route(n)),
+                             torch.cuda.current_stream(card).cuda_stream)
+    assert rc == 0
+    assert torch.equal(xp[:systems], x)
+    assert bool((xp[systems:] == -7.0).all())
+    # a grid past the limit in x is refused before any launch
+    too_many = ctypes.c_longlong(4 * (2 ** 31 - 1) + 1)
+    assert lib.small_solve_f32(None, None, None, n, too_many, 0, None) != 0
+
+
+@pytest.mark.cuda
+def test_small_solve_launcher_at_2_31_systems(card):
+    """2^31 systems of one unknown in one launch (2^29 blocks): the grid
+    arithmetic and the 64-bit system index past int32, x = b / a at the
+    first, middle and last systems."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    systems = 2 ** 31
+    free, _ = torch.cuda.mem_get_info(card)
+    assert free > 3 * 4 * systems + 2 ** 30, "needs 25 GiB free on the card"
+    A = torch.full((systems, 1, 1), 4.0, device=card)
+    b = torch.full((systems, 1), 2.0, device=card)
+    b[-1] = 6.0
+    b[systems // 2 + 3] = -1.0
+    x = lu.small_solve(A, b)
+    torch.cuda.synchronize()
+    assert float(x[0, 0]) == 0.5 and float(x[-1, 0]) == 1.5
+    assert float(x[systems // 2 + 3, 0]) == -0.25
+    assert int((x == 0.5).sum()) == systems - 2
+    del A, b, x
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(7, 2), (12, 4), (8, 3)])
+def test_vmapped_lanes_take_one_small_solve(card, n, B):
+    """``torch.vmap`` of ``utils.linalg.solve`` on the card, as the batched
+    surfaces call it: one small solve launch for every lane (A and b
+    mapped, A alone mapped, and 2 x B lanes under nested maps), each lane
+    bitwise ``torch.linalg.solve_ex`` on its system alone."""
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    from slam_eds_tpu_torch.utils.linalg import solve
+    gen = torch.Generator().manual_seed(900 + n)
+    A = chip_smoke.solve_systems("path", n, 2 * B, torch.float32, card, gen)
+    b = torch.randn(2 * B, n, generator=gen).to(card)
+
+    def alone(A, b):
+        return torch.linalg.solve_ex(A, b[:, None],
+                                     check_errors=False)[0][:, 0]
+    for how in ("both", "A", "nested"):
+        before = lu.small_solve.launches
+        if how == "both":
+            x = torch.vmap(solve)(A[:B], b[:B])
+            want = [alone(A[i], b[i]) for i in range(B)]
+        elif how == "A":
+            x = torch.vmap(solve, in_dims=(0, None))(A[:B], b[0])
+            want = [alone(A[i], b[0]) for i in range(B)]
+        else:
+            x = torch.vmap(torch.vmap(solve))(A.reshape(2, B, n, n),
+                                              b.reshape(2, B, n))
+            x = x.reshape(2 * B, n)
+            want = [alone(A[i], b[i]) for i in range(2 * B)]
+        assert lu.small_solve.launches - before == 1, how
+        assert torch.equal(x, torch.stack(want)), how
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iterations", [2, 5])
+def test_batched_event_lanes_are_bitwise_single_solves(card, iterations):
+    """``eval.batched_event_solves`` on the card (one ``torch.vmap`` of the
+    event LM: its reductions lane by lane, ``ops.lanes``; its solves one
+    small solve launch for all lanes a pass): every lane bitwise
+    ``event_tracker.optimize`` on its own inputs alone."""
+    from slam_eds_tpu_torch import eval as ev
+    from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
+    st, frame, (cam, nc, grad, idp, w, mask) = event_world(card)
+    frames = torch.stack([frame, torch.roll(frame, 1, -1),
+                          torch.roll(frame, 2, -2), frame * 0.5])
+    B = len(frames)
+    pts = (nc, grad, idp, w, mask)
+    states = et.TrackerState(*(torch.stack([x] * B) for x in st))
+    before = lu.small_solve.launches
+    got = ev.batched_event_solves(
+        states, frames, cam, *(torch.stack([a] * B) for a in pts),
+        max_iterations=iterations, loss_scale=0.2)
+    assert lu.small_solve.launches - before == iterations
+    for b in range(B):
+        one = et.optimize(st, frames[b], cam, *pts,
+                          max_iterations=iterations,
+                          loss_scale=torch.tensor(0.2, device=card))
+        lane = ev._lane(got, b)
+        for n in ("px", "qx", "vx"):
+            assert torch.equal(getattr(lane.state, n), getattr(one.state, n))
+        for n in ("energy", "residuals", "loss_scale", "n_iter"):
+            assert torch.equal(getattr(lane, n), getattr(one, n)), n
 
 
 def _sweep_systems(card, kind, n, dtype, seed, systems=8):

@@ -17,10 +17,19 @@ port's.
   float64) at most n eps, in float32 and float64, at n = 1, 6, 7, 8, 12
   and 32, on both draws.
 
+* ``torch.vmap`` of the kernel's operator (``solve_op``, whose vmap rule
+  gathers every lane into one call of ``small_solve``): each lane bitwise
+  ``small_solve_reference`` on that system alone, with A, b or both mapped,
+  the mapped axis first or not, and nested maps, in one call; against
+  ``jax.vmap(jnp.linalg.solve)`` within 1e-4 of the scale (as above).
+
 ``utils.linalg.solve`` on CPU tensors is ``torch.linalg.solve_ex``, bit
-for bit; the kernel's wrapper refuses CPU tensors, and the launch ledger
-counts the small solve beside the other kernels, also per size.
+for bit; up to 32 unknowns elsewhere it takes the operator, under
+``torch.vmap`` or not (checked on meta tensors, which reach the
+operator's fake); the kernel's wrapper refuses CPU tensors, and the launch
+ledger counts the small solve beside the other kernels, also per size.
 """
+import jax
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -162,7 +171,7 @@ def test_launch_ledger_counts_the_small_solve_per_size(monkeypatch):
     size and joins the ledger then: a delta across its making counts it
     from 0, and leaves every other counter as it was."""
     before = graphs.launch_ledger()
-    assert "small_solve" in before and "lu_substitute" in before
+    assert "small_solve" in before
     assert [k for k in before if k.startswith("small_solve_n")] == [
         c.__name__ for c in lu.SMALL_SOLVE_BY_N.values()]
     n = next(m for m in range(1, lu.MAX_N + 1)
@@ -174,3 +183,107 @@ def test_launch_ledger_counts_the_small_solve_per_size(monkeypatch):
     delta = graphs.ledger_delta(before, graphs.launch_ledger())
     assert delta.pop(f"small_solve_n{n}") == {"slots": 3, "run": 3}
     assert all(v == {"slots": 0, "run": 0} for v in delta.values())
+
+
+LANE_CASES = ((7, 2), (12, 4), (8, 3))
+
+
+def lane_systems(n, B, seed):
+    """B float32 systems of n unknowns as the LM loops build them
+    (condition at most 1e4, checked) and their right-hand sides."""
+    rng = np.random.default_rng(seed)
+    A, b = zip(*(path_system(rng, n) for _ in range(B)))
+    A, b = np.stack(A).astype(np.float32), np.stack(b).astype(np.float32)
+    assert max(np.linalg.cond(a.astype(np.float64)) for a in A) <= 1e4
+    return torch.as_tensor(A), torch.as_tensor(b)
+
+
+def counted_calls(monkeypatch):
+    """The calls of ``small_solve`` on the CPU (its plain version), each
+    with its number of systems."""
+    calls, plain = [], lu.small_solve_reference
+
+    def count(A, b):
+        calls.append(b.numel() // b.shape[-1])
+        return plain(A, b)
+    monkeypatch.setattr(lu, "small_solve_reference", count)
+    return calls
+
+
+@pytest.mark.parametrize("mapped", ["A", "b", "both", "not_first"])
+@pytest.mark.parametrize("n,B", LANE_CASES)
+def test_solve_op_vmap_is_each_system_alone(n, B, mapped, monkeypatch):
+    """``torch.vmap`` of the operator: one call over every lane, each lane
+    bitwise the plain version on its system alone; an unmapped operand is
+    every lane's."""
+    A, b = lane_systems(n, B, 500 + n)
+    want_A = A if mapped != "b" else A[:1].expand(B, n, n)
+    want_b = b if mapped != "A" else b[:1].expand(B, n)
+    want = torch.stack([lu.small_solve_reference(want_A[i], want_b[i])
+                        for i in range(B)])
+    calls = counted_calls(monkeypatch)
+    if mapped == "A":
+        got = torch.vmap(lu.solve_op, in_dims=(0, None))(A, b[0])
+    elif mapped == "b":
+        got = torch.vmap(lu.solve_op, in_dims=(None, 0))(A[0], b)
+    elif mapped == "both":
+        got = torch.vmap(lu.solve_op)(A, b)
+    else:
+        got = torch.vmap(lu.solve_op, in_dims=(2, 1))(
+            A.permute(1, 2, 0), b.T)
+    assert calls == [B]
+    assert torch.equal(got, want)
+
+
+def test_solve_op_nested_vmap(monkeypatch):
+    """2 x 3 lanes under two nested maps: one call over all six, each
+    bitwise its system alone."""
+    A, b = lane_systems(12, 6, 600)
+    A, b = A.reshape(2, 3, 12, 12), b.reshape(2, 3, 12)
+    calls = counted_calls(monkeypatch)
+    got = torch.vmap(torch.vmap(lu.solve_op))(A, b)
+    assert calls == [6]
+    assert got.shape == (2, 3, 12)
+    for i in range(2):
+        for j in range(3):
+            assert torch.equal(got[i, j],
+                               lu.small_solve_reference(A[i, j], b[i, j]))
+
+
+@pytest.mark.parametrize("n,B", LANE_CASES)
+def test_solve_op_vmap_matches_jax_vmap_solve(n, B):
+    """The batched surfaces of both packages on the same seeded systems:
+    ``jax.vmap(jnp.linalg.solve)`` and ``torch.vmap`` of the operator,
+    within 1e-4 of x's scale lane by lane."""
+    A, b = lane_systems(n, B, 700 + n)
+    want = np.asarray(jax.vmap(jnp.linalg.solve)(jnp.asarray(A.numpy()),
+                                                 jnp.asarray(b.numpy())))
+    got = torch.vmap(lu.solve_op)(A, b).numpy()
+    for i in range(B):
+        assert np.abs(got[i] - want[i]).max() <= 1e-4 * np.abs(want[i]).max()
+
+
+def test_solve_route_off_the_cpu(monkeypatch):
+    """Off the CPU, up to 32 unknowns, ``utils.linalg.solve`` takes the
+    kernel's operator, outside ``torch.vmap`` and under it (on meta tensors
+    the operator's fake gives the [B, n] result); above 32 it does not."""
+    from slam_eds_tpu_torch.utils import linalg
+    seen = []
+
+    def op(A, b):
+        seen.append(tuple(A.shape))
+        return lu.solve_op(A, b)
+    monkeypatch.setattr(linalg, "solve_op", op)
+    A = torch.empty(4, 12, 12, device="meta")
+    b = torch.empty(4, 12, device="meta")
+    got = torch.vmap(solve)(A, b)
+    assert got.shape == (4, 12) and got.device.type == "meta"
+    assert solve(A, b).shape == (4, 12)
+    assert seen == [(12, 12), (4, 12, 12)]
+    seen.clear()
+    A = torch.empty(33, 33, device="meta")
+    try:
+        solve(A, torch.empty(33, device="meta"))
+    except (NotImplementedError, RuntimeError):
+        pass                      # torch's factorization has no meta kernel
+    assert seen == []

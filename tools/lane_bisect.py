@@ -12,10 +12,13 @@ finest event frames of the last B packets), then for each lane runs
 ``--iterations`` LM passes, recording every aten op's outputs with
 ``tools/history_bisect.py``'s op recorder. The batched run's outputs are
 cut to the lane (``lane_of``), the two op sequences are aligned by op name
-(products as one family: the batching rules turn ``mm`` into ``bmm``), and
-the first op whose lane output is not bitwise the single one's is
-reported: its name, the line of the port that issued it, its index among
-the aligned ops and the largest gap; then the pose gaps after the passes.
+(products as one family: the batching rules turn ``mm`` into ``bmm``) and
+the port's line that issued the op (an op that ``ops/lanes.py`` runs once a
+lane under the map is compared on that lane's run), and the first op whose
+lane output is not bitwise the single one's is reported (none where the
+lane is bitwise its single solve): its name, the line of the port that
+issued it, its index among the aligned ops and the largest gap; then the
+pose gaps after the passes.
 One JSON line per lane, and the card's name and power limit. Imports no
 JAX. Run from the root of a checkout (``history_bisect`` imports
 ``chip_smoke`` from the working directory):
@@ -76,18 +79,70 @@ def lane_of(t, u, b):
     return None
 
 
-def first_parting(single, batched, b, window=40):
+# where the port runs an op once a lane under torch.vmap (ops/lanes.py);
+# its vmap rule's own copies and stacks are left out of the comparison
+LANEWISE = "ops/lanes.py"
+BOOKKEEPING = {"clone", "stack", "cat"}
+
+
+def lanewise(op):
+    return LANEWISE in op[1]
+
+
+def lane_runs(run, pool, lanes):
+    """For each op of ``run`` (consecutive ops of the single run issued from
+    ``ops/lanes.py``, one or more calls), its ``lanes`` copies in ``pool``
+    (the batched run's ops from there, each call's ops once a lane in lane
+    order): a list of index lists, or None where they do not line up. A
+    call of L ops is the shortest L whose ``lanes`` repeats start the
+    pool."""
+    out, i, p = [], 0, 0
+    while i < len(run):
+        for n in range(1, len(run) - i + 1):
+            fam = [family(o[0]) for o in run[i:i + n]]
+            if [family(o[0]) for o in pool[p:p + n * lanes]] == fam * lanes:
+                break
+        else:
+            return None
+        out += [[p + k * n + q for k in range(lanes)] for q in range(n)]
+        i, p = i + n, p + n * lanes
+    return out
+
+
+def first_parting(single, batched, b, lanes, window=40):
     """(the first aligned op whose lane output differs, ops compared): the
-    ops are aligned by ``family``, a batched op that the single run lacks
-    (a view the batching rule adds) skipped."""
-    j = compared = 0
-    for name, loc, outs in single:
-        k = next((k for k in range(j, min(j + window, len(batched)))
-                  if family(batched[k][0]) == family(name)), None)
-        if k is None:
+    ops are aligned by ``family`` and the port's line that issued them, a
+    batched op that the single run lacks (a view the batching rule adds)
+    skipped, and the reverse; a run of ops that
+    ``ops/lanes.py`` issues is matched with lane ``b``'s copies
+    (``lane_runs``)."""
+    pairs, i, j = [], 0, 0
+    while i < len(single):
+        if lanewise(single[i]):
+            e = i
+            while e < len(single) and lanewise(single[e]):
+                e += 1
+            pool = [k for k in range(j, len(batched))
+                    if lanewise(batched[k])
+                    and family(batched[k][0]) not in BOOKKEEPING]
+            pool = pool[:(e - i) * lanes]
+            runs = lane_runs(single[i:e], [batched[k] for k in pool], lanes)
+            if runs is not None:
+                pairs += [(single[i + q], batched[pool[r[b]]])
+                          for q, r in enumerate(runs)]
+                j = pool[-1] + 1
+            i = e
             continue
-        j = k + 1
-        for u, t in zip(outs, batched[k][2]):
+        k = next((k for k in range(j, min(j + window, len(batched)))
+                  if family(batched[k][0]) == family(single[i][0])
+                  and batched[k][1] == single[i][1]), None)
+        if k is not None:
+            pairs.append((single[i], batched[k]))
+            j = k + 1
+        i += 1
+    compared = 0
+    for (name, loc, outs), (_, _, touts) in pairs:
+        for u, t in zip(outs, touts):
             lane = lane_of(t, u, b)
             if lane is None or lane.dtype != u.dtype:
                 continue
@@ -131,7 +186,7 @@ def main():
             want = et.optimize(pipe.tracker_state, efs[b], pipe.cam, *pts,
                                max_iterations=args.iterations,
                                loss_scale=pipe.loss_scale)
-        parting, compared = first_parting(rec.ops, batched, b)
+        parting, compared = first_parting(rec.ops, batched, b, B)
         lane = ev._lane(got, b)
         print(json.dumps({
             "tree": os.path.basename(os.path.abspath(args.tree)),

@@ -114,7 +114,7 @@ def generic_solve(lib, A, b):
     fn = lib.generic_small_solve_f32 if A.dtype == torch.float32 \
         else lib.generic_small_solve_f64
     rc = fn(A.data_ptr(), b.data_ptr(), x.data_ptr(), n, b.numel() // n,
-            int(lu.reciprocal_route(n, 1)),
+            int(lu.reciprocal_route(n)),
             torch.cuda.current_stream(A.device).cuda_stream)
     if rc:
         raise RuntimeError(f"generic width launch failed at n = {n}: "
