@@ -61,6 +61,22 @@ not count more. Phases, one output line each:
                path's solve single and batched; the host cost of the
                kernel's operator (``solve_op``, every small solve's route)
                against the wrapper's direct call
+2b. horizon -- each cell's horizon H from its JAX reference
+               (``JAX_CPU_*_BY_FRAME``): the last frame at which the JAX
+               package's frame rotation is within 1e-2 of SO(3) (largest
+               |R R^T - I|); past it the reference's poses are no longer
+               rotations. The frame cell, the event cell and the window-4
+               cell are held to their references frame by frame up to H
+               (``tools/runner_reference.per_frame_parity``): (a) the
+               keyframes, marginalizations, BA runs and resets equal at
+               every frame, (b) each frame's position within a tenth of
+               JAX's whole-run ATE of JAX's, (c) the port's drift 1/3 to
+               3 times JAX's from frame 4 on, (d) in the event cell every
+               packet that ends by H with JAX's verdict; past H the same
+               is printed, not held. All four from the JAX package's
+               bootstrap (phase 6b); from the port's own (phases 3, 6, 9)
+               (c) and (d), (a) and (b) printed: the bootstrap's float32
+               triangulation knife-edge parts the two runs' points
 3. eds-first -- the event cell (phase 9) first in the process
 3a. batched -- ``eval.batched_event_solves`` at B=4 on the event cell's
                shapes and ``eval.batched_ba_windows`` at B=2 on phase 5's BA
@@ -100,6 +116,7 @@ not count more. Phases, one output line each:
                frame); every kernel of the path run, launches run (ledger)
                at most the slots over the run; the device idle share and
                the profiler's launches beside the ledger's over frames 4-6;
+               the per-frame checks to its H;
                every window BA call's GN passes (an eager run with a host
                ``if`` per pass), and the last call's again at the smallest
                ``break_tol`` of 1e-2, 0.1 and 0.5 that stops before the
@@ -116,6 +133,18 @@ not count more. Phases, one output line each:
                it kept fewer records than ran, so its busy time and idle
                share are bounds); any failure of that process, a fault of
                the card included, fails the smoke
+6b. per-frame -- the per-frame checks (a)-(d) to each cell's H on the
+               frame cell, the event cell and the window-4 cell run from
+               the JAX package's two-view bootstrap
+               (``tools/jax_cpu_bootstrap.json``: its pose and inliers'
+               idepths; the rest of the bootstrap stays the port's),
+               captured as on the main path; the window-4 cell (the frame
+               cell's sequence, its first 24 frames, with TUM DSO's
+               real-time window: ``window_size`` = ``min_frames`` = 4,
+               ``caps.max_window_frames`` still 8, so the programs keep
+               their shapes) also from the port's own bootstrap, (c) held:
+               at least two frames marginalized by H at JAX's frames, no
+               reset by then, the sampler launched; ATE and frames/s
 7. kernel-raster -- raster kernel vs ``rasterize_bilinear_reference`` on the
                largest packet of phase 9's sequence (65,536 capacity, time
                weights and mask applied), 65,536 random fractional events at
@@ -205,9 +234,19 @@ not count more. Phases, one output line each:
                has neither), and the
                packet program against its eager run on the largest and the
                smallest packet (two live counts) and with the gate shut
-               (both retries)
+               (both retries); the per-frame checks to its H; the caching
+               allocator's block and segment counts, the process's threads
+               and the SM clock before and after the run (candidates of the
+               host timings' drift)
 10. history -- phases 3 and 9 agree: the same usable string and counts, and
                every usable packet's pose within 1e-6
+10a. eager -- the frame cell and the event cell run again eagerly
+               (``capture=False``, on a card on the captured programs'
+               layout: ``graphs.contiguous``) to their horizons and held to
+               phase 6's and phase 9's captured runs by the per-frame
+               checks (a), (b) and (d), each packet's pose within 1e-6 to
+               H: where they first part at all, and whether they are
+               bitwise equal, printed beside
 11. pass-tail -- the pass tail on the main path's carries: per kind of
                loop that ran in phase 6 or 9 (the port's function that
                called ``while_loop``, its carry's bytes and leaves; its
@@ -288,6 +327,194 @@ JAX_CPU_MIDAS = {"ate": 0.00010620228567859158, "frames": 16,
                  "ba_runs": 4, "marginalized": 0, "resets": 0,
                  "active_points": 2048}
 REFINE_SHORT_FRAMES = 12   # klt_pyr and epiline: smaller depth, same width
+# Per-frame references of the frame cell (phase 6), the event cell (phases
+# 3 and 9) and the window-4 cell (phase 6b): the JAX package on the CPU on
+# the same sequence, the ``by_frame`` record of
+#   JAX_PLATFORMS=cpu python3 tools/runner_reference.py --package jax \
+#       --per-frame --cell frame | --cell event \
+#       | --cell frame --window-size 4 --frames 24
+# (``runner_reference.frame_record`` after frame k: keyframes made, frames
+# marginalized, BA runs, full resets, the largest |R R^T - I| of frame k's
+# pose, its keyframe score, its position camera to world; ``usable``:
+# packet k's verdict, the packet after frame k). Each cell is held to its
+# reference frame by frame up to its horizon H (``runner_reference.
+# horizon``: the last frame whose JAX drift is within 1e-2; frame 21,
+# event 25, window-4 19). The card renders its own sequence, which differs
+# from the JAX package's by a grey level in a few pixels an image.
+JAX_CPU_FRAME_BY_FRAME = {
+    "keyframes": [0, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4, 5, 5, 5, 5,
+        5, 6, 6, 6, 7, 8, 9, 10, 10, 10, 11, 11],
+    "marginalized": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 1, 2, 3, 3, 3, 4, 4],
+    "ba_runs": [0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3,
+        4, 4, 4, 5, 6, 7, 8, 8, 8, 9, 9],
+    "resets": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "drift": [0, 2.56937e-07, 6.44708e-07, 9.85849e-07, 1.7048e-06,
+        2.25049e-06, 2.63585e-06, 7.51635e-06, 1.27955e-05, 1.77544e-05,
+        2.33199e-05, 2.80855e-05, 8.44375e-05, 0.000140432, 0.0001967,
+        0.000253388, 0.000308593, 0.000926134, 0.0015431, 0.00216336,
+        0.00278447, 0.00340682, 0.0102763, 0.0172225, 0.0242494, 0.075021,
+        0.245466, 0.942797, 0.954858, 0.954858, 7.02092, 7.15938],
+    "kf_score": [None, None, 0.229692, 0.420913, 0.587832, 0.735589, 0.869314,
+        0.209749, 0.408271, 0.608409, 0.800377, 0.967974, 0.179514, 0.325899,
+        0.454822, 0.576684, 0.706273, 0.202874, 0.420818, 0.65924, 0.904812,
+        1.14453, 0.239486, 0.495853, 0.779779, 2.5736, 7.46452, 18.6166, None,
+        None, 3708.44, None],
+    "position": [[0, 0, 0], [0.00485981395, -0.00218247878, 0.00140115386],
+        [0.00908209849, -0.00414635474, 0.00357031729],
+        [0.0134178605, -0.00459710602, 0.00522565702],
+        [0.0175218061, -0.00376456231, 0.00663258974],
+        [0.0212461166, -0.00175288494, 0.00773185771],
+        [0.0244095214, 0.00130173948, 0.0084932521],
+        [0.0269452427, 0.00563639961, 0.00870956481],
+        [0.0286760908, 0.0100914687, 0.00877489243],
+        [0.0295904223, 0.0146704614, 0.00846315641],
+        [0.0296877548, 0.0191241279, 0.00777240191],
+        [0.0289386865, 0.023017738, 0.00675039552],
+        [0.0274673309, 0.026138844, 0.00539533328],
+        [0.0252654739, 0.0282740351, 0.00379459956],
+        [0.0223940555, 0.0292080734, 0.00196558563],
+        [0.0189607572, 0.0288471989, -1.51645854e-05],
+        [0.0151147358, 0.0272771623, -0.00206952356],
+        [0.0115575567, 0.0247230288, -0.00407787692],
+        [0.00782537647, 0.0212558731, -0.00604859926],
+        [0.00410625013, 0.0171257369, -0.00787659362],
+        [0.000557264488, 0.0126905404, -0.00953616295],
+        [-0.00271488563, 0.0082408404, -0.0109394584],
+        [0.00132137979, 0.00560693163, -0.0120153809],
+        [0.00599353993, 0.0032843845, -0.012962685],
+        [0.0116891209, 0.00201480347, -0.0139872944],
+        [0.0657504573, 0.0101670278, -0.0171378311],
+        [0.218016505, 0.0398750417, -0.0130894212],
+        [0.568846405, 0.179908365, 0.0755797401],
+        [0.550934613, 0.267784536, 0.0546811633],
+        [0.550934613, 0.267784536, 0.0546811633],
+        [-0.403391749, -0.888765931, -2.11135316],
+        [-0.401516736, -0.807557881, -2.10365415]]
+}
+JAX_CPU_EDS_BY_FRAME = {
+    "keyframes": [0, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 4, 4, 4, 4, 4, 5, 5, 5, 5,
+        5, 6, 6, 6, 6, 6, 7, 7, 8, 9, 10, 11],
+    "marginalized": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 2, 3, 4],
+    "ba_runs": [0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3,
+        4, 4, 4, 4, 4, 5, 5, 6, 7, 8, 9],
+    "resets": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "drift": [0, 2.56937e-07, 1.00215e-06, 5.88064e-07, 1.10628e-06,
+        1.26281e-06, 1.85237e-06, 4.7093e-06, 8.70771e-06, 1.26722e-05,
+        1.24786e-05, 1.57018e-05, 4.32105e-05, 7.42375e-05, 7.39297e-05,
+        0.000105185, 0.000136287, 0.000378022, 0.000379995, 0.000656838,
+        0.000936408, 0.00121894, 0.00365901, 0.00610046, 0.00853271,
+        0.00855207, 0.0109557, 0.0292852, 0.0479061, 0.127583, 0.314894,
+        0.693165],
+    "kf_score": [None, None, 0.229694, 0.420898, 0.58781, 0.735554, 0.869282,
+        0.208609, 0.407333, 0.607491, 0.799765, 0.967425, 0.179696, 0.326551,
+        0.457155, 0.580247, 0.711638, 0.218678, 0.461048, 0.713542, 0.971942,
+        1.22448, 0.188886, 0.338737, 0.447131, 0.540652, 0.550386, 0.968382,
+        2.16026, 5.22955, 8.32374, 13.4106],
+    "position": [[0, 0, 0], [0.00485981395, -0.00218247878, 0.00140115386],
+        [0.00908218045, -0.00414635707, 0.00357028283],
+        [0.0134173483, -0.00459719962, 0.00522552384],
+        [0.0175210722, -0.00376469363, 0.00663243933],
+        [0.0212450325, -0.00175302022, 0.00773185445],
+        [0.0244085565, 0.00130158605, 0.00849333685],
+        [0.0269377921, 0.00562017784, 0.00870865397],
+        [0.0286546443, 0.0100825792, 0.00878311321],
+        [0.0295672566, 0.0146582937, 0.00847661495],
+        [0.0296618659, 0.0191205777, 0.00778048625],
+        [0.0289035775, 0.023013575, 0.00675885566],
+        [0.0274140723, 0.0261206105, 0.00539619941],
+        [0.0251810476, 0.028249599, 0.00379555346],
+        [0.0222515166, 0.0291708875, 0.00196393928],
+        [0.0187914018, 0.0287957471, -1.48263643e-05],
+        [0.0149124637, 0.0272361673, -0.00206627487],
+        [0.0109372996, 0.024577884, -0.0040837219],
+        [0.0065543009, 0.0209792573, -0.006069622],
+        [0.00243252167, 0.0167776495, -0.00788039248],
+        [-0.00150853558, 0.0122781834, -0.00950782839],
+        [-0.00517846644, 0.00776495086, -0.0108768577],
+        [-0.00616019918, 0.00398864225, -0.0118245864],
+        [-0.00671809586, 0.000836113526, -0.0124090957],
+        [-0.00647568749, -0.00136353716, -0.0126884421],
+        [-0.00788104907, -0.00292250142, -0.0128117288],
+        [-0.0060309805, -0.00278154807, -0.0123774167],
+        [0.0141732395, 0.00112924865, -0.0103699695],
+        [0.0381920971, 0.00753059611, -0.00960080512],
+        [0.142309308, 0.024849562, 0.00390056893],
+        [0.312538415, 0.0703211948, 0.0419726893],
+        [0.543091238, 0.275967717, 0.211646944]],
+    "usable": "uuuuuuuuuuuuuuuuuuuuuuuuuuuuuu"
+}
+JAX_CPU_W4_BY_FRAME = {
+    "keyframes": [0, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 6, 6, 6,
+        6, 7, 8, 9],
+    "marginalized": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2,
+        2, 2, 3, 4, 5],
+    "ba_runs": [0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 4,
+        5, 6, 7],
+    "resets": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0],
+    "drift": [0, 2.56937e-07, 6.44708e-07, 9.85849e-07, 1.7048e-06,
+        2.25049e-06, 6.63678e-06, 1.16436e-05, 1.66979e-05, 2.09316e-05,
+        6.37047e-05, 0.00010553, 0.00014771, 0.000189094, 0.000566199,
+        0.000943378, 0.00132031, 0.00169747, 0.00510392, 0.00852666, 0.0119687,
+        0.0154337, 0.047318, 0.151234],
+    "kf_score": [None, None, 0.229692, 0.420913, 0.587832, 0.735589, 0.196057,
+        0.381757, 0.578243, 0.771208, 0.215892, 0.400247, 0.560825, 0.690341,
+        0.151586, 0.291154, 0.448623, 0.627952, 0.159491, 0.330006, 0.51562,
+        0.701152, 1.37034, 3.24121],
+    "position": [[0, 0, 0], [0.00485981395, -0.00218247878, 0.00140115386],
+        [0.00908209849, -0.00414635474, 0.00357031729],
+        [0.0134178605, -0.00459710602, 0.00522565702],
+        [0.0175218061, -0.00376456231, 0.00663258974],
+        [0.0212461166, -0.00175288494, 0.00773185771],
+        [0.024517497, 0.0016017654, 0.00828622747],
+        [0.0269302707, 0.00554307969, 0.0087221656],
+        [0.0286956839, 0.00995937642, 0.00875200983],
+        [0.0296506956, 0.0145679303, 0.00841978099],
+        [0.0297107343, 0.019157555, 0.00777454302],
+        [0.0289697312, 0.0231023449, 0.00674890773],
+        [0.0275215283, 0.0262561478, 0.00539962249],
+        [0.025310358, 0.0283453222, 0.00378490007],
+        [0.0226987768, 0.0292459577, 0.00200172351],
+        [0.0196145643, 0.0290173031, 8.69165979e-06],
+        [0.0160539057, 0.0275140014, -0.00203079823],
+        [0.0122149372, 0.0249009617, -0.00407530973],
+        [0.0111649483, 0.0220572557, -0.00586986542],
+        [0.0101987021, 0.0185255446, -0.0076605049],
+        [0.00945894606, 0.0145093445, -0.00934214517],
+        [0.00913689844, 0.0104470467, -0.0108939847],
+        [0.037376482, 0.0159392674, -0.0121525982],
+        [0.114919849, 0.0628530532, -0.0181399472]]
+}
+# The window-4 cell: TUM DSO's real-time window (setting_maxFrames = 4,
+# presets 2-3 of main_dso_pangolin.cpp's settingsDefault), the first
+# W4_FRAMES frames of the frame cell's sequence; JAX resets at frame 30.
+W4_WINDOW = 4
+W4_FRAMES = 24
+JAX_CPU_W4 = {"ate": 0.039826344698667526, "frames": 24, "keyframes": 9,
+              "ba_runs": 7, "marginalized": 5, "resets": 0}
+# The JAX package's two-view bootstrap of these cells (frames 0 and 1: the
+# pose and every inlier's normalized coordinates and idepth), as
+#   JAX_PLATFORMS=cpu python3 tools/runner_reference.py --package jax \
+#       --cell frame --frames 2 --bootstrap-out tools/jax_cpu_bootstrap.json
+# writes it. From it the port's frame path repeats JAX's (phase 6b, the
+# per-frame checks (a)-(d)); from its own bootstrap it parts: the float32
+# triangulation of near-parallel rays sets some seeded idepths apart
+# (ROADMAP §3, the bootstrap knife-edge), the activation then picks some
+# other points, and by frame 20 the keyframe scores are apart by more
+# than the knife-edge (``tools/bootstrap_split.py``). So the main path's
+# own runs hold (c) the drift ratio and (d) the verdicts to H, and print
+# (a) and (b).
+JAX_CPU_BOOTSTRAP = "tools/jax_cpu_bootstrap.json"
+OWN_BOOTSTRAP_HELD = ("drift_ratio", "usable")
+# (b)'s bound on each frame position's gap to JAX's up to H: a tenth of
+# JAX's whole-run ATE of the cell
+FRAME_POSITION_TOL = 0.1 * JAX_CPU_ATE
+EVENT_POSITION_TOL = 0.1 * JAX_CPU_EDS["ate"]
+W4_POSITION_TOL = 0.1 * JAX_CPU_W4["ate"]
 # frames (with their packets) of the window whose device idle share is
 # printed: frames PIPE_WARMUP to PIPE_WARMUP + PROFILE_FRAMES, a profiler
 # session of their own
@@ -538,6 +765,71 @@ def torch_guard():
         sys.path.insert(0, tests)
     import torch_guard as guard
     return guard
+
+
+def runner_reference():
+    """``tools/runner_reference.py`` of this checkout: the per-frame record
+    (``frame_record``), ``horizon`` and ``per_frame_parity``, the same the
+    JAX references were made with and the CPU tests use."""
+    tools = str(Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import runner_reference as rr
+    return rr
+
+
+def held_per_frame(label, got, want, pos_tol, H=None, hold=None):
+    """``runner_reference.per_frame_parity`` of ``got`` against ``want``
+    up to H (``want``'s horizon when None) by the checks ``hold`` (all when
+    None); its faults named by ``label``. The caller prints it and then
+    calls ``check_held``."""
+    rr = runner_reference()
+    p = rr.per_frame_parity(got, want, pos_tol, H=H,
+                            hold=rr.CHECKS if hold is None else hold)
+    p["faults"] = [f"{label}: {f}" for f in p["faults"]]
+    return p
+
+
+@contextlib.contextmanager
+def shared_bootstrap():
+    """The port's pipelines bootstrap with the JAX package's two-view
+    result (``JAX_CPU_BOOTSTRAP``, ``runner_reference.shared_bootstrap``):
+    its pose and its inliers' idepths on the candidates both have; the
+    candidates, tracks, window, activation and BA stay the port's."""
+    from slam_eds_tpu_torch.ops import initializer
+    rr = runner_reference()
+    with open(Path(__file__).resolve().parent / JAX_CPU_BOOTSTRAP) as f:
+        ref = json.load(f)
+    orig = initializer.bootstrap_eight_point
+    initializer.bootstrap_eight_point = rr.shared_bootstrap(ref)
+    try:
+        yield initializer.bootstrap_eight_point
+    finally:
+        initializer.bootstrap_eight_point = orig
+
+
+def check_held(parity):
+    """Fail on the first check of ``held_per_frame`` that failed."""
+    if parity["faults"]:
+        fail("; ".join(parity["faults"]))
+
+
+def host_state():
+    """What may drift a process's host timings: the caching allocator's
+    block and segment counts (``torch.cuda.memory_stats``), the process's
+    threads and the card's SM clock."""
+    m = torch.cuda.memory_stats()
+    with open("/proc/self/status") as f:
+        threads = next((int(line.split()[1]) for line in f
+                        if line.startswith("Threads:")), None)
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    return {"allocations": m.get("allocation.all.current", 0),
+            "allocations_made": m.get("allocation.all.allocated", 0),
+            "segments": m.get("segment.all.current", 0),
+            "segments_made": m.get("segment.all.allocated", 0),
+            "threads": threads, "sm_clock": clock}
 
 
 def _ledger():
@@ -1616,6 +1908,7 @@ def phase_pipeline(dev):
     for k in graphs.counters():
         k.launches = 0
     walls, syncs, passes = [], [], []
+    rr, by_frame, record_s = runner_reference(), None, 0.0
     window = ProfiledRun()
     rec = WindowPrograms()
     window.start()
@@ -1634,6 +1927,9 @@ def phase_pipeline(dev):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         syncs.append((n, captured))
+        t0 = time.perf_counter()
+        by_frame = rr.frame_record(pipe, by_frame)
+        record_s += time.perf_counter() - t0
         d = {n: c[n] - v for n, v in before.items()}
         passes.append({"lm": [d["coarse_lm_passes"], d["coarse_lm_slots"]],
                        "cutoff": [d["coarse_cutoff_doublings"],
@@ -1665,6 +1961,8 @@ def phase_pipeline(dev):
     steady = walls[PIPE_WARMUP:]
     # host reads measured over the frames that captured no program
     measured = [n for n, cap in syncs if not cap]
+    parity = held_per_frame("frame cell", by_frame, JAX_CPU_FRAME_BY_FRAME,
+                            FRAME_POSITION_TOL, hold=OWN_BOOTSTRAP_HELD)
     phase("pipeline", frames=PIPE_FRAMES, keyframes=win.next_id,
           marginalized=win.marg_count, counters=counters,
           kernel_launches=launches, ate=ate, ate_bound=bound,
@@ -1689,7 +1987,9 @@ def phase_pipeline(dev):
           ba_early_break_tol=early_tol,
           graph_capture_s=graphs.CACHE.capture_s,
           graph_programs=graphs.CACHE.table(),
-          captured_vs_eager=captured)
+          captured_vs_eager=captured, per_frame=parity,
+          per_frame_record_s=record_s)
+    check_held(parity)
     if not pipe._initialized or win.next_id < 2:
         fail("the pipeline did not bootstrap")
     if counters.get("ba_runs", 0) < 1 or win.marg_count < 1:
@@ -1708,7 +2008,134 @@ def phase_pipeline(dev):
         fail(f"window tensors off the card: {off}")
     if not ate <= bound:
         fail(f"ATE {ate} above the bound {bound}")
-    return launches
+    return launches, by_frame
+
+
+def frame_cell_record(pipe, frames, stop=None):
+    """Frames [0, stop) of ``frames`` through ``pipe`` (every replay under
+    sync debug "error"), with the per-frame record after each; returns
+    the record, the seconds per frame and those of the records."""
+    from slam_eds_tpu_torch import graphs
+    rr, by_frame, walls, record_s = runner_reference(), None, [], 0.0
+    for t, img in frames[:stop]:
+        t0 = time.perf_counter()
+        with graphs.sync_check("error"):
+            pipe.process_frame(img, t)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        by_frame = rr.frame_record(pipe, by_frame)
+        record_s += time.perf_counter() - t0
+    return by_frame, walls, record_s
+
+
+def window4_config():
+    """The default EDSConfig with TUM DSO's real-time window: 4 frames
+    kept and a keyframe at least every 4 frames (``window_size`` and
+    ``min_frames``); ``caps.max_window_frames`` stays 8, so every program
+    keeps its shapes."""
+    from slam_eds_tpu_torch.config import EDSConfig
+    cfg = EDSConfig()
+    return dataclasses.replace(cfg, bundles=dataclasses.replace(
+        cfg.bundles, window_size=W4_WINDOW, min_frames=W4_WINDOW))
+
+
+def window4_cell(dev, cam, seq, shared):
+    """The window-4 cell once (``shared``: from the JAX package's
+    bootstrap): its per-frame record, launches, ATE and frame seconds."""
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.models.pipeline import FrameOnlyPipeline
+    from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
+    from slam_eds_tpu_torch.utils.alignment import ate_rmse
+    frames = [seq.frame(k)[:2] for k in range(W4_FRAMES)]
+    pipe = FrameOnlyPipeline(cam, window4_config(), device=dev)
+    torch.cuda.synchronize()
+    for k in graphs.counters():
+        k.launches = 0
+    l0 = _ledger()
+    with shared_bootstrap() if shared else contextlib.nullcontext():
+        by_frame, walls, record_s = frame_cell_record(pipe, frames)
+    est = pipe.positions()
+    if len(est) != W4_FRAMES or not np.isfinite(est).all():
+        fail(f"window-4 trajectory has {len(est)} entries or is not finite")
+    steady = walls[PIPE_WARMUP:]
+    return by_frame, {
+        "sampler_launches": _delta(l0, _ledger())["pattern_sample"],
+        "sampler_launch_slots": pattern_sample.launches,
+        "ate": float(ate_rmse(est, seq.gt_positions()[:len(est)])),
+        "frames_per_s": len(steady) / sum(steady),
+        "frame_ms_median": 1e3 * float(np.median(steady)),
+        "first_frames_s": sum(walls[:PIPE_WARMUP]),
+        "per_frame_record_s": record_s}
+
+
+def phase_per_frame(dev):
+    """The per-frame checks (a)-(d) held to each cell's horizon on the
+    frame cell, the event cell and the window-4 cell run from the JAX
+    package's bootstrap (``shared_bootstrap``), captured like the main
+    path; and the window-4 cell from the port's own bootstrap, its drift
+    ratio held as on the main path's cells. The window-4 cell must
+    marginalize at least twice by its horizon (at JAX's frames: its counts
+    are held) with no reset by then, and launch the sampler; its ATE and
+    frames/s are printed."""
+    from slam_eds_tpu_torch.config import EDSConfig
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.models.pipeline import (EDSPipeline,
+                                                    FrameOnlyPipeline)
+    cam = smoke_camera()
+    seq = SyntheticSequence(cam, num_frames=PIPE_FRAMES, motion_scale=0.22,
+                            micro_steps=2, device=dev)
+    t0 = time.perf_counter()
+    with shared_bootstrap() as boot:
+        frame_rec, _, _ = frame_cell_record(
+            FrameOnlyPipeline(cam, EDSConfig(), device=dev),
+            [seq.frame(k)[:2] for k in range(PIPE_FRAMES)])
+        matched = boot.matched
+        event = run_event_cell(dev, eds_config(), pipe=EDSPipeline(
+            cam, eds_config(), device=dev))
+    cells = {
+        "frame": held_per_frame(
+            "frame cell from JAX's bootstrap", frame_rec,
+            JAX_CPU_FRAME_BY_FRAME, FRAME_POSITION_TOL),
+        "event": held_per_frame(
+            "event cell from JAX's bootstrap", event["by_frame"],
+            JAX_CPU_EDS_BY_FRAME, EVENT_POSITION_TOL)}
+    frame_event_s = time.perf_counter() - t0
+    w4 = {}
+    for shared in (True, False):
+        rec, w4[shared] = window4_cell(dev, cam, seq, shared)
+        label = ("window-4 cell from JAX's bootstrap" if shared
+                 else "window-4 cell")
+        w4[shared]["per_frame"] = held_per_frame(
+            label, rec, JAX_CPU_W4_BY_FRAME, W4_POSITION_TOL,
+            hold=None if shared else OWN_BOOTSTRAP_HELD)
+        w4[shared]["record"] = rec
+    H = min(w4[True]["per_frame"]["held_to"], W4_FRAMES - 1)
+    counts = w4[True]["record"]["marginalized"]
+    margs = [k for k in range(1, H + 1) if counts[k] > counts[k - 1]]
+    phase("per-frame", bootstrap_inliers_matched=matched,
+          frame_cell=cells["frame"],
+          event_cell=cells["event"], frame_event_s=frame_event_s,
+          window4={"window_size": W4_WINDOW, "frames": W4_FRAMES,
+                   "jax_cpu": JAX_CPU_W4,
+                   "marginalized_at_frames_to_horizon": margs,
+                   "shared_bootstrap": {k: v for k, v in w4[True].items()
+                                        if k != "record"},
+                   "own_bootstrap": {k: v for k, v in w4[False].items()
+                                     if k != "record"}})
+    for p in (cells["frame"], cells["event"], w4[True]["per_frame"],
+              w4[False]["per_frame"]):
+        check_held(p)
+    if len(margs) < 2:
+        fail(f"the window-4 cell marginalized at {margs} by its horizon "
+             f"{H}: fewer than two")
+    if w4[True]["record"]["resets"][H] != 0:
+        fail("the window-4 cell reset by its horizon")
+    for shared, cell in w4.items():
+        if cell["sampler_launches"]["run"] <= 0 \
+                or cell["sampler_launch_slots"] <= 0:
+            fail(f"a window-4 cell ran no sampler launch "
+                 f"({cell['sampler_launches']})")
 
 
 def eds_inputs(dev):
@@ -1961,8 +2388,10 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
     per-packet seconds, the
     synchronising calls of each frame and packet (``counted_syncs``; a
     packet's with the rungs it took), the usable
-    flags, every packet's pose (None where rejected) and the event
-    positions with their ground truth."""
+    flags, every packet's pose (None where rejected), the event
+    positions with their ground truth, and the per-frame record
+    (``runner_reference.frame_record`` after each frame, ``usable`` the
+    packets' verdicts) with its seconds."""
     from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.models.pipeline import EDSPipeline
     from slam_eds_tpu_torch.ops.kernels.pattern_sample import pattern_sample
@@ -1978,6 +2407,7 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
         k.launches = 0
     frame_s, packet_s, frame_syncs, packet_syncs = [], [], [], []
     ev_pos, ev_gt, usable, poses = [], [], [], []
+    rr, by_frame, record_s = runner_reference(), None, 0.0
     c = pipe.telemetry.counters
     if window is not None:
         window.start()
@@ -1990,6 +2420,9 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
         torch.cuda.synchronize()
         frame_s.append(time.perf_counter() - t0)
         frame_syncs.append((n, captured))
+        t0 = time.perf_counter()
+        by_frame = rr.frame_record(pipe.frame_pipe, by_frame)
+        record_s += time.perf_counter() - t0
         if k + 1 < len(frames) and pipe.kf is not None:
             retries = c["event_retries"]
             t0 = time.perf_counter()
@@ -2015,7 +2448,10 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
                 "rasterize_bilinear": rasterize_bilinear.launches}
     # the launches of the warm-ups of programs first captured in this run
     warmups = {k: graphs.CACHE.warmups[k] - warm0[k] for k in launches}
+    if by_frame is not None:
+        by_frame["usable"] = "".join("u" if u else "x" for u in usable)
     return dict(pipe=pipe, seq=seq, frames=frames, packets=packets,
+                by_frame=by_frame, record_s=record_s,
                 launches=launches, warmup_launches=warmups,
                 frame_s=frame_s, packet_s=packet_s, frame_syncs=frame_syncs,
                 packet_syncs=packet_syncs,
@@ -2234,8 +2670,10 @@ def phase_eds(dev, label="eds", profiled=True):
     packet's pose (None where rejected)."""
     from slam_eds_tpu_torch import graphs
     window = ProfiledRun() if profiled else None
+    host_before = host_state()
     with graphs.sync_check("error"):
         run = run_event_cell(dev, eds_config(), window=window)
+    host_after = host_state()
     pipe, frames, packets = run["pipe"], run["frames"], run["packets"]
     launches, usable, poses = run["launches"], run["usable"], run["poses"]
     frame_s, packet_s = run["frame_s"], run["packet_s"]
@@ -2251,6 +2689,9 @@ def phase_eds(dev, label="eds", profiled=True):
     steady_s = sum(frame_s[PIPE_WARMUP:]) + sum(steady_pk)
     reads = measured_reads(run)
     captured = packet_captured_checks(pipe, packets, label)
+    parity = held_per_frame(f"event cell ({label})", run["by_frame"],
+                            JAX_CPU_EDS_BY_FRAME, EVENT_POSITION_TOL,
+                            hold=OWN_BOOTSTRAP_HELD)
     phase(label, frames=len(frames), packets_fed=len(usable),
           usable_solves=int(sum(usable)),
           usable_fraction=sum(usable) / max(len(usable), 1),
@@ -2279,7 +2720,10 @@ def phase_eds(dev, label="eds", profiled=True):
           graph_capture_s=graphs.CACHE.capture_s,
           graph_program_table=graphs.CACHE.table(),
           event_counters=dict(c), frame_counters=dict(fc),
-          n_valid=[int(p.n_valid) for p in packets])
+          n_valid=[int(p.n_valid) for p in packets], per_frame=parity,
+          per_frame_record_s=run["record_s"],
+          host_state_before=host_before, host_state_after=host_after)
+    check_held(parity)
     if not fp._initialized or fp.window.next_id < 2:
         fail("the event pipeline's frame backend did not bootstrap")
     if fc.get("ba_runs", 0) < 1:
@@ -2320,7 +2764,7 @@ def phase_eds(dev, label="eds", profiled=True):
         "u" if u else "x" for u in usable), "counts": counts, "poses": poses,
         "reads_per_packet": reads["per_packet"],
         "packet_ms_median": 1e3 * float(np.median(steady_pk)),
-        "pipe": pipe, "packets": packets}
+        "pipe": pipe, "packets": packets, "by_frame": run["by_frame"]}
 
 
 class _Timed:
@@ -3450,6 +3894,91 @@ def phase_batched(dev, eds):
     return sampler, solves
 
 
+def first_parted(gaps):
+    """The first index whose gap is not 0 (None when all are)."""
+    return next((k for k, g in enumerate(gaps) if g != 0.0), None)
+
+
+def phase_eager(dev, frame_record, event_last):
+    """The frame cell and the event cell run eagerly (``capture=False``:
+    the same functions on the captured programs' layout, loops masked and
+    retries as host ``if``s) to their horizons, each held to its captured
+    run (the frame cell of phase 6, the event cell's last run) frame by
+    frame: (a) counts equal, (b) positions within the cell's bound, and in
+    the event cell (d) the same verdicts and every packet that ends by H
+    with its pose within POSE_TOL. Where they first part at all
+    (positions, poses) is printed beside, and whether they are bitwise
+    equal to H."""
+    from slam_eds_tpu_torch.config import EDSConfig
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.models.pipeline import (EDSPipeline,
+                                                    FrameOnlyPipeline)
+    rr = runner_reference()
+    cam = smoke_camera()
+    H_frame = rr.horizon(JAX_CPU_FRAME_BY_FRAME["drift"])
+    H_event = rr.horizon(JAX_CPU_EDS_BY_FRAME["drift"])
+    seq = SyntheticSequence(cam, num_frames=PIPE_FRAMES, motion_scale=0.22,
+                            micro_steps=2, device=dev)
+    frames = [seq.frame(k)[:2]
+              for k in range(min(H_frame + 1, PIPE_FRAMES))]
+    t0 = time.perf_counter()
+    eager, walls, _ = frame_cell_record(
+        FrameOnlyPipeline(cam, EDSConfig(), device=dev, capture=False),
+        frames)
+    frame_s = time.perf_counter() - t0
+    frame = held_per_frame("frame cell, eager against captured", eager,
+                           frame_record, FRAME_POSITION_TOL, H=H_frame,
+                           hold=("counts", "positions"))
+    t0 = time.perf_counter()
+    run = run_event_cell(dev, eds_config(), pipe=EDSPipeline(
+        cam, eds_config(), device=dev, capture=False),
+        stop=min(H_event + 1, PIPE_FRAMES))
+    event_s = time.perf_counter() - t0
+    event = held_per_frame("event cell, eager against captured",
+                           run["by_frame"], event_last["by_frame"],
+                           EVENT_POSITION_TOL, H=H_event,
+                           hold=("counts", "positions", "usable"))
+    pose_gaps = [None if a is None or b is None else
+                 float(np.abs(a - b).max()) for a, b in
+                 zip(run["poses"], event_last["poses"])]
+    held = [g for k, g in enumerate(pose_gaps)
+            if k + 1 <= event["held_to"] and g is not None]
+    phase("eager", frame_horizon=H_frame, event_horizon=H_event,
+          frame_cell=frame, frame_cell_s=frame_s,
+          frame_ms_median=1e3 * float(np.median(walls[PIPE_WARMUP:])),
+          frame_first_parted=first_parted(frame["position_gap_by_frame"]),
+          event_cell=event, event_cell_s=event_s,
+          event_first_parted=first_parted(event["position_gap_by_frame"]),
+          packet_pose_gaps=pose_gaps, packet_pose_tol=POSE_TOL,
+          packet_pose_first_parted=first_parted(
+              [g or 0.0 for g in pose_gaps]),
+          bitwise=not any(frame["position_gap_by_frame"])
+          and not any(event["position_gap_by_frame"]) and not any(held))
+    check_held(frame)
+    check_held(event)
+    if not max(held, default=0.0) <= POSE_TOL:
+        fail(f"the eager event cell's packet poses part from the captured "
+             f"run's by {max(held)} by its horizon (bound {POSE_TOL})")
+
+
+def phase_horizon():
+    """Each cell's horizon H from its JAX reference: the last frame whose
+    frame rotation is within DRIFT_LIMIT of SO(3), and the drift there and
+    at the next frame."""
+    rr = runner_reference()
+    cells = {}
+    for name, ref in (("frame", JAX_CPU_FRAME_BY_FRAME),
+                      ("event", JAX_CPU_EDS_BY_FRAME),
+                      ("window4", JAX_CPU_W4_BY_FRAME)):
+        H = rr.horizon(ref["drift"])
+        cells[name] = {"horizon": H, "frames": len(ref["drift"]),
+                       "drift_at_horizon": ref["drift"][H],
+                       "drift_after": ref["drift"][H + 1]
+                       if H + 1 < len(ref["drift"]) else None,
+                       "marginalized_by_horizon": ref["marginalized"][H]}
+    phase("horizon", drift_limit=rr.DRIFT_LIMIT, cells=cells)
+
+
 def wall_s(fn):
     """Host seconds of ``fn()`` to the end of its device work (after one
     call to warm up)."""
@@ -3485,18 +4014,22 @@ def phase_history(first, last):
 def main():
     dev = phase_device()
     record_loops()
+    from slam_eds_tpu_torch.models.window import WindowManager
+    runner_reference().keep_kf_inputs(WindowManager)
     built = build_kernels()
     phase_build("build", built["pattern_sample"])
     phase_build("build-raster", built["rasterize"])
     phase_build("build-lu", built["lu_solve"])
     phase_build("build-cond", built["graph_cond"])
     phase_build_host(built["host"])
+    phase_horizon()
     cond = phase_conditional(dev)
     first = phase_eds(dev, label="eds-first", profiled=False)
     lanes, batched_solves = phase_batched(dev, first)
     kern = phase_kernel(dev)
     phase_ba(dev)
-    frame_launches = phase_pipeline(dev)
+    frame_launches, frame_record = phase_pipeline(dev)
+    phase_per_frame(dev)
     profiled_cell_process()
     raster = phase_kernel_raster(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3510,6 +4043,7 @@ def main():
     par = phase_parallel(dev)
     last = phase_eds(dev)
     phase_history(first, last)
+    phase_eager(dev, frame_record, last)
     frame, event = frame_launches, last["profiled"]
     tail = phase_pass_tail(dev, {
         "frame_cell": frame["pass_tail"]["passes_by_loop"],

@@ -673,3 +673,13 @@ CACHE = GraphCache()
 def copy_out(tree):
     """A copy of a program's outputs (``None`` leaves kept)."""
     return pytree.tree_map(lambda x: None if x is None else x.clone(), tree)
+
+
+def contiguous(tree):
+    """``tree`` with every tensor in the layout a captured program's static
+    buffers have (``CapturedProgram``): contiguous, copied where it is
+    not. A function run eagerly on it computes what its captured program
+    does; on a transposed operand a product may take another algorithm and
+    round otherwise."""
+    return pytree.tree_map(
+        lambda x: x.contiguous() if torch.is_tensor(x) else x, tree)

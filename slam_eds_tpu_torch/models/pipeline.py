@@ -944,4 +944,8 @@ class EDSPipeline:
             key = ("event_packet", tuple(cam), tuple(iters),
                    tuple(sorted(lim.items())), tuple(sorted(statics.items())))
             return CACHE.run(key, program, x)
+        if self.device.type == "cuda":
+            # eagerly on the captured program's layout (``graphs.
+            # contiguous``)
+            x = graphs.contiguous(x)
         return program(x)

@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import graphs
 from ..graphs import CACHE, copy_out
 from ..config import EDSConfig
 from ..utils.cameras import Pinhole
@@ -513,6 +514,12 @@ class WindowManager:
         closure holds only what ``key`` names), whose outputs are copied out
         (the next replay overwrites them), else eagerly."""
         if not self._captured():
+            if self.device.type == "cuda":
+                # eagerly on the captured program's layout: the event
+                # tracker's pose seeds the track transposed
+                # (``SE3.inverse``), and a product on it rounds otherwise
+                # on the card
+                x = graphs.contiguous(x)
             return fn(x)
         return copy_out(CACHE.run(key, fn, x))
 
