@@ -42,6 +42,11 @@ graph instead of the host launching every operation.
   ``torch.cuda.set_sync_debug_mode(mode)``: with ``"error"`` a hidden
   synchronisation inside a replayed step raises. (A warm-up is an eager
   run and may upload a per-device constant once.)
+* While ``telemetry.TRACE`` is on, a call is the span ``replay.<program>``
+  (``<program>`` its key's first element, ``program_name``), its first
+  also ``capture.<program>`` around the warm-up and capture, and two CUDA
+  events, one after the input copy and one after the replay, time the
+  replay on the device.
 
 ``CACHE`` is the process's cache, which the pipelines use. A capture or
 replay failure raises; nothing falls back to the eager loop.
@@ -93,6 +98,7 @@ from .ops.kernels.build import build_library
 from .ops.kernels.pattern_sample import pattern_sample, pattern_sample_lanes
 from .ops.kernels.lu_solve import SMALL_SOLVE_BY_N, small_solve
 from .ops.kernels.rasterize import rasterize_bilinear
+from .telemetry import TRACE
 
 _COND_LIB = None
 IF, WHILE = 0, 1
@@ -601,9 +607,15 @@ class CapturedProgram:
         leaves = [x for x in pytree.tree_leaves(inputs) if x is not None]
         if len(leaves) != len(self.static):
             raise ValueError("inputs do not match the captured program")
+        timed = TRACE.on
         with _sync_mode():
             torch._foreach_copy_(self.static, leaves)
+            if timed:
+                stream = torch.cuda.current_stream()
+                start = TRACE.device_event(stream)
             self.graph.replay()
+            if timed:
+                TRACE.time_replay(start, TRACE.device_event(stream))
         for k, n in zip(counters(), self.launches):
             k.launches += n
         _REPLAYED[:] = _add(_REPLAYED, self.launches)
@@ -629,16 +641,20 @@ class GraphCache:
         full_key = (key, str(spec), _signature(leaves))
         prog = self.programs.get(full_key)
         if prog is None:
+            name = program_name(key)
             t0 = time.perf_counter()
-            prog = CapturedProgram(fn, inputs)
+            with TRACE.span(f"capture.{name}"):
+                prog = CapturedProgram(fn, inputs)
             prog.capture_s = time.perf_counter() - t0
+            prog.span = f"replay.{name}"
             self.capture_s += prog.capture_s
             self.programs[full_key] = prog
             for k, n in zip(counters(), prog.warmup_launches):
                 if n:
                     self.warmups[k.__name__] = \
                         self.warmups.get(k.__name__, 0) + n
-        return prog(inputs)
+        with TRACE.span(prog.span):
+            return prog(inputs)
 
     def replays(self) -> int:
         return sum(p.replays for p in self.programs.values())
@@ -650,8 +666,7 @@ class GraphCache:
         and their replays."""
         out = {}
         for key, p in self.programs.items():
-            name = key[0][0] if isinstance(key[0], tuple) else key[0]
-            row = out.setdefault(str(name), {
+            row = out.setdefault(program_name(key[0]), {
                 "programs": 0, "graph_nodes": 0, "while_nodes": 0,
                 "if_nodes": 0, "capture_s": 0.0, "replays": 0})
             row["programs"] += 1
@@ -662,6 +677,11 @@ class GraphCache:
             row["capture_s"] += p.capture_s
             row["replays"] += p.replays
         return out
+
+
+def program_name(key) -> str:
+    """A program's name: its key's first element."""
+    return str(key[0] if isinstance(key, tuple) else key)
 
 
 # the process's cache, which every pipeline uses, as jit's trace cache is

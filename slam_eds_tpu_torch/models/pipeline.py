@@ -15,6 +15,14 @@ in torch on the pipeline's device under ``torch.inference_mode``.
 DSO-style joint initializer (``dso``, ``ops.coarse_init``) or an external
 depth map (``midas``); ``tracker.track_refinement`` the event track
 refinement of the packet step.
+
+While ``telemetry.TRACE`` is on, each entry call is a span, ``frame`` or
+``packet``, and its pieces are spans inside it: ``bootstrap``, ``reset``,
+``track`` (one ``track.hypothesis`` per motion hypothesis, with its host
+read), ``keyframe`` (the window's ``keyframe.*``), ``event_keyframe``;
+``packet.upload``, ``packet.read`` (the step's one host read) and
+``packet.adopt`` (the accepted solve's copies and bookkeeping); each
+captured program's ``replay.<program>`` (``graphs``).
 """
 from __future__ import annotations
 
@@ -41,7 +49,7 @@ from . import ba_state as bs
 from . import keyframe as kfm
 from .event_frame import create_event_frame
 from .window import WindowManager
-from ..telemetry import Telemetry
+from ..telemetry import TRACE, Telemetry, traced
 from .. import graphs
 from ..graphs import CACHE, copy_out
 
@@ -107,6 +115,7 @@ class FrameOnlyPipeline:
                              photometric_bgrad=bgrad, capture=self.capture)
 
     # ------------------------------------------------------------------
+    @traced("reset")
     def _full_reset(self):
         """Discard the window after a persistent loss and re-bootstrap,
         anchored at the last OK-tracked pose."""
@@ -153,6 +162,7 @@ class FrameOnlyPipeline:
             self.times.append(time)
 
     # ------------------------------------------------------------------
+    @traced("bootstrap")
     def _bootstrap(self, img0, t0, img1, t1):
         """Two-view bootstrap: KLT tracks of gradient candidates + batched
         RANSAC essential matrix (KeyFrame::initialStructure)."""
@@ -218,6 +228,7 @@ class FrameOnlyPipeline:
         return True
 
     # ------------------------------------------------------------------
+    @traced("bootstrap")
     def _bootstrap_dso(self, img, time: float) -> bool:
         """DSO-style pyramid initializer (``ops.coarse_init``): frames
         accumulate until the joint pose + idepth solve snaps, then the
@@ -251,6 +262,7 @@ class FrameOnlyPipeline:
         self._initialized = True
         return True
 
+    @traced("bootstrap")
     def _bootstrap_depthmap(self, img, time: float, depth_map) -> bool:
         """Depth-map bootstrap: an externally supplied monocular depth (a
         dense [H, W] metric depth image, or a sparse (uv [N, 2], idepth [N],
@@ -288,12 +300,18 @@ class FrameOnlyPipeline:
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
+    @traced("frame")
     def process_frame(self, img, time: float, depth_map=None):
         """Feed one grayscale frame [H, W]; returns the worldToCam pose.
 
         depth_map: optional external depth for the ``midas`` bootstrap, a
         dense [H, W] metric depth or a sparse (uv [N, 2], idepth [N],
         mask [N]) tuple."""
+        return self._frame(img, time, depth_map)
+
+    def _frame(self, img, time: float, depth_map):
+        """``process_frame``'s work, which ``EDSPipeline.process_frame``
+        runs inside its own ``frame`` span."""
         if not self._initialized:
             held = self._world_anchor
             if self.cfg.tracker.bootstrap == "midas":
@@ -339,33 +357,7 @@ class FrameOnlyPipeline:
             T = self.window.state.current_poses()
             s = self.window.newest_slot
             preds.append(SE3(T.R[s], T.t[s]))
-        res = T_wc = None
-        best = None
-        c = self.telemetry.counters
-        its = self.cfg.coarse.max_iterations
-        lm_slots = sum(its[min(l, len(its) - 1)]
-                       for l in range(self.cfg.coarse.pyr_levels))
-        for pred in preds:
-            r, T = self.window.track_frame(img, pred)
-            # one host read per hypothesis: its verdict, finest rms and the
-            # loop passes that ran (the cutoff doublings, the LM's)
-            ok_r0 = torch.cat([torch.stack([r.ok.to(torch.float32),
-                                            r.residuals[0]]),
-                               r.passes.sum(0).to(torch.float32)]).cpu(
-                                   ).numpy()
-            c["track_hypotheses"] += 1
-            c["coarse_cutoff_doublings"] += int(ok_r0[2])
-            c["coarse_lm_passes"] += int(ok_r0[3])
-            c["coarse_lm_slots"] += lm_slots
-            if not ok_r0[0] > 0.5:
-                if res is None:
-                    res, T_wc = r, T
-                continue
-            r0 = float(ok_r0[1])
-            if best is None or r0 < best[2]:
-                best = (r, T, r0)
-            if r0 <= 1.5 * self._last_rms:
-                break
+        res, T_wc, best = self._track(img, preds)
         track_ok = best is not None
         if best is not None:
             res, T_wc = best[0], best[1]
@@ -388,7 +380,7 @@ class FrameOnlyPipeline:
             self._lost_frames += 1
             self.telemetry.counters["track_lost"] = \
                 self.telemetry.counters.get("track_lost", 0) + 1
-        self.telemetry.frame(ok=track_ok)
+        self.telemetry.frame()
         self._last_pose = T_wc
         self.poses.append(T_wc)
         self.trajectory.append(_np(T_wc.inverse().t))
@@ -411,14 +403,55 @@ class FrameOnlyPipeline:
             self._full_reset()
         return T_wc
 
+    @traced("track")
+    def _track(self, img, preds):
+        """The motion try-list (trackNewFrame): each hypothesis in turn
+        until one's finest rms is within 1.5x the last frame's. Returns
+        (result, pose, best): the first result and pose if none was ok,
+        best the (result, pose, rms) of the least rms among those ok."""
+        res = T_wc = None
+        best = None
+        its = self.cfg.coarse.max_iterations
+        lm_slots = sum(its[min(l, len(its) - 1)]
+                       for l in range(self.cfg.coarse.pyr_levels))
+        for pred in preds:
+            r, T, ok_r0 = self._hypothesis(img, pred, lm_slots)
+            if not ok_r0[0] > 0.5:
+                if res is None:
+                    res, T_wc = r, T
+                continue
+            r0 = float(ok_r0[1])
+            if best is None or r0 < best[2]:
+                best = (r, T, r0)
+            if r0 <= 1.5 * self._last_rms:
+                break
+        return res, T_wc, best
+
+    @traced("track.hypothesis")
+    def _hypothesis(self, img, pred, lm_slots: int):
+        """One coarse track from ``pred`` and its host read: its verdict,
+        finest rms and the loop passes that ran (the cutoff doublings, the
+        LM's). Returns (TrackResult, T_wc, the read [4])."""
+        r, T = self.window.track_frame(img, pred)
+        ok_r0 = torch.cat([torch.stack([r.ok.to(torch.float32),
+                                        r.residuals[0]]),
+                           r.passes.sum(0).to(torch.float32)]).cpu().numpy()
+        c = self.telemetry.counters
+        c["track_hypotheses"] += 1
+        c["coarse_cutoff_doublings"] += int(ok_r0[2])
+        c["coarse_lm_passes"] += int(ok_r0[3])
+        c["coarse_lm_slots"] += lm_slots
+        return r, T, ok_r0
+
+    @traced("keyframe")
     def _add_keyframe(self, img, T_wc: SE3, time: float, track_res):
         w = self.window
         aff = tuple(_np(track_res.aff)) if bool(track_res.ok) else (0.0, 0.0)
         slot = w.insert_frame(img, T_wc, time, aff=aff)
         w.trace_all(slot)
         w.activate_points()
-        e, lin = w.optimize()
-        self.telemetry.ba(energy=e)
+        _, lin = w.optimize()
+        self.telemetry.ba()
         w.flag_and_marginalize(lin)
         # refill from surviving frames' immatures before the template
         # rebuild when marginalization emptied a large share of the map
@@ -687,8 +720,9 @@ class EDSPipeline:
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
+    @traced("frame")
     def process_frame(self, img, time: float, depth_map=None):
-        T_wc = self.frame_pipe.process_frame(img, time, depth_map=depth_map)
+        T_wc = self.frame_pipe._frame(img, time, depth_map)
         if self.frame_pipe._resets != self._seen_resets:
             # the backend discarded its map: the event keyframe and its
             # depth filter refer to it
@@ -752,6 +786,7 @@ class EDSPipeline:
                          kf.norm_coord[:, 1] * z, z], -1)
         return self._project_seed(kf.pose.apply(X), ok, T_wc)
 
+    @traced("event_keyframe")
     def _make_event_keyframe(self, img, time: float, T_wc: SE3):
         """New EDS keyframe (KeyFrame::create + Tracker::reset), its depth
         seeded from the BA map and the previous keyframe's converged
@@ -824,6 +859,7 @@ class EDSPipeline:
         self._psa = (lim, iters, statics)
         return self._psa
 
+    @traced("packet.upload")
     def _upload(self, packet):
         """The packet's (x, y, t, polarity) arrays and its live count on the
         device, the count as an int32 scalar (data, as in JAX: a captured
@@ -840,6 +876,7 @@ class EDSPipeline:
         return (*host.unbind(0), n.reshape(()))
 
     @torch.inference_mode()
+    @traced("packet")
     def process_events(self, packet, fwd_maps=None):
         """Feed one EventPacket. Returns the worldToCam pose of the event
         frame, or None before initialization and for a rejected solve.
@@ -858,23 +895,30 @@ class EDSPipeline:
         """
         if self.kf is None:
             return None
-        kf = self.kf
         c = self.telemetry.counters
         lim, iters, statics = self._packet_step_args()
         c["event_packets"] += 1
         c["event_lm_host_reads"] += 0
         out, rungs = self._run_packet(self.packet_inputs(packet, fwd_maps),
                                       lim, iters, statics)
-        host, rungs = read_packet(out, rungs)
+        with TRACE.span("packet.read"):
+            host, rungs = read_packet(out, rungs)
         c["event_scalar_host_reads"] += 1
         c["event_retries"] += rungs - 1
-        (state, pf, depth, mask, tracks, residuals, _, R_wef, t_wef, _) = out
-        sc = host[:8]
-        if not sc[0] > 0.5:
+        if not host[0] > 0.5:
             # rejected solve: the step already selected every state back
             c["event_solve_rejected"] += 1
             self._pending_kf = True
             return None
+        return self._adopt(out, host)
+
+    @traced("packet.adopt")
+    def _adopt(self, out, host):
+        """An accepted solve: copies of the step's outputs become the
+        tracker's state, the host scalars ``host`` its bookkeeping. Returns
+        the worldToCam pose of the event frame."""
+        (state, pf, depth, mask, tracks, residuals, _, R_wef, t_wef, _) = out
+        sc = host[:8]
         # adopt copies: a captured program's outputs are overwritten by its
         # next replay
         (state, pf, depth, mask, tracks, residuals, R_wef, t_wef) = \
@@ -885,7 +929,7 @@ class EDSPipeline:
         self.depth = depth
         if self.cfg.tracker.loss.scale_estimator == "mad":
             self.loss_scale = float(sc[2])
-        self.telemetry.event_solve(n_iter=int(sc[3]), energy=float(sc[1]))
+        self.telemetry.event_solve(n_iter=int(sc[3]))
 
         T_w_ef = SE3(R_wef, t_wef)
         self.event_poses.append(host[8:11].copy())
@@ -895,8 +939,8 @@ class EDSPipeline:
             self.recorder.record_pose(
                 ef_time, SE3(host[11:20].reshape(3, 3), host[8:11]))
             self.recorder.record_velocity(ef_time, host[20:])
-        self.kf = kf._replace(mask=mask, track=tracks, residual=residuals,
-                              idepth=depth.mu)
+        self.kf = self.kf._replace(mask=mask, track=tracks,
+                                   residual=residuals, idepth=depth.mu)
         # the event tracker seeds the frame front-end's next coarse track,
         # but not while the frame tracker is lost
         if self.cfg.tracker.seed_frame_tracker and not self.frame_pipe._lost:

@@ -20,6 +20,12 @@ the real rows are written, so its shapes change from call to call); the
 pixel selector and immature spawn of ``insert_frame``, which choose points
 on the host; the slot and frame-row writes of ``insert_frame`` and the
 host-side policy (``flag_and_marginalize``, ``_update_energy_th``).
+
+While ``telemetry.TRACE`` is on, each piece of keyframe work is a span:
+``keyframe.insert`` (``insert_frame``, holding ``keyframe.spawn``, the
+immature spawn), ``keyframe.trace``, ``keyframe.activate``, ``keyframe.ba``
+(``optimize`` with its energy read), ``keyframe.marginalize`` and
+``keyframe.template``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 from .. import graphs
 from ..graphs import CACHE, copy_out
 from ..config import EDSConfig
+from ..telemetry import traced
 from ..utils.cameras import Pinhole
 from ..utils.lie import SE3
 from ..utils import image as image_ops
@@ -227,6 +234,7 @@ class WindowManager:
             lambda x: image_ops.build_pyramid(x["img"], L)[0], {"img": img})
 
     # ------------------------------------------------------------------
+    @traced("keyframe.insert")
     def insert_frame(self, img, T_wc: SE3, time: float, aff=(0.0, 0.0),
                      exposure: float = 1.0, is_first: bool = False,
                      immature_seed=None) -> int:
@@ -279,6 +287,7 @@ class WindowManager:
         self._spawn_immature(slot, immature_seed)
         return slot
 
+    @traced("keyframe.spawn")
     def _spawn_immature(self, slot: int, seed_depth=None):
         """Select candidate pixels on the new KF and make immature points
         (makeNewTraces)."""
@@ -316,6 +325,7 @@ class WindowManager:
         """Pair tensors as numpy (one transfer)."""
         return tuple(_np(a) for a in self.pairs())
 
+    @traced("keyframe.trace")
     def trace_all(self, target_slot: int):
         """traceOn every other frame's immature points against the target
         frame (traceNewCoarse): one program per call of ``trace_on``, which
@@ -369,6 +379,7 @@ class WindowManager:
             torch.as_tensor(active, device=self.device), H // 2, W // 2,
             max_dist=40)
 
+    @traced("keyframe.activate")
     def activate_points(self, max_new: Optional[int] = None):
         """Promote well-traced immature points into free BA point slots
         (activatePointsMT): GOOD/SKIPPED, quality above threshold, finite
@@ -542,6 +553,7 @@ class WindowManager:
         return self._program(("ba", tuple(sorted(kw.items()))),
                              lambda x: ba_program(x, **kw), x)
 
+    @traced("keyframe.ba")
     def optimize(self, iterations: Optional[int] = None):
         """Run the window BA (``run_ba``); returns (energy, lin)."""
         self.state, e, lin = self.run_ba(*self.ba_inputs(iterations))
@@ -567,6 +579,7 @@ class WindowManager:
             th, device=self.device))
 
     # ------------------------------------------------------------------
+    @traced("keyframe.marginalize")
     def flag_and_marginalize(self, lin):
         """Point flagging + frame marginalization policy, after BA."""
         st = self.state
@@ -661,6 +674,7 @@ class WindowManager:
         return marg_slot
 
     # ------------------------------------------------------------------
+    @traced("keyframe.template")
     def rebuild_coarse_template(self):
         """Project active points into the newest KF and rebuild the coarse
         tracking templates (setCoarseTrackingRef): one program, the newest
