@@ -994,8 +994,8 @@ def phase_device():
 
 
 def build_kernels():
-    """The kernel libraries (the sampler, the raster, the small solve and
-    the conditional nodes' kernels), one nvcc each, and the host
+    """The kernel libraries (the sampler, the raster, the small solve, the
+    coarse pass and the conditional nodes' kernels), one nvcc each, and the host
     runtime, all started together. Returns the build records and whether
     the host runtime built."""
     from slam_eds_tpu_torch import graphs
@@ -1003,10 +1003,12 @@ def build_kernels():
     from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
     from slam_eds_tpu_torch.ops.kernels import rasterize as rz
     from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
-    with ThreadPoolExecutor(5) as ex:
+    from slam_eds_tpu_torch.ops.kernels import coarse_pass as cp
+    with ThreadPoolExecutor(6) as ex:
         jobs = {"pattern_sample": ex.submit(ps.load),
                 "rasterize": ex.submit(rz.load),
                 "lu_solve": ex.submit(lu.load),
+                "coarse_pass": ex.submit(cp.load),
                 "graph_cond": ex.submit(graphs._cond_lib),
                 "host": ex.submit(eb.available)}
         return {name: job.result() for name, job in jobs.items()}
@@ -1030,6 +1032,7 @@ def phase_build_host(ok):
 KERNEL_NAMES = {"pattern_sample": "pattern_sample_kernel",
                 "rasterize_bilinear": "raster_cluster_kernel",
                 "small_solve": "small_solve_kernel",
+                "coarse_pass": "coarse_pass_kernel",
                 "set_condition": "set_condition",
                 "pass_tail": "pass_tail"}
 
@@ -1563,6 +1566,158 @@ def phase_pass_tail(dev, cells):
                     "against its eager run"}
 
 
+def coarse_engagement(label, counters, launches, levels, warm0):
+    """The coarse pass's engagement over a cell's run: its launches run
+    (``graphs.launch_ledger``, less the warm-ups of programs first captured
+    in the run, which run every pass to the caps) against those the coarse
+    passes ``Telemetry`` counts call for: one a cutoff doubling, one an LM
+    pass and three a level of every hypothesis. Fails unless equal."""
+    from slam_eds_tpu_torch import graphs
+    warm = (graphs.CACHE.warmups.get("coarse_pass", 0)
+            - warm0.get("coarse_pass", 0))
+    ran = launches["coarse_pass"]["run"] - warm
+    hyp = counters.get("track_hypotheses", 0)
+    dbl = counters.get("coarse_cutoff_doublings", 0)
+    lm = counters.get("coarse_lm_passes", 0)
+    want = dbl + lm + 3 * levels * hyp
+    out = {"launches_run": ran, "warmup_launches": warm,
+           "launch_slots": launches["coarse_pass"]["slots"],
+           "called_for": want, "hypotheses": hyp, "cutoff_doublings": dbl,
+           "lm_passes": lm, "engagement": ran / want if want else None}
+    if ran != want or not want:
+        fail(f"{label}: {ran} coarse_pass launches ran for {want} coarse "
+             f"passes and straight-line calls: {out}")
+    return out
+
+
+# the coarse pass's bytes a template slot: u, v, idepth, color, mask (17 B)
+# and four [I, gx, gy] taps (48 B); float32 operations a slot with the
+# Jacobian (the warp, the taps' weights, the residual and weight, 8
+# columns, 36 + 8 products and sums) and without it
+COARSE_SLOT_BYTES = 65
+COARSE_SLOT_OPS = {"init": 160, "lm": 160, "sat0": 60}
+
+
+def coarse_system_gaps(Hk, bk, H, b, E, n_gn):
+    """The kernel's H and b (``Hk``, ``bk``) against the plain version's:
+    each entry's gap over the scale of its sum's terms, which bounds what
+    another order of the sums can move it: sqrt(H_ii H_jj) for H_ij, and
+    sqrt(H_ii E / n_gn) for b_i (Cauchy-Schwarz on w J_i J_j and w J_i r,
+    with sum(w r^2) <= E for Huber weights w <= 1; n_gn the in-cutoff
+    count H and b are normalized by). Near the optimum b is a sum that
+    cancels, so its own largest entry is no scale for its rounding."""
+    d = torch.diagonal(H).clamp(min=0)
+    sH = torch.sqrt(d[:, None] * d[None, :])
+    sb = torch.sqrt(d * float(E) / max(int(n_gn), 1))
+    return {"H": float(((Hk - H).abs() / sH.clamp(min=1e-30)).max()),
+            "b": float(((bk - b).abs() / sb.clamp(min=1e-30)).max())}
+
+
+def phase_coarse_pass(dev, track):
+    """The coarse pass on the main path's shapes: the frame cell's last
+    coarse track (``WindowPrograms.track``) run eagerly with each level's
+    ``track_level`` call recorded, then per level: one launch's
+    linearization against ``calc_res`` / ``calc_gs`` on the same card
+    tensors (H and b within 1e-5 of their terms' scale,
+    ``coarse_system_gaps``; E within 1e-6 relative, the counts and the
+    saturated share equal), two launches
+    bitwise equal, the device us of a launch of each kind (an LM pass with
+    its step, a linearization, residuals only; ``kernel_us_in``) against
+    the byte bound and the plain linearization's device us and activities
+    (``device_profile``), and the whole level by the kernel beside
+    ``track_level_plain`` (pose gap, passes of each). Returns the kernels
+    line's numbers (level 0, the most slots)."""
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.ops import coarse_tracker as ct
+    from slam_eds_tpu_torch.ops.kernels import coarse_pass as cp
+    if track is None:
+        fail("the frame cell recorded no coarse track")
+    fn, x = track
+    calls, orig = [], ct.track_level
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+    ct.track_level = record
+    try:
+        fn(graphs.contiguous(x))
+    finally:
+        ct.track_level = orig
+    torch.cuda.synchronize()
+    rows, worst = [], {"H": 0.0, "b": 0.0, "E": 0.0}
+    for args, kw in reversed(calls):     # the finest level first
+        tpl, img, cam, pose0, aff0, exps, aff_ref = args
+        huber, cut = kw["huber_th"], kw["cutoff_th"]
+        level = cp.Level(tpl, img, cam, exps, aff_ref, huber, cut, 0.01,
+                         0.001, False, False)
+        at = (pose0.R, pose0.t, aff0)
+        cutoff = torch.full((), cut, device=dev)
+        init = level.run("init", at, cutoff)
+        bitwise = all(torch.equal(a, b) for a, b in
+                      zip(init, level.run("init", at, cutoff)))
+
+        def plain():
+            rel = ct.aff_from_to(exps[0], aff_ref, exps[1], aff0)
+            E, n, sat, buf = ct.calc_res(tpl, img, cam, pose0, rel, huber,
+                                         cutoff)
+            return (E, n, sat, *ct.calc_gs(buf, cam, rel, aff_ref[1]),
+                    buf["mask"].sum())
+        E, n, sat, H, b, n_gn = plain()
+        f = init[0]
+        gap = {**coarse_system_gaps(f[cp.S_H:cp.S_B].view(8, 8),
+                                    f[cp.S_B:cp.S_E], H, b, E, n_gn),
+               "E": abs(float(f[cp.S_E]) - float(E)) / abs(float(E))}
+        counts_equal = int(f[cp.S_N]) == int(n)
+        sat_equal = float(level.run("sat0", at)[0][1]) == float(sat)
+        cand = (f[cp.S_CR:cp.S_CT], f[cp.S_CT:cp.S_CAFF],
+                f[cp.S_CAFF:cp.S_CNORM])
+        us = {"lm": kernel_us_in(
+                  lambda: level.run("lm", cand, cutoff, init), "coarse_pass"),
+              "init": kernel_us_in(lambda: level.run("init", at, cutoff),
+                                   "coarse_pass"),
+              "sat0": kernel_us_in(lambda: level.run("sat0", at),
+                                   "coarse_pass")}
+        plain_us, plain_activities = device_profile(plain)
+        slots = tpl.u.shape[0]
+        got = ct.track_level(*args, **kw)
+        want = ct.track_level_plain(*args, **kw)
+        rows.append({
+            "slots": slots, "valid": int(n), "gaps": gap,
+            "counts_equal": counts_equal, "sat_equal": sat_equal,
+            "bitwise_two_launches": bitwise, "us": us,
+            "bound": {k: roofline(slots * COARSE_SLOT_BYTES,
+                                  slots * COARSE_SLOT_OPS[k], v)
+                      for k, v in us.items()},
+            "plain_linearize_us": plain_us,
+            "plain_linearize_activities": plain_activities,
+            "level_pose_gap": max(float((got[0].R - want[0].R).abs().max()),
+                                  float((got[0].t - want[0].t).abs().max())),
+            "level_rms": [float(got[2]), float(want[2])],
+            "level_passes": [got[5].tolist(), want[5].tolist()]})
+        for k in worst:
+            worst[k] = max(worst[k], gap[k])
+        if not (gap["H"] <= 1e-5 and gap["b"] <= 1e-5 and gap["E"] <= 1e-6
+                and counts_equal and sat_equal and bitwise):
+            fail(f"coarse_pass at {slots} slots against its plain version: "
+                 f"{rows[-1]}")
+    phase("coarse-pass", levels=rows, worst_gaps=worst)
+    top = rows[0]
+    return {"max_abs_err": max(worst.values()), "gaps": worst,
+            "ms": top["us"]["lm"] and top["us"]["lm"] * 1e-3,
+            "plain_ms": top["plain_linearize_us"]
+            and top["plain_linearize_us"] * 1e-3,
+            "plain_activities": top["plain_linearize_activities"],
+            "bound_ms": top["bound"]["lm"]["bound_ms"],
+            "bound_by": top["bound"]["lm"]["bound_by"], "library_ms": None,
+            "by_level": rows,
+            "note": "ms: an LM pass's launch at the finest level "
+                    "(8,192 slots) with its step; plain_ms: calc_res + "
+                    "calc_gs there (plain_activities launches); max_abs_err:"
+                    " the largest gap of H, b (over their terms' scale, "
+                    "coarse_system_gaps) or E (relative) against the plain "
+                    "version"}
+
+
 def bound(nbytes, ops):
     """(bound in us, "bytes" or "operations"): the larger of the bytes over
     the card's HBM rate and the float32 operations over its peak."""
@@ -1904,9 +2059,11 @@ def phase_pipeline(dev):
     torch.cuda.synchronize()
 
     from slam_eds_tpu_torch.ops.coarse_tracker import CUTOFF_DOUBLINGS
+    from slam_eds_tpu_torch.ops.kernels.coarse_pass import coarse_pass
     from slam_eds_tpu_torch.ops.kernels.lu_solve import small_solve
     for k in graphs.counters():
         k.launches = 0
+    warm0 = dict(graphs.CACHE.warmups)
     walls, syncs, passes = [], [], []
     rr, by_frame, record_s = runner_reference(), None, 0.0
     window = ProfiledRun()
@@ -1942,7 +2099,7 @@ def phase_pipeline(dev):
     est = pipe.positions()
     launches = window.launches
     if any(launches[k.__name__]["slots"] != k.launches for k in (
-            pattern_sample, rasterize_bilinear, small_solve,
+            pattern_sample, rasterize_bilinear, small_solve, coarse_pass,
             graphs.set_condition, graphs.pass_tail)):
         fail(f"the ledger's slots are not the counters: {launches}")
     captured = frame_captured_checks(pipe, frames[-1][1], rec.programs)
@@ -1959,6 +2116,8 @@ def phase_pipeline(dev):
     counters = dict(pipe.telemetry.counters)
     bound = max(0.05, 1.5 * JAX_CPU_ATE)
     steady = walls[PIPE_WARMUP:]
+    engaged = coarse_engagement("frame cell", counters, launches, levels,
+                                warm0)
     # host reads measured over the frames that captured no program
     measured = [n for n, cap in syncs if not cap]
     parity = held_per_frame("frame cell", by_frame, JAX_CPU_FRAME_BY_FRAME,
@@ -1982,7 +2141,7 @@ def phase_pipeline(dev):
           profiled_wall_s=window.wall_s,
           profiled_device_busy_s=window.busy_s,
           profiled_launches=window.window, profile_s=window.profile_s,
-          coarse_passes_by_frame=passes,
+          coarse_passes_by_frame=passes, coarse_pass_engagement=engaged,
           ba_passes_slots_sampler_launches=ba_rows,
           ba_early_break_tol=early_tol,
           graph_capture_s=graphs.CACHE.capture_s,
@@ -1996,8 +2155,9 @@ def phase_pipeline(dev):
         fail("no BA run or no frame marginalized")
     if counters.get("full_resets", 0) != 0:
         fail("the pipeline fell back to a full reset")
-    idle = [k for k in ("pattern_sample", "small_solve", "set_condition",
-                        "pass_tail") if launches[k]["run"] <= 0]
+    idle = [k for k in ("pattern_sample", "small_solve", "coarse_pass",
+                        "set_condition", "pass_tail")
+            if launches[k]["run"] <= 0]
     if idle:
         fail(f"the frame path ran no launch of {idle} (ledger)")
     if len(est) != PIPE_FRAMES or not np.isfinite(est).all():
@@ -2008,7 +2168,8 @@ def phase_pipeline(dev):
         fail(f"window tensors off the card: {off}")
     if not ate <= bound:
         fail(f"ATE {ate} above the bound {bound}")
-    return launches, by_frame
+    launches["coarse_pass"]["engagement"] = engaged
+    return launches, by_frame, rec.track
 
 
 def frame_cell_record(pipe, frames, stop=None):
@@ -2451,6 +2612,7 @@ def run_event_cell(dev, cfg, pipe=None, start=0, stop=None,
     if by_frame is not None:
         by_frame["usable"] = "".join("u" if u else "x" for u in usable)
     return dict(pipe=pipe, seq=seq, frames=frames, packets=packets,
+                warmups0=warm0,
                 by_frame=by_frame, record_s=record_s,
                 launches=launches, warmup_launches=warmups,
                 frame_s=frame_s, packet_s=packet_s, frame_syncs=frame_syncs,
@@ -2564,20 +2726,23 @@ def frame_captured_checks(pipe, img, programs=None):
 class WindowPrograms:
     """Records, during a run, the keyframe programs the window replays
     (``WindowManager._program``: the last inputs of every key, copied, as
-    the window updates its image stacks in place) and every window BA call
-    (its inputs, copied); ``restore()`` puts the method back."""
+    the window updates its image stacks in place), every window BA call
+    (its inputs, copied) and the last coarse track (``track``: its function
+    and inputs, copied); ``restore()`` puts the method back."""
 
     def __init__(self):
         from slam_eds_tpu_torch.graphs import copy_out
         from slam_eds_tpu_torch.models.window import WindowManager
         self.cls, self.orig = WindowManager, WindowManager._program
-        self.programs, self.ba_calls = {}, []
+        self.programs, self.ba_calls, self.track = {}, [], None
         rec = self
 
         def program(win, key, fn, x):
             if key[0] == "ba":
                 rec.ba_calls.append((key, fn, copy_out(x)))
-            elif key[0] != "track_frame":
+            elif key[0] == "track_frame":
+                rec.track = (fn, copy_out(x))
+            else:
                 rec.programs[key] = (fn, copy_out(x))
             return rec.orig(win, key, fn, x)
         WindowManager._program = program
@@ -2682,6 +2847,9 @@ def phase_eds(dev, label="eds", profiled=True):
     est = fp.positions()
     ate, ev_ate = event_cell_ates(run)
     c, fc = pipe.telemetry.counters, fp.telemetry.counters
+    engaged = window and coarse_engagement(
+        f"event cell ({label})", fc, window.launches,
+        fp.cfg.coarse.pyr_levels, run["warmups0"])
     ate_bound = max(0.05, 1.5 * JAX_CPU_EDS["ate"])
     ev_bound = max(0.12, 1.5 * JAX_CPU_EDS["event_ate"])
     min_solves = 0.8 * JAX_CPU_EDS["event_solves"]
@@ -2720,6 +2888,7 @@ def phase_eds(dev, label="eds", profiled=True):
           graph_capture_s=graphs.CACHE.capture_s,
           graph_program_table=graphs.CACHE.table(),
           event_counters=dict(c), frame_counters=dict(fc),
+          coarse_pass_engagement=engaged,
           n_valid=[int(p.n_valid) for p in packets], per_frame=parity,
           per_frame_record_s=run["record_s"],
           host_state_before=host_before, host_state_after=host_after)
@@ -2759,6 +2928,8 @@ def phase_eds(dev, label="eds", profiled=True):
               "keyframes": fp.window.next_id,
               "marginalized": fp.window.marg_count,
               "event_counters": dict(c), "frame_counters": dict(fc)}
+    if engaged:
+        window.launches["coarse_pass"]["engagement"] = engaged
     return {"launches": launches, "profiled": window and window.launches,
             "usable": "".join(
         "u" if u else "x" for u in usable), "counts": counts, "poses": poses,
@@ -4020,6 +4191,7 @@ def main():
     phase_build("build", built["pattern_sample"])
     phase_build("build-raster", built["rasterize"])
     phase_build("build-lu", built["lu_solve"])
+    phase_build("build-coarse", built["coarse_pass"])
     phase_build("build-cond", built["graph_cond"])
     phase_build_host(built["host"])
     phase_horizon()
@@ -4028,7 +4200,8 @@ def main():
     lanes, batched_solves = phase_batched(dev, first)
     kern = phase_kernel(dev)
     phase_ba(dev)
-    frame_launches, frame_record = phase_pipeline(dev)
+    frame_launches, frame_record, frame_track = phase_pipeline(dev)
+    coarse = phase_coarse_pass(dev, frame_track)
     phase_per_frame(dev)
     profiled_cell_process()
     raster = phase_kernel_raster(dev)
@@ -4102,7 +4275,16 @@ def main():
          "replaces": "slam_eds_tpu/ops/event_tracker.py:290 (lax.while_loop"
                      "'s pass on the device, no TPU kernel; also "
                      "coarse_tracker.py:314, :386, energy.py:613)",
-         **counts("pass_tail", frame), **tail}]}))
+         **counts("pass_tail", frame), **tail},
+        {"name": "coarse_pass", "route": "cuda",
+         "source": "slam_eds_tpu_torch/csrc/coarse_pass.cu",
+         "replaces": "slam_eds_tpu/ops/coarse_tracker.py calcRes / calcGS "
+                     "in trackLevel's loops (fused by XLA, no TPU kernel); "
+                     "the port's plain track_level_plain",
+         **counts("coarse_pass", frame),
+         "engagement_frame_cell": frame["coarse_pass"]["engagement"],
+         "engagement_event_cell": event["coarse_pass"].get("engagement"),
+         **coarse}]}))
     print(gpu_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

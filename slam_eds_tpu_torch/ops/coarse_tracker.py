@@ -7,6 +7,13 @@ back to the host and ``track_newest_coarse`` can be captured in a CUDA
 graph, where each loop is a WHILE node that ends at its stop (eagerly
 every pass to the cap runs, masked). Template packing is a stable descending sort, matching
 ``lax.top_k``'s order.
+
+``track_level`` dispatches on the image's device: CPU tensors run
+``track_level_plain`` (``calc_res``, ``calc_gs`` and the loops in torch
+ops); CUDA tensors run ``track_level_fused``, the same loops with every
+linearization and its scalar tail one launch of the ``coarse_pass`` kernel
+(``ops/kernels/coarse_pass.py``), so a captured pass is that kernel and
+the loop's pass tail.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from ..utils.interp import bilinear_3
 from ..utils.scatter import order_free_index_add
 from ..utils.stats import huber_weight
 from ..utils.linalg import solve
+from .kernels import coarse_pass as cp
 
 # masked doublings of the robust cutoff: ceil(log2(50)), enough to reach the
 # escalation's 50x bound from any start
@@ -240,7 +248,66 @@ def track_level(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
                 scale_a: float = 1.0, scale_b: float = 1.0):
     """LM on one pyramid level. Returns (pose, aff, rms, sat_frac,
     visible, passes): passes [2] int32 are the cutoff doublings and the LM
-    passes that ran."""
+    passes that ran. CPU tensors run ``track_level_plain``, CUDA tensors
+    ``track_level_fused``."""
+    if dI.device.type == "cpu":
+        fn = track_level_plain
+    elif dI.device.type == "cuda":
+        fn = track_level_fused
+    else:
+        raise ValueError(f"track_level: unsupported device {dI.device}")
+    return fn(tpl, dI, cam, pose0, aff0, exposures, aff_ref, max_iterations,
+              huber_th, cutoff_th, lambda_init, lambda_extrap_limit, fix_a,
+              fix_b, scale_a, scale_b)
+
+
+def track_level_fused(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3, aff0,
+                      exposures, aff_ref, max_iterations: int,
+                      huber_th: float, cutoff_th: float,
+                      lambda_init: float = 0.01,
+                      lambda_extrap_limit: float = 0.001,
+                      fix_a: bool = False, fix_b: bool = False,
+                      scale_a: float = 1.0, scale_b: float = 1.0):
+    """``track_level`` by the ``coarse_pass`` kernel: one launch for the
+    first residuals, one a cutoff doubling, one for the first
+    linearization, one an LM pass, one for the last residuals. The LM
+    carry holds the next pass's candidate (the step solved at the end of
+    the previous pass), so a captured pass is the kernel and the pass
+    tail."""
+    lvl = cp.Level(tpl, dI, cam, exposures, aff_ref, huber_th, cutoff_th,
+                   lambda_init, lambda_extrap_limit, fix_a, fix_b,
+                   (scale_a, scale_b))
+    pose0 = (pose0.R, pose0.t, aff0)
+    # (cutoff and saturated share, doublings, stop)
+    esc = graphs.while_loop(
+        lambda c: c[2], lambda _, c: lvl.run("double", pose0, carry=c),
+        lvl.run("sat0", pose0), CUTOFF_DOUBLINGS)
+    cutoff = esc[0][0]
+    # (state, passes, done): cp.STATE floats, the candidate among them
+    lm = graphs.while_loop(
+        lambda c: c[2],
+        lambda _, c: lvl.run("lm", (c[0][cp.S_CR:cp.S_CT],
+                                    c[0][cp.S_CT:cp.S_CAFF],
+                                    c[0][cp.S_CAFF:cp.S_CNORM]),
+                             cutoff, c),
+        lvl.run("init", pose0, cutoff), max_iterations)
+    st = lm[0]
+    pose = (st[cp.S_R:cp.S_T], st[cp.S_T:cp.S_AFF], st[cp.S_AFF:cp.S_H])
+    fin, visible = lvl.run("final", pose, cutoff, lm)
+    return (SE3(pose[0].view(3, 3), pose[1]), pose[2], fin[0], fin[1],
+            visible, torch.stack([esc[1], lm[1]]))
+
+
+def track_level_plain(tpl: LevelTemplate, dI, cam: Pinhole, pose0: SE3,
+                      aff0, exposures, aff_ref, max_iterations: int,
+                      huber_th: float, cutoff_th: float,
+                      lambda_init: float = 0.01,
+                      lambda_extrap_limit: float = 0.001,
+                      fix_a: bool = False, fix_b: bool = False,
+                      scale_a: float = 1.0, scale_b: float = 1.0):
+    """``track_level`` in torch ops: ``calc_res`` and ``calc_gs`` in the
+    cutoff escalation's and the LM's ``graphs.while_loop``s (the
+    ``coarse_pass`` kernel's plain version)."""
     exp_ref, exp_new = exposures
     b0_ref = aff_ref[1]
     dtype, dev = aff0.dtype, aff0.device

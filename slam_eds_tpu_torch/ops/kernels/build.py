@@ -9,7 +9,9 @@
   -lz -lpthread``.
 
 Each goes into ``slam_eds_tpu_torch/_build/`` (listed in ``.gitignore``),
-keyed by a hash of the sources and flags, and is loaded with ``ctypes``.
+keyed by a hash of the sources, the headers they may include (every
+``csrc/*.cuh`` for a CUDA library) and the flags, and is loaded with
+``ctypes``.
 Nothing here runs at import time; a missing compiler or a failed compile
 raises.
 """
@@ -61,10 +63,11 @@ class BuiltLibrary:
         self.log = log                 # compiler output (registers, spills)
 
 
-def _build(name: str, sources, compiler: str, flags, libs) -> BuiltLibrary:
+def _build(name: str, sources, compiler: str, flags, libs,
+           headers=()) -> BuiltLibrary:
     srcs = [CSRC_DIR / s for s in sources]
     h = hashlib.sha256()
-    for s in srcs:
+    for s in [*srcs, *headers]:
         h.update(s.read_bytes())
     h.update(" ".join(flags + libs).encode())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -88,7 +91,8 @@ def _build(name: str, sources, compiler: str, flags, libs) -> BuiltLibrary:
 
 def build_library(name: str, sources) -> BuiltLibrary:
     """A CUDA library built with nvcc for ``sm_90a``."""
-    return _build(name, sources, find_nvcc(), ARCH_FLAGS + NVCC_FLAGS, [])
+    return _build(name, sources, find_nvcc(), ARCH_FLAGS + NVCC_FLAGS, [],
+                  headers=sorted(CSRC_DIR.glob("*.cuh")))
 
 
 def build_host_library(name: str, sources) -> BuiltLibrary:

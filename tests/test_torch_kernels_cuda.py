@@ -38,6 +38,15 @@ plain version rounds it first); captured in a WHILE body, also nested in
 an IF body, it runs only in the passes that run
 (``graphs.launch_ledger``).
 
+The coarse tracker's fused pass (``csrc/coarse_pass.cu``) on the six
+level templates of the smoke's 640x480 sequence: one launch linearizes a
+level as ``calc_res`` / ``calc_gs`` do on the same card tensors (H and b
+within 1e-5 of their terms' scale, E within 1e-6 relative, counts and the
+saturated share equal) and two launches are bitwise equal; the whole level
+by the kernel against ``track_level_plain`` (the same doublings, the pose
+within 1e-4); ``track_newest_coarse`` captured is bitwise its eager run and
+runs one launch per pass that ran and three a level.
+
 ``parallel.dryrun.dryrun_multichip(2, "cuda")`` runs with two spawned ranks
 sharing the card over gloo and holds itself to the JAX dry run's bounds.
 
@@ -1040,3 +1049,161 @@ def test_if_node_on_false_leaves_its_carry(card):
         got = cache.run("cond", fn, x)
         want = (a * 3.0 + 1.0, b - 2.0) if taken else (a, b)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# the coarse tracker's fused pass (csrc/coarse_pass.cu)
+# ---------------------------------------------------------------------------
+
+COARSE_LEVELS = 6
+
+
+@pytest.fixture(scope="module")
+def coarse_levels():
+    """The six level templates of frame 0 of the smoke's 640x480 sequence
+    (caps 8192 >> l, as the window builds them) and frame 2's pyramid, on
+    the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from slam_eds_tpu_torch.device import set_numerics
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.ops import pixel_selector as psel
+    from slam_eds_tpu_torch.utils import image as image_ops
+    set_numerics()
+    dev = torch.device("cuda")
+    cam = chip_smoke.smoke_camera()
+    seq = SyntheticSequence(cam, num_frames=4, motion_scale=0.22,
+                            micro_steps=2, device=dev)
+    _, img0, depth0 = seq.frame(0)
+    _, img1, _ = seq.frame(2)
+    pyr0 = image_ops.build_pyramid(img0, COARSE_LEVELS)[0]
+    pyr1 = image_ops.build_pyramid(img1, COARSE_LEVELS)[0]
+    uv, mask = psel.candidate_points_grid(
+        image_ops.gradient_magnitude(pyr0[0][..., 1], pyr0[0][..., 2]),
+        patch=4, capacity=8192)
+    iy = torch.clamp(torch.round(uv[:, 1]).long(), 0, cam.height - 1)
+    ix = torch.clamp(torch.round(uv[:, 0]).long(), 0, cam.width - 1)
+    idp = 1.0 / depth0[iy, ix]
+    tpls = ct.build_template(uv, idp, torch.ones_like(idp), mask, pyr0,
+                             tuple(8192 >> l for l in range(COARSE_LEVELS)))
+    return cam, tpls, pyr1
+
+
+def _coarse_call(coarse_levels, lvl):
+    from slam_eds_tpu_torch.utils.lie import SE3
+    cam, tpls, pyr = coarse_levels
+    dev = pyr[0].device
+    pose = SE3.exp(torch.tensor([0.01, -0.02, 0.005, 0.002, -0.001, 0.003],
+                                device=dev))
+    return (tpls[lvl], pyr[lvl], cam.pyramid_level(lvl), pose,
+            torch.tensor([0.05, 1.0], device=dev),
+            (torch.ones((), device=dev), torch.full((), 1.1, device=dev)),
+            torch.tensor([0.02, 0.5], device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lvl", range(COARSE_LEVELS))
+def test_coarse_pass_matches_plain_per_level(coarse_levels, lvl):
+    """One launch linearizes a level as ``calc_res`` and ``calc_gs`` do on
+    the same card tensors: H and b within 1e-5 of their terms' scale
+    (``chip_smoke.coarse_system_gaps``), E within 1e-6 relative, the counts
+    and the saturated share equal; two
+    launches are bitwise equal (the sums' order is fixed, no float
+    atomics)."""
+    from slam_eds_tpu_torch.ops.kernels import coarse_pass as cp
+    tpl, img, cam, pose, aff, exps, aff_ref = _coarse_call(coarse_levels,
+                                                           lvl)
+    level = cp.Level(tpl, img, cam, exps, aff_ref, 9.0, 20.0, 0.01, 0.001,
+                     False, False)
+    cutoff = torch.full((), 20.0, device=img.device)
+    at = (pose.R, pose.t, aff)
+    n0 = cp.coarse_pass.launches
+    st = level.run("init", at, cutoff)
+    again = level.run("init", at, cutoff)
+    sat0 = level.run("sat0", at)
+    assert cp.coarse_pass.launches == n0 + 3
+    assert all(torch.equal(a, b) for a, b in zip(st, again))
+    rel = ct.aff_from_to(exps[0], aff_ref, exps[1], aff)
+    E, n, sat, buf = ct.calc_res(tpl, img, cam, pose, rel, 9.0, cutoff)
+    H, b = ct.calc_gs(buf, cam, rel, aff_ref[1])
+    f = st[0]
+    assert int(f[cp.S_N]) == int(n) > 0
+    assert abs(float(f[cp.S_E]) - float(E)) <= 1e-6 * abs(float(E))
+    gaps = chip_smoke.coarse_system_gaps(
+        f[cp.S_H:cp.S_B].view(8, 8), f[cp.S_B:cp.S_E], H, b, E,
+        buf["mask"].sum())
+    assert gaps["H"] <= 1e-5 and gaps["b"] <= 1e-5, gaps
+    assert float(sat0[0][1]) == float(sat)
+    assert not bool(st[2]) and int(st[1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lvl", range(COARSE_LEVELS))
+def test_fused_track_level_is_the_plain_track_on_the_card(coarse_levels,
+                                                          lvl):
+    """The whole level (escalation, LM, last residuals) by the kernel
+    against ``track_level_plain`` on the same card tensors: the same
+    doublings, the pose within 1e-4, the rms within 1e-4 relative; two
+    runs bitwise equal."""
+    args = _coarse_call(coarse_levels, lvl)
+    kw = dict(max_iterations=30, huber_th=9.0, cutoff_th=20.0)
+    got = ct.track_level(*args, **kw)
+    again = ct.track_level(*args, **kw)
+    from torch.utils._pytree import tree_leaves
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(got), tree_leaves(again)))
+    want = ct.track_level_plain(*args, **kw)
+    assert int(got[5][0]) == int(want[5][0])
+    assert float((got[0].R - want[0].R).abs().max()) <= 1e-4
+    assert float((got[0].t - want[0].t).abs().max()) <= 1e-4
+    assert abs(float(got[2]) - float(want[2])) <= 1e-4 * float(want[2])
+    assert bool(got[4]) == bool(want[4])
+
+
+@pytest.mark.cuda
+def test_captured_coarse_track_runs_one_launch_a_pass(coarse_levels,
+                                                      monkeypatch):
+    """``track_newest_coarse`` captured: each of its twelve WHILE bodies
+    (a level's doublings and LM) holds two graph nodes, the kernel and the
+    pass tail; bitwise its eager run; the kernel's launches run are one a
+    cutoff doubling and one an LM pass that ran (``TrackResult.passes``)
+    plus three a level (``graphs.launch_ledger``); its slots count every
+    pass the caps allow."""
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.ops.kernels import coarse_pass as cp
+    from slam_eds_tpu_torch.utils.lie import SE3
+    cam, tpls, pyr = coarse_levels
+    dev = pyr[0].device
+    cams = [cam.pyramid_level(l) for l in range(COARSE_LEVELS)]
+    iters = (10, 20, 50, 50, 50, 50)
+
+    def run(x):
+        return ct.track_newest_coarse(
+            x["tpls"], x["pyr"], cams, SE3(x["R"], x["t"]), x["aff"],
+            (x["e"], x["e"]), x["aff"], x["abort"], max_iterations=iters)
+    x = {"tpls": list(tpls), "pyr": list(pyr),
+         "R": torch.eye(3, device=dev), "t": torch.zeros(3, device=dev),
+         "aff": torch.zeros(2, device=dev), "e": torch.ones((), device=dev),
+         "abort": torch.full((COARSE_LEVELS,), 1e9, device=dev)}
+    counted = []
+
+    def nodes(stream, orig=graphs.capture_nodes):
+        counted.append(orig(stream))
+        return counted[-1]
+    monkeypatch.setattr(graphs, "capture_nodes", nodes)
+    cache = graphs.GraphCache()
+    cache.run("coarse", run, x)
+    # the bodies' counts, then the program's own level
+    assert counted[:-1] == [2] * (2 * COARSE_LEVELS), counted
+    before = graphs.launch_ledger()
+    got = graphs.copy_out(cache.run("coarse", run, x))
+    ran = graphs.ledger_delta(before, graphs.launch_ledger())["coarse_pass"]
+    want = run(_contiguous(x))
+    from torch.utils._pytree import tree_leaves
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(got), tree_leaves(want)))
+    passes = int(got.passes.sum())
+    assert ran["run"] == passes + 3 * COARSE_LEVELS
+    assert ran["slots"] == (3 + ct.CUTOFF_DOUBLINGS) * COARSE_LEVELS \
+        + sum(iters)
+    assert cp.coarse_pass in graphs.COUNTED
