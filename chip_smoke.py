@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``slam_eds_tpu_torch``) on one GPU.
 
 Builds the hand-written ``sm_90a`` kernels (the pattern sampler, the
-event raster, the loops' small solve, and the conditional nodes'
-condition and pass-tail kernels)
+event raster, the loops' small solve, the coarse and the event LM's fused
+passes, and the conditional nodes' condition and pass-tail kernels)
 from ``slam_eds_tpu_torch/csrc``, one ``nvcc`` each, started together;
 holds each against its plain PyTorch version; runs the keyframe BA
 at the reference operating point, the frame-only path
@@ -33,9 +33,10 @@ not count more. Phases, one output line each:
 1. device   -- card name and power limit, torch/CUDA/driver versions,
                whether torch has a conditional-node API (the card's 2.11
                has none: ``csrc/graph_cond.cu`` builds the nodes)
-2. build, build-raster, build-lu, build-cond, build-host -- the nvcc
-               builds of csrc/pattern_sample.cu, csrc/rasterize.cu,
-               csrc/lu_solve.cu and csrc/graph_cond.cu (ptxas registers
+2. build, build-raster, build-lu, build-coarse, build-event, build-cond,
+   build-host -- the nvcc builds of csrc/pattern_sample.cu,
+               csrc/rasterize.cu, csrc/lu_solve.cu, csrc/coarse_pass.cu,
+               csrc/event_pass.cu and csrc/graph_cond.cu (ptxas registers
                and spills) and the host C++ build of the runner's
                csrc/host runtime, all started together (a failed host
                build is reported, and the runner then takes its
@@ -215,7 +216,9 @@ not count more. Phases, one output line each:
                run's bounds, every replicated tensor bitwise equal on both
                ranks, the sampler launched in each rank), ``entry``'s event
                solve (640x480, P=2,048, 10 iterations) and the same solve
-               sharded over 2 ranks against it (px, qx, residuals atol
+               sharded over 2 ranks against the plain pass on one card
+               (what the sharded solve splits; the entry itself takes the
+               event_pass kernel, its gaps printed) (px, qx, residuals atol
                2e-4, vx 5e-3, energy rtol 1e-3, loss scale rtol 1e-2;
                replicated outputs bitwise equal on both ranks); seconds per
                2-iteration sharded BA call on 2 ranks and on 1 (both over
@@ -237,7 +240,16 @@ not count more. Phases, one output line each:
                (both retries); the per-frame checks to its H; the caching
                allocator's block and segment counts, the process's threads
                and the SM clock before and after the run (candidates of the
-               host timings' drift)
+               host timings' drift); the event pass's engagement (its
+               launches run, less warm-ups, equal to the LM passes run in
+               the packets' WHILE loops plus two a level of every rung run)
+9a. event-pass -- the event LM's fused pass (csrc/event_pass.cu) on the
+               last packet step's three levels at 2,048 slots: each mode
+               against the plain pass on the same card tensors
+               (``event_pass_gaps``), every pass to the cap against the
+               plain pass from the same carry (``event_forced_passes``),
+               the whole level beside ``_lm_solve_plain``, the device us
+               of each mode against the byte bound and the plain pass's
 10. history -- phases 3 and 9 agree: the same usable string and counts, and
                every usable packet's pose within 1e-6
 10a. eager -- the frame cell and the event cell run again eagerly
@@ -995,7 +1007,7 @@ def phase_device():
 
 def build_kernels():
     """The kernel libraries (the sampler, the raster, the small solve, the
-    coarse pass and the conditional nodes' kernels), one nvcc each, and the host
+    coarse pass, the event pass and the conditional nodes' kernels), one nvcc each, and the host
     runtime, all started together. Returns the build records and whether
     the host runtime built."""
     from slam_eds_tpu_torch import graphs
@@ -1004,11 +1016,13 @@ def build_kernels():
     from slam_eds_tpu_torch.ops.kernels import rasterize as rz
     from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
     from slam_eds_tpu_torch.ops.kernels import coarse_pass as cp
-    with ThreadPoolExecutor(6) as ex:
+    from slam_eds_tpu_torch.ops.kernels import event_pass as ep
+    with ThreadPoolExecutor(7) as ex:
         jobs = {"pattern_sample": ex.submit(ps.load),
                 "rasterize": ex.submit(rz.load),
                 "lu_solve": ex.submit(lu.load),
                 "coarse_pass": ex.submit(cp.load),
+                "event_pass": ex.submit(ep.load),
                 "graph_cond": ex.submit(graphs._cond_lib),
                 "host": ex.submit(eb.available)}
         return {name: job.result() for name, job in jobs.items()}
@@ -1033,6 +1047,7 @@ KERNEL_NAMES = {"pattern_sample": "pattern_sample_kernel",
                 "rasterize_bilinear": "raster_cluster_kernel",
                 "small_solve": "small_solve_kernel",
                 "coarse_pass": "coarse_pass_kernel",
+                "event_pass": "event_pass_kernel",
                 "set_condition": "set_condition",
                 "pass_tail": "pass_tail"}
 
@@ -1800,6 +1815,328 @@ def _compare(ps, planes, u, v):
     return err
 
 
+def event_engagement(label, counters, launches, levels, warm0):
+    """The event pass's engagement over the event cell's run: its launches
+    run (``graphs.launch_ledger``, less the warm-ups of programs first
+    captured in the run) against those the packets call for: one an LM
+    pass that ran (the WHILE loops of ``_lm_solve_fused``, counted on the
+    device) and two a level (its start energy and final residuals) of every
+    rung run. Fails unless equal."""
+    from slam_eds_tpu_torch import graphs
+    warm = (graphs.CACHE.warmups.get("event_pass", 0)
+            - warm0.get("event_pass", 0))
+    ran = launches["event_pass"]["run"] - warm
+    lm = sum(n for kind, n in
+             launches["pass_tail"].get("passes_by_loop", {}).items()
+             if ":_lm_solve_fused," in kind)
+    rungs = counters.get("event_packets", 0) + counters.get(
+        "event_retries", 0)
+    want = lm + 2 * levels * rungs
+    out = {"launches_run": ran, "warmup_launches": warm,
+           "launch_slots": launches["event_pass"]["slots"],
+           "called_for": want, "lm_passes": lm, "rungs": rungs,
+           "level_modes": 2 * levels * rungs,
+           "engagement": ran / want if want else None}
+    if ran != want or not want:
+        fail(f"{label}: {ran} event_pass launches ran for {want} LM passes "
+             f"and level modes: {out}")
+    return out
+
+
+# the event pass's bytes a point slot: coordinates, gradient, inverse
+# depth, weight and mask (25 B) and 16 bicubic taps of 4 B a sampled pose
+# (two in an LM pass: the linearization's and the candidate's); float32
+# operations a slot (the model rows and the norm's sums, the projection, a
+# bicubic with its gradient, the pose block, 12 Jacobian columns, H's 78 and
+# g's 12 products and sums; the candidate's model, projection, bicubic and
+# robust energy)
+EVENT_SLOT_BYTES = {"init": 89, "lm": 153, "final": 89}
+EVENT_SLOT_OPS = {"init": 160, "lm": 700, "final": 155}
+
+
+def plain_event_system(args):
+    """The plain version's H, g and robust energy at an ``_lm_solve``
+    call's state (its arguments ``args``), on the same tensors."""
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    st, frame, cam, nc, grad, idp, w, mask, _, kind, loss, _, ne = args
+    r, J = et.event_residuals_and_jac(st, frame, cam, nc, grad, idp, w, mask,
+                                      norm_event=ne)
+    if kind == "huber":
+        rw = et.huber_weight(r, loss)
+    elif kind == "cauchy":
+        rw = et.cauchy_weight(r, loss)
+    else:
+        rw = torch.ones_like(r)
+    c = rw * mask.to(r.dtype)
+    Jw = J * c[:, None]
+    return Jw.T @ J, Jw.T @ r, torch.sum(c * r * r)
+
+
+def kernel_event_system(sys_out):
+    """H [12, 12] and g [12] of an "lm" launch's system output."""
+    from slam_eds_tpu_torch.ops.kernels import event_pass as ep
+    iu = torch.triu_indices(12, 12, device=sys_out.device)
+    H = torch.zeros(12, 12, device=sys_out.device)
+    H[iu[0], iu[1]] = sys_out[ep.H_UPPER:ep.G]
+    H[iu[1], iu[0]] = sys_out[ep.H_UPPER:ep.G]
+    return H, sys_out[ep.G:ep.E_NEW]
+
+
+def event_carry_state(f):
+    """The TrackerState held in an event pass carry's floats."""
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    from slam_eds_tpu_torch.ops.kernels import event_pass as ep
+    return et.TrackerState(f[ep.S_PX:ep.S_QX], f[ep.S_QX:ep.S_VX],
+                           f[ep.S_VX:ep.S_LAM])
+
+
+def event_residual_scale(args, st):
+    """The scale of the terms of each residual at ``st``: the largest
+    |w| (|m| / ||m|| + |e|) over the live slots (the residual is w (m /
+    ||m|| - e); near the optimum the two terms cancel, so the residuals'
+    own largest entry is no scale for their rounding)."""
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    from slam_eds_tpu_torch.utils.interp import bicubic
+    _, frame, cam, nc, grad, idp, w, mask, *_, ne = args
+    flow = et.compute_flow(nc, st.vx, idp)
+    model = torch.where(mask, -(grad[:, 0] * flow[:, 0]
+                                + grad[:, 1] * flow[:, 1]), 0.0)
+    mn = torch.sqrt(1e-3 + torch.sum(model * model))
+    _, p = et._project(st, cam, nc, idp)
+    ev = bicubic(frame, cam.fx * (p[:, 0] / p[:, 2]) + cam.cx,
+                 cam.fy * (p[:, 1] / p[:, 2]) + cam.cy)
+    ev = torch.where(mask, ev, 0.0)
+    if ne:
+        ev = ev / torch.sqrt(1e-3 + torch.sum(ev * ev))
+    terms = torch.where(mask, w.abs() * (model.abs() / mn + ev.abs()), 0.0)
+    return float(terms.max())
+
+
+def event_forced_passes(args):
+    """Every pass of one level's LM to its cap on the kernel, each against
+    the plain pass run from the same carry (the kernel's, pass by pass):
+    the largest state gap, the largest energy gap (relative), whether
+    lambda, the accept test and done agree at every pass, and the passes'
+    accepts and rejects ("a", "r"; "-" after done)."""
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    from slam_eds_tpu_torch.ops.kernels import event_pass as ep
+    st, frame, cam, *pts, cap, kind, loss, tol, ne = args
+    level = ep.Level(frame, cam, *pts, kind, loss, tol, ne)
+    lm = et._plain_lm(frame, cam, *pts, kind, loss, tol, ne)
+    carry = level.run("init", tuple(v.contiguous() for v in st))
+    out = {"state": 0.0, "energy": 0.0, "agree": True, "passes": ""}
+    for _ in range(cap):
+        nxt = level.run("lm", carry=carry)
+        f = carry[0]
+        want = lm.lm_pass(None, (event_carry_state(f), f[ep.S_LAM],
+                                 f[ep.S_E], carry[1], carry[2]))
+        got = event_carry_state(nxt[0])
+        out["state"] = max(out["state"], *(float((a - b).abs().max())
+                                           for a, b in zip(got, want[0])))
+        out["energy"] = max(out["energy"], abs(float(nxt[0][ep.S_E]
+                                                     - want[2]))
+                            / abs(float(want[2])))
+        acc = float(nxt[0][ep.S_E]) < float(f[ep.S_E])
+        out["agree"] &= (float(nxt[0][ep.S_LAM]) == float(want[1])
+                         and acc == (float(want[2]) < float(f[ep.S_E]))
+                         and bool(nxt[2]) == bool(want[4])
+                         and int(nxt[1]) == int(want[3]))
+        out["passes"] += "-" if bool(carry[2]) else ("a" if acc else "r")
+        carry = nxt
+    return out
+
+
+def event_pass_gaps(args):
+    """One level's launches (``args``: an ``_lm_solve`` call's arguments)
+    against the plain version on the same tensors: the start energy
+    (``E0``, relative), H and g over their terms' scale
+    (``coarse_system_gaps``: with Huber weights at most 1, |sum c J_i J_j|
+    <= sqrt(H_ii H_jj) and |sum c J_i r| <= sqrt(H_ii E)), the carry after
+    one pass from the same carry (``state``, largest gap; lambda, the count
+    and done equal or not), the candidate's energy against the plain
+    energy at the kernel's candidate (``E1``, relative), the final
+    residuals at that
+    state (relative to their largest), and whether two launches of each
+    mode are bitwise equal. Returns (gaps, the level, its first carry).
+    The final residuals' gap is over their terms' scale
+    (``event_residual_scale``)."""
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    from slam_eds_tpu_torch.ops.kernels import event_pass as ep
+    st, frame, cam, *pts, _, kind, loss, tol, ne = args
+    level = ep.Level(frame, cam, *pts, kind, loss, tol, ne)
+    start = tuple(x.contiguous() for x in st)
+    init = level.run("init", start)
+    again = level.run("init", start)
+    lm = et._plain_lm(frame, cam, *pts, kind, loss, tol, ne)
+    E0 = lm.energy_of(lm.residuals(st))
+    *one, sys_out = level.run("lm", carry=init, system=True)
+    *two, sys2 = level.run("lm", carry=init, system=True)
+    H, g, E = plain_event_system(args)
+    Hk, gk = kernel_event_system(sys_out)
+    want = lm.lm_pass(None, (event_carry_state(init[0]), init[0][ep.S_LAM],
+                             init[0][ep.S_E], init[1], init[2]))
+    got = event_carry_state(one[0])
+    # the plain energy at the kernel's own candidate (its step applied)
+    cand = et._apply_local(st, sys_out[ep.STEP:ep.SYSTEM])
+    E1 = lm.energy_of(lm.residuals(cand))
+    fin = level.run("final", carry=one)
+    fin2 = level.run("final", carry=one)
+    r = lm.residuals(got)
+    gaps = {"E0": abs(float(init[0][ep.S_E] - E0)) / abs(float(E0)),
+            **coarse_system_gaps(Hk, gk, H, g, E, 1),
+            "state": max(float((a - b).abs().max())
+                         for a, b in zip(got, want[0])),
+            "E1": abs(float(sys_out[ep.E_NEW] - E1)) / abs(float(E1)),
+            "residuals": float((fin - r).abs().max())
+            / event_residual_scale(args, got),
+            "lambda_equal": float(one[0][ep.S_LAM]) == float(want[1]),
+            "count_equal": int(one[1]) == int(want[3]) == 1,
+            "done_equal": bool(one[2]) == bool(want[4]),
+            "accepted": float(one[0][ep.S_E]) < float(init[0][ep.S_E]),
+            "bitwise": (all(torch.equal(a, b) for a, b in
+                            zip((*init, *one, sys_out, fin),
+                                (*again, *two, sys2, fin2))))}
+    return gaps, level, init
+
+
+# one launch against the plain version on the same tensors: the kernel sums
+# in another fixed order (warp shuffles, blocks in rank order) than torch's
+# reductions and cuBLAS's products, so each sum moves by its terms'
+# rounding, about n eps of their scale (2,048 slots, eps 6e-8);
+# EVENT_SUM_TOL is well above that and far below a wrong term. A pass's new
+# state is a damped solve of that system, whose weakly determined
+# directions carry the sums' gaps: EVENT_STEP_TOL.
+EVENT_SUM_TOL = 1e-5
+EVENT_STEP_TOL = 1e-4
+# A whole solve on the kernel against the plain pass: every pass from the
+# same carry is held to the two bounds above (``event_forced_passes``), but
+# run apart the two trajectories part along the LM's weakly determined
+# directions, as the plain pass parts from itself under another summation
+# order: the plain pass on the CPU against the same on the card, the event
+# cell's three levels, final energies 0.05%, 0.47% and 0.23% apart, the
+# state along the determined directions 1.1e-3 to 3.0e-2 (NVIDIA H100
+# 80GB HBM3), and the batched lanes 2.3% at the cap before they were made
+# bitwise. The final energies are held within EVENT_SOLVE_TOL of each
+# other and the passes run equal.
+EVENT_SOLVE_TOL = 3e-2
+
+
+def phase_event_pass(dev, eds):
+    """The event pass on the main path's shapes: the event cell's last
+    packet step's coarse-to-fine solve (``_pyramid_fused`` from the
+    pipeline's state on the packet's three event-frame levels, 2,048 point
+    slots) run eagerly with each level's ``_lm_solve`` call recorded, then
+    per level: one launch of each mode against the plain version
+    (``event_pass_gaps``: the energies and the final residuals within
+    EVENT_SUM_TOL relative, H and g within it of their terms' scale, the
+    state after a pass within EVENT_STEP_TOL, lambda, count and done equal,
+    two launches bitwise), the device us of a launch of each mode (an LM
+    pass, an LM pass of a done carry, the start energy, the final
+    residuals; ``kernel_us_in``, CUDA events where the profiler kept no
+    record) against the byte bound, the plain pass's device us and
+    activities (``device_profile``), and the whole level by the kernel
+    by ``event_forced_passes`` (every pass to the cap against the plain
+    pass from the same carry: the state within EVENT_STEP_TOL, the energy
+    within EVENT_SUM_TOL, the decisions equal) and run apart beside
+    ``_lm_solve_plain`` (the same passes, the final energies within
+    EVENT_SOLVE_TOL; the gap along the directions the cost determines and
+    its cost printed, ``event_lane_reading``). Returns the kernels line's
+    numbers (level 0, the finest)."""
+    from slam_eds_tpu_torch.models import pipeline as pl
+    from slam_eds_tpu_torch.ops import event_tracker as et
+    from slam_eds_tpu_torch.ops.kernels import event_pass as ep
+    pipe, packets = eds["pipe"], eds["packets"]
+    x = contiguous(pipe.packet_inputs(packets[-1]))
+    lim, iters, statics = pipe._packet_step_args()
+    frames, _, _ = pl._event_packet_head(
+        x["xs"], x["ys"], x["ts"], x["ps"], x["n_valid"], x["fwd_maps"],
+        x["kf_idp"], x["kf_mask"], lim,
+        **{k: statics[k] for k in pl.HEAD_STATICS})
+    calls, orig = [], et._lm_solve
+
+    def record(*args, **kw):
+        calls.append(args)
+        return orig(*args, **kw)
+    et._lm_solve = record
+    try:
+        et._pyramid_fused(x["state"], frames, pipe.cam, x["kf_nc"],
+                          x["kf_grad"], x["kf_idp"], x["kf_weight"],
+                          x["kf_mask"], iters, statics["loss_kind"],
+                          x["loss_scale"], False)
+    finally:
+        et._lm_solve = orig
+    torch.cuda.synchronize()
+    rows, worst = [], dict.fromkeys(("E0", "E1", "H", "b", "state",
+                                     "residuals"), 0.0)
+    for lvl, args in zip(reversed(range(len(calls))), calls):
+        gaps, level, init = event_pass_gaps(args)
+        done = (init[0], init[1], torch.ones_like(init[2]))
+
+        def timed(fn):
+            us = kernel_us_in(fn, "event_pass")
+            return us if us is not None else 1e3 * cuda_time_ms(fn, 100)
+        start = tuple(v.contiguous() for v in args[0])
+        us = {"lm": timed(lambda: level.run("lm", carry=init)),
+              "lm_done": timed(lambda: level.run("lm", carry=done)),
+              "init": timed(lambda: level.run("init", start)),
+              "final": timed(lambda: level.run("final", carry=init))}
+        st, frame, cam, *pts, cap, kind, loss, tol, ne = args
+        lm = et._plain_lm(frame, cam, *pts, kind, loss, tol, ne)
+        carry = (st, init[0][ep.S_LAM], init[0][ep.S_E], init[1], init[2])
+        plain_us, plain_activities = device_profile(
+            lambda: lm.lm_pass(None, carry))
+        forced = event_forced_passes(args)
+        got = et._lm_solve(*args)
+        want = et._lm_solve_plain(*args)
+        reading = event_lane_reading(got.state, want.state, frame, cam, pts,
+                                     loss)
+        energy_gap = abs(float(got.energy - want.energy)) \
+            / float(want.energy)
+        slots = args[5].shape[0]
+        rows.append({
+            "level": lvl, "slots": slots, "cap": cap,
+            "live": int(args[7].sum()), "gaps": gaps, "us": us,
+            "bound": {k: roofline(slots * EVENT_SLOT_BYTES[k.split("_")[0]],
+                                  slots * EVENT_SLOT_OPS[k.split("_")[0]],
+                                  v) for k, v in us.items()},
+            "plain_pass_us": plain_us,
+            "plain_pass_activities": plain_activities,
+            "level_passes": [int(got.n_iter), int(want.n_iter)],
+            "level_state_gap": max(float((a - b).abs().max())
+                                   for a, b in zip(got.state, want.state)),
+            "forced_passes": forced,
+            "level_gap_determined": reading["gap_determined"],
+            "level_gap_cost_rel": reading["gap_cost_rel"],
+            "level_energy": [float(got.energy), float(want.energy)],
+            "level_energy_gap": energy_gap})
+        for k in worst:
+            worst[k] = max(worst[k], gaps[k])
+        if not (max(gaps[k] for k in ("E0", "E1", "H", "b", "residuals"))
+                <= EVENT_SUM_TOL and gaps["state"] <= EVENT_STEP_TOL
+                and gaps["lambda_equal"] and gaps["count_equal"]
+                and gaps["done_equal"] and gaps["bitwise"]
+                and forced["state"] <= EVENT_STEP_TOL
+                and forced["energy"] <= EVENT_SUM_TOL and forced["agree"]
+                and int(got.n_iter) == int(want.n_iter)
+                and energy_gap <= EVENT_SOLVE_TOL):
+            fail(f"event_pass at level {lvl} against its plain version: "
+                 f"{rows[-1]}")
+    phase("event-pass", levels=rows, worst_gaps=worst)
+    top = next(r for r in rows if r["level"] == 0)
+    return {"max_abs_err": max(worst.values()), "gaps": worst,
+            "ms": top["us"]["lm"] * 1e-3,
+            "plain_ms": top["plain_pass_us"] and top["plain_pass_us"] * 1e-3,
+            "plain_activities": top["plain_pass_activities"],
+            "bound_ms": top["bound"]["lm"]["bound_ms"],
+            "bound_by": top["bound"]["lm"]["bound_by"], "library_ms": None,
+            "by_level": rows,
+            "note": "ms: an LM pass's launch at the finest level (2,048 "
+                    "slots); plain_ms: the plain pass there "
+                    "(plain_activities launches); max_abs_err: the largest "
+                    "gap of E, H, g, the state after a pass or the final "
+                    "residuals against the plain version (event_pass_gaps)"}
+
+
 def phase_kernel(dev):
     from slam_eds_tpu_torch.ops.kernels import pattern_sample as ps
     rng = np.random.default_rng(0)
@@ -2160,6 +2497,10 @@ def phase_pipeline(dev):
             if launches[k]["run"] <= 0]
     if idle:
         fail(f"the frame path ran no launch of {idle} (ledger)")
+    if launches["event_pass"]["slots"] or launches["event_pass"]["run"]:
+        fail(f"the frame path launched the event pass: "
+             f"{launches['event_pass']}")
+    launches["event_pass"]["engagement"] = 0.0
     if len(est) != PIPE_FRAMES or not np.isfinite(est).all():
         fail(f"trajectory has {len(est)} entries or is not finite")
     off = [tuple(x.shape) for x in _window_tensors(win)
@@ -2850,6 +3191,9 @@ def phase_eds(dev, label="eds", profiled=True):
     engaged = window and coarse_engagement(
         f"event cell ({label})", fc, window.launches,
         fp.cfg.coarse.pyr_levels, run["warmups0"])
+    event_engaged = window and event_engagement(
+        f"event cell ({label})", c, window.launches,
+        pipe.cfg.event_frame.num_levels, run["warmups0"])
     ate_bound = max(0.05, 1.5 * JAX_CPU_EDS["ate"])
     ev_bound = max(0.12, 1.5 * JAX_CPU_EDS["event_ate"])
     min_solves = 0.8 * JAX_CPU_EDS["event_solves"]
@@ -2889,6 +3233,7 @@ def phase_eds(dev, label="eds", profiled=True):
           graph_program_table=graphs.CACHE.table(),
           event_counters=dict(c), frame_counters=dict(fc),
           coarse_pass_engagement=engaged,
+          event_pass_engagement=event_engaged,
           n_valid=[int(p.n_valid) for p in packets], per_frame=parity,
           per_frame_record_s=run["record_s"],
           host_state_before=host_before, host_state_after=host_after)
@@ -2930,6 +3275,7 @@ def phase_eds(dev, label="eds", profiled=True):
               "event_counters": dict(c), "frame_counters": dict(fc)}
     if engaged:
         window.launches["coarse_pass"]["engagement"] = engaged
+        window.launches["event_pass"]["engagement"] = event_engaged
     return {"launches": launches, "profiled": window and window.launches,
             "usable": "".join(
         "u" if u else "x" for u in usable), "counts": counts, "poses": poses,
@@ -3562,7 +3908,13 @@ def phase_parallel(dev):
              f"{rep['launches']}, one rank {rep['launches_1']}")
 
     step, args = dryrun.entry(dev)
-    ref_state, ref_e, ref_res = step(*args)
+    # the entry (one optimize: on the card the event_pass kernel), printed
+    # beside; the sharded solve splits the plain pass over the ranks, so it
+    # is held against the plain pass on one card
+    fused_state, fused_e, fused_res = step(*args)
+    ref = et._lm_solve_plain(args[0], args[1], smoke_camera(), *args[2:], 10,
+                             "huber", 0.2, 1e-6, False)
+    ref_state, ref_e, ref_res = ref.state, ref.energy, ref.residuals
     torch.cuda.synchronize()
     ref_scale = float(torch.clamp(huber_scale_mad(ref_res, args[-1]),
                                   min=1e-6))
@@ -3593,6 +3945,10 @@ def phase_parallel(dev):
          / abs(float(ref_e)),
          "loss_scale_rel": abs(float(got["loss_scale"]) - ref_scale)
          / ref_scale}
+    d_fused = {"px": diff(got["state"].px, fused_state.px),
+               "vx": diff(got["state"].vx, fused_state.vx),
+               "energy_rel": abs(float(got["energy"]) - float(fused_e))
+               / abs(float(fused_e))}
     sampler = got["sampler"]
     launches = {k: sum(o["launches"][k] for o in outs)
                 for k in ("pattern_sample", "rasterize_bilinear")}
@@ -3606,7 +3962,8 @@ def phase_parallel(dev):
           sampler_launches_per_rank=rep["launches"],
           sampler_launches_1_rank=rep["launches_1"],
           event_solve_s_2_ranks=ev_s, event_n_iter=int(got["n_iter"]),
-          event_diffs=d, event_launches=launches, sampler_per_rank=sampler)
+          event_diffs=d, event_diffs_to_fused_entry=d_fused,
+          event_launches=launches, sampler_per_rank=sampler)
     # the tracker tests' bounds; vx (|vx| 0.71) has none there: on the card
     # it reads 1.2e-3, and a rank-local model norm or system moves it by
     # 1.6e-2 or 0.37 on the CPU (ROADMAP.md section 3)
@@ -3861,7 +4218,9 @@ def phase_batched(dev, eds):
     event cell's shapes (its last keyframe, the finest event frames of four
     packets) and ``batched_ba_windows`` at B=2 on the BA cell (its window,
     and one with idepths 1% larger on scaled and shifted planes), each one
-    ``torch.vmap``; every lane against its single solve.
+    ``torch.vmap``; every lane against its single solve (for the event
+    lanes the plain pass, ``event_tracker._lm_solve_plain``, which the
+    lanes run; a single solve on the card takes the ``event_pass`` kernel).
 
     The event lanes: the same pass count and, after 2, 5 and the cap's LM
     passes, the pose within EVENT_LANE_POSE_TOL (at the cap
@@ -3917,8 +4276,11 @@ def phase_batched(dev, eds):
             max_iterations=cap, loss_scale=pipe.loss_scale)
 
     def singles_ev(cap):
-        return [et.optimize(pipe.tracker_state, efs[b], cam, *pts,
-                            max_iterations=cap, loss_scale=pipe.loss_scale)
+        # the plain pass, what the lanes run (a single solve on the card
+        # takes the event_pass kernel)
+        return [et._lm_solve_plain(pipe.tracker_state, efs[b], cam, *pts,
+                                   cap, "huber", pipe.loss_scale, 1e-6,
+                                   False)
                 for b in range(B)]
 
     def gaps(cap):
@@ -4192,6 +4554,7 @@ def main():
     phase_build("build-raster", built["rasterize"])
     phase_build("build-lu", built["lu_solve"])
     phase_build("build-coarse", built["coarse_pass"])
+    phase_build("build-event", built["event_pass"])
     phase_build("build-cond", built["graph_cond"])
     phase_build_host(built["host"])
     phase_horizon()
@@ -4215,6 +4578,7 @@ def main():
         eval_launches = phase_eval_maps(dev, dataset_dir, resumed, tmp)
     par = phase_parallel(dev)
     last = phase_eds(dev)
+    evpass = phase_event_pass(dev, last)
     phase_history(first, last)
     phase_eager(dev, frame_record, last)
     frame, event = frame_launches, last["profiled"]
@@ -4284,7 +4648,16 @@ def main():
          **counts("coarse_pass", frame),
          "engagement_frame_cell": frame["coarse_pass"]["engagement"],
          "engagement_event_cell": event["coarse_pass"].get("engagement"),
-         **coarse}]}))
+         **coarse},
+        {"name": "event_pass", "route": "cuda",
+         "source": "slam_eds_tpu_torch/csrc/event_pass.cu",
+         "replaces": "slam_eds_tpu/ops/event_tracker.py the LM pass of "
+                     "_lm_solve's while_loop (fused by XLA, no TPU "
+                     "kernel); the port's plain _lm_solve_plain",
+         **counts("event_pass", event),
+         "engagement_frame_cell": frame["event_pass"]["engagement"],
+         "engagement_event_cell": event["event_pass"].get("engagement"),
+         **evpass}]}))
     print(gpu_name_and_power_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,10 +69,14 @@ def batched_event_solves(states: et.TrackerState, event_frames, cam: Pinhole,
     keyframe tensors [B, P, ...]; loss_scale a scalar or [B]. Returns a
     TrackerResult with every field [B, ...]; each lane runs its own LM
     trajectory (accept/reject and the stop are per lane, through the masked
-    loop's carry), bitwise ``event_tracker.optimize`` on that lane's inputs
-    alone: the LM's reductions run lane by lane (``ops.lanes``), its
-    element-wise work batched, its solves one small solve launch a pass for
-    every lane (``utils.linalg.solve``)."""
+    loop's carry). The lanes run the plain pass (``event_tracker.
+    _lm_solve_plain``; a lane axis never takes the fused ``event_pass``
+    kernel), each bitwise that plain pass on its own inputs alone: the LM's
+    reductions run lane by lane (``ops.lanes``), its element-wise work
+    batched, its solves one small solve launch a pass for every lane
+    (``utils.linalg.solve``). On CPU tensors that is ``event_tracker.
+    optimize`` itself; on the card a single ``optimize`` takes the kernel,
+    whose sums run in another order."""
     def one(state, ef, nc, g, d, w, m, ls):
         return et.optimize(state, ef, cam, nc, g, d, w, m,
                            max_iterations=max_iterations, loss_kind=loss_kind,

@@ -96,6 +96,7 @@ from torch.utils import _pytree as pytree
 
 from .ops.kernels.build import build_library
 from .ops.kernels.coarse_pass import coarse_pass
+from .ops.kernels.event_pass import event_pass
 from .ops.kernels.pattern_sample import pattern_sample, pattern_sample_lanes
 from .ops.kernels.lu_solve import SMALL_SOLVE_BY_N, small_solve
 from .ops.kernels.rasterize import rasterize_bilinear
@@ -148,7 +149,7 @@ pass_tail.launches = 0
 
 # the launch counters a replay has to advance
 COUNTED = (pattern_sample, pattern_sample_lanes, rasterize_bilinear,
-           small_solve, set_condition, pass_tail, coarse_pass)
+           small_solve, set_condition, pass_tail, coarse_pass, event_pass)
 
 _SYNC_MODE = 0
 

@@ -18,7 +18,11 @@ device at its stop;
 eagerly (the CPU, ``torch.vmap`` in ``eval.batched_event_solves``, the
 sharded solve of ``parallel``) every pass to the cap runs masked, as JAX's
 ``vmap`` of a ``while_loop`` runs every lane to the last lane's stop. The
-solve reads nothing back to the host either way.
+solve reads nothing back to the host either way. On the card one unsharded
+solve outside ``torch.vmap`` runs ``_lm_solve_fused``: each pass one launch
+of the ``event_pass`` kernel (``ops/kernels/event_pass.py``), so a captured
+pass is that kernel and the loop's pass tail; everything else runs the
+plain pass, ``_lm_solve_plain``, the kernel's plain version.
 
 Track refinement (``refine_tracks_klt`` / ``_model_klt`` / ``_epiline``)
 refines the warp-predicted tracks against the event frame before they feed
@@ -34,6 +38,7 @@ import torch
 
 from .. import graphs
 from . import lanes
+from .kernels import event_pass as ep
 from ..models.ba_state import tuple_from_numpy, tuple_to_numpy
 from ..utils import lie
 from ..utils.lie import SE3
@@ -226,30 +231,24 @@ def _tree_where(cond, a, b):
     return type(a)(*(torch.where(cond, x, y) for x, y in zip(a, b)))
 
 
-def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
-              norm_coord, grad, idp, weights, mask,
-              max_iterations: int, loss_kind: str, loss_scale,
-              function_tolerance: float, norm_event: bool,
-              reduce=None, gather=None) -> TrackerResult:
-    """LM loop shared by ``optimize``, ``_pyramid_fused`` and
-    ``parallel.sharded_event_tracker.optimize_sharded``: JAX's
-    ``lax.while_loop`` over ``(state, lam, energy, it, done)`` as
-    ``graphs.while_loop`` with the cap ``max_iterations``. A pass updates
-    the carry only while ``~done`` (``it < max_iterations`` holds on every
-    pass), so the result, ``n_iter`` included, is the early-exit loop's:
-    the passes after ``done`` select the carry they were given, and a
-    captured loop skips them. Nothing is read back to the host.
+class _PlainLM(NamedTuple):
+    """The plain pass's pieces for one level (``_plain_lm``): the
+    residuals at a state, the robust energy of residuals, and
+    ``lm_pass(it, carry)`` over the carry ``(state, lam, energy, it,
+    done)``."""
+    residuals: object
+    energy_of: object
+    lm_pass: object
 
-    With the points split over ranks, ``reduce`` sums a tensor over the
-    ranks (the norms, the [12, 12] system and the energies, so the LM
-    control and ``done`` are the same on every rank) and ``gather``
-    concatenates each rank's [P/n] block in rank order (the residuals and
-    the mask for one global MAD); the returned residuals are the rank's
-    own."""
+
+def _plain_lm(event_frame, cam: Pinhole, norm_coord, grad, idp, weights,
+              mask, loss_kind: str, loss_scale, function_tolerance: float,
+              norm_event: bool, reduce=None) -> _PlainLM:
+    """The torch ops of ``_lm_solve_plain``'s loop, shared with the tests
+    that hold the fused route's modes to them. ``loss_scale`` is a
+    tensor."""
     dtype = norm_coord.dtype
     dev = norm_coord.device
-    if not torch.is_tensor(loss_scale):
-        loss_scale = torch.full((), loss_scale, dtype=dtype, device=dev)
     maskf = mask.to(dtype)
 
     def residuals(st):
@@ -297,14 +296,81 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
         done = done | (active & accept & (rel < function_tolerance))
         return state, lam, energy, it, done
 
+    return _PlainLM(residuals, energy_of, lm_pass)
+
+
+def _loss_tensor(loss_scale, like):
+    if torch.is_tensor(loss_scale):
+        return loss_scale
+    return torch.full((), loss_scale, dtype=like.dtype, device=like.device)
+
+
+def _fused_route(norm_coord, reduce, gather) -> bool:
+    """Whether ``_lm_solve`` takes the ``event_pass`` kernel: a CUDA
+    tensor, no collective between the phases of a pass (``reduce``,
+    ``gather``) and no ``torch.vmap`` lane axis."""
+    return (norm_coord.is_cuda and reduce is None and gather is None
+            and not torch._C._are_functorch_transforms_active())
+
+
+def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
+              norm_coord, grad, idp, weights, mask,
+              max_iterations: int, loss_kind: str, loss_scale,
+              function_tolerance: float, norm_event: bool,
+              reduce=None, gather=None) -> TrackerResult:
+    """LM loop shared by ``optimize``, ``_pyramid_fused`` and
+    ``parallel.sharded_event_tracker.optimize_sharded``: JAX's
+    ``lax.while_loop`` over ``(state, lam, energy, it, done)`` as
+    ``graphs.while_loop`` with the cap ``max_iterations``. A pass updates
+    the carry only while ``~done`` (``it < max_iterations`` holds on every
+    pass), so the result, ``n_iter`` included, is the early-exit loop's:
+    the passes after ``done`` select the carry they were given, and a
+    captured loop skips them. Nothing is read back to the host.
+
+    The route follows from what the call is: CUDA tensors of one unsharded
+    solve outside ``torch.vmap`` run ``_lm_solve_fused`` (a pass is one
+    launch of the ``event_pass`` kernel); everything else, CPU tensors,
+    ``torch.vmap`` lanes (``eval.batched_event_solves``) and the sharded
+    solve (``reduce`` / ``gather``, whose collectives fall between the
+    phases of a pass), runs ``_lm_solve_plain``."""
+    if _fused_route(norm_coord, reduce, gather):
+        return _lm_solve_fused(state, event_frame, cam, norm_coord, grad,
+                               idp, weights, mask, max_iterations, loss_kind,
+                               loss_scale, function_tolerance, norm_event)
+    return _lm_solve_plain(state, event_frame, cam, norm_coord, grad, idp,
+                           weights, mask, max_iterations, loss_kind,
+                           loss_scale, function_tolerance, norm_event,
+                           reduce, gather)
+
+
+def _lm_solve_plain(state: TrackerState, event_frame, cam: Pinhole,
+                    norm_coord, grad, idp, weights, mask,
+                    max_iterations: int, loss_kind: str, loss_scale,
+                    function_tolerance: float, norm_event: bool,
+                    reduce=None, gather=None) -> TrackerResult:
+    """``_lm_solve`` in torch ops on any device (the ``event_pass``
+    kernel's plain version).
+
+    With the points split over ranks, ``reduce`` sums a tensor over the
+    ranks (the norms, the [12, 12] system and the energies, so the LM
+    control and ``done`` are the same on every rank) and ``gather``
+    concatenates each rank's [P/n] block in rank order (the residuals and
+    the mask for one global MAD); the returned residuals are the rank's
+    own."""
+    dtype = norm_coord.dtype
+    dev = norm_coord.device
+    loss_scale = _loss_tensor(loss_scale, norm_coord)
+    lm = _plain_lm(event_frame, cam, norm_coord, grad, idp, weights, mask,
+                   loss_kind, loss_scale, function_tolerance, norm_event,
+                   reduce)
     carry = (state, torch.full((), 1e-4, dtype=dtype, device=dev),
-             energy_of(residuals(state)),
+             lm.energy_of(lm.residuals(state)),
              torch.zeros((), dtype=torch.int32, device=dev),
              torch.zeros((), dtype=torch.bool, device=dev))
     state, _, energy, it, _ = graphs.while_loop(
-        lambda c: c[4], lm_pass, carry, max_iterations)
+        lambda c: c[4], lm.lm_pass, carry, max_iterations)
 
-    r_final = residuals(state)
+    r_final = lm.residuals(state)
     # MAD re-estimation of the robust scale for the next solve
     if gather is None:
         mad, _ = masked_mad(r_final, mask)
@@ -313,6 +379,36 @@ def _lm_solve(state: TrackerState, event_frame, cam: Pinhole,
     return TrackerResult(state=state, residuals=r_final, energy=energy,
                          n_iter=it,
                          loss_scale=torch.clamp(HUBER_K * mad, min=1e-6))
+
+
+def _lm_solve_fused(state: TrackerState, event_frame, cam: Pinhole,
+                    norm_coord, grad, idp, weights, mask,
+                    max_iterations: int, loss_kind: str, loss_scale,
+                    function_tolerance: float,
+                    norm_event: bool) -> TrackerResult:
+    """``_lm_solve`` by the ``event_pass`` kernel: one launch for the start
+    energy, one an LM pass (a captured pass is it and the pass tail), one
+    for the final residuals; the MAD in torch ops. The carry is
+    (``ep.STATE`` floats: px, qx, vx, lambda, energy; the pass count;
+    done)."""
+    f32 = torch.float32
+    lvl = ep.Level(event_frame.contiguous(), cam, norm_coord.contiguous(),
+                   grad.contiguous(), idp.contiguous(), weights.contiguous(),
+                   mask.contiguous(),
+                   loss_kind, _loss_tensor(loss_scale, norm_coord).to(f32),
+                   function_tolerance, norm_event)
+    start = tuple(x.contiguous() for x in state)
+    carry = graphs.while_loop(lambda c: c[2],
+                              lambda _, c: lvl.run("lm", carry=c),
+                              lvl.run("init", start), max_iterations)
+    f, it, _ = carry
+    r_final = lvl.run("final", carry=carry)
+    mad, _ = masked_mad(r_final, mask)
+    return TrackerResult(
+        state=TrackerState(px=f[ep.S_PX:ep.S_QX], qx=f[ep.S_QX:ep.S_VX],
+                           vx=f[ep.S_VX:ep.S_LAM]),
+        residuals=r_final, energy=f[ep.S_E], n_iter=it,
+        loss_scale=torch.clamp(HUBER_K * mad, min=1e-6))
 
 
 def optimize(state: TrackerState, event_frame, cam: Pinhole,

@@ -47,6 +47,29 @@ by the kernel against ``track_level_plain`` (the same doublings, the pose
 within 1e-4); ``track_newest_coarse`` captured is bitwise its eager run and
 runs one launch per pass that ran and three a level.
 
+The event LM's fused pass (``csrc/event_pass.cu``) on the packet step's
+inputs after frame 4 of the smoke's 640x480 sequence (2,048 point slots,
+the packet's three event-frame levels): at each level and at 256 and 2,048
+slots, one launch of each mode against the plain pass on the same card
+tensors (``chip_smoke.event_pass_gaps``: the start and the candidate's
+energy and the final residuals within ``chip_smoke.EVENT_SUM_TOL``, H and
+g within it of their terms' scale, the state after a pass within
+``EVENT_STEP_TOL``, lambda, the count and done equal, two launches
+bitwise), with the Cauchy loss, no loss and the normalized-event cost too;
+masked slots with junk and a non-finite projection, a live slot behind the
+camera, a live slot whose projection is not finite (NaN energies, the step
+refused) and a pass after done (the carry bitwise); every pass of a level
+to its cap against the plain pass from the same carry
+(``chip_smoke.event_forced_passes``), then the whole level and the whole
+``_pyramid_fused`` run apart beside the plain route (the same passes, the
+final energies within ``chip_smoke.EVENT_SOLVE_TOL``: the runs part along
+the LM's weak directions as the plain pass parts from itself under another
+summation order); captured, a pass is two graph nodes and the ledger runs
+one launch a pass and two a level; the wrapper raises on a CPU tensor, a
+wrong dtype or shape. The batched event lanes run the plain pass and are
+held bitwise to it (not to ``optimize`` on the card, which takes the
+kernel).
+
 ``parallel.dryrun.dryrun_multichip(2, "cuda")`` runs with two spawned ranks
 sharing the card over gloo and holds itself to the JAX dry run's bounds.
 
@@ -903,9 +926,12 @@ def test_vmapped_lanes_take_one_small_solve(card, n, B):
 @pytest.mark.parametrize("iterations", [2, 5])
 def test_batched_event_lanes_are_bitwise_single_solves(card, iterations):
     """``eval.batched_event_solves`` on the card (one ``torch.vmap`` of the
-    event LM: its reductions lane by lane, ``ops.lanes``; its solves one
-    small solve launch for all lanes a pass): every lane bitwise
-    ``event_tracker.optimize`` on its own inputs alone."""
+    event LM: the plain pass, its reductions lane by lane, ``ops.lanes``;
+    its solves one small solve launch for all lanes a pass): every lane
+    bitwise the plain pass (``event_tracker._lm_solve_plain``, what
+    ``optimize`` runs on CPU tensors) on its own inputs alone. A single
+    ``optimize`` on the card takes the ``event_pass`` kernel, whose sums
+    run in another order; the lanes keep the plain pass."""
     from slam_eds_tpu_torch import eval as ev
     from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
     st, frame, (cam, nc, grad, idp, w, mask) = event_world(card)
@@ -920,9 +946,9 @@ def test_batched_event_lanes_are_bitwise_single_solves(card, iterations):
         max_iterations=iterations, loss_scale=0.2)
     assert lu.small_solve.launches - before == iterations
     for b in range(B):
-        one = et.optimize(st, frames[b], cam, *pts,
-                          max_iterations=iterations,
-                          loss_scale=torch.tensor(0.2, device=card))
+        one = et._lm_solve_plain(st, frames[b], cam, *pts, iterations,
+                                 "huber", torch.tensor(0.2, device=card),
+                                 1e-6, False)
         lane = ev._lane(got, b)
         for n in ("px", "qx", "vx"):
             assert torch.equal(getattr(lane.state, n), getattr(one.state, n))
@@ -1207,3 +1233,248 @@ def test_captured_coarse_track_runs_one_launch_a_pass(coarse_levels,
     assert ran["slots"] == (3 + ct.CUTOFF_DOUBLINGS) * COARSE_LEVELS \
         + sum(iters)
     assert cp.coarse_pass in graphs.COUNTED
+
+
+# ---------------------------------------------------------------------------
+# the event LM's fused pass (csrc/event_pass.cu)
+# ---------------------------------------------------------------------------
+
+EVENT_LEVELS = 3
+EVENT_POINTS = ("kf_nc", "kf_grad", "kf_idp", "kf_weight", "kf_mask")
+
+
+@pytest.fixture(scope="module")
+def event_levels():
+    """The packet step's inputs after frame 4 of the smoke's 640x480
+    sequence (2,048 keyframe point slots, the packet of frames 4-5 made
+    into its three event-frame levels), on the card: (cam, frames [3, H,
+    W], the step's inputs, the level caps, the loss kind)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from slam_eds_tpu_torch.device import set_numerics
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.models import pipeline as pl
+    set_numerics()
+    dev = torch.device("cuda")
+    cam = chip_smoke.smoke_camera()
+    seq = SyntheticSequence(cam, num_frames=6, motion_scale=0.22,
+                            micro_steps=2,
+                            events_per_packet=chip_smoke.EVENT_CAP,
+                            device=dev)
+    pipe = pl.EDSPipeline(cam, chip_smoke.eds_config(), device=dev)
+    for k in range(5):
+        t, img = seq.frame(k)[:2]
+        pipe.process_frame(img, t)
+        if k < 4 and pipe.kf is not None:
+            pipe.process_events(seq.events_between(k, k + 1))
+    assert pipe.kf is not None
+    x = _contiguous(pipe.packet_inputs(seq.events_between(4, 5)))
+    lim, iters, statics = pipe._packet_step_args()
+    frames, _, _ = pl._event_packet_head(
+        x["xs"], x["ys"], x["ts"], x["ps"], x["n_valid"], x["fwd_maps"],
+        x["kf_idp"], x["kf_mask"], lim,
+        **{k: statics[k] for k in pl.HEAD_STATICS})
+    assert frames.shape[0] == EVENT_LEVELS
+    assert x["kf_idp"].shape[0] == 2048
+    return cam, frames, x, iters, statics["loss_kind"]
+
+
+def _event_call(event_levels, lvl, slots, loss_kind=None):
+    """One level's ``_lm_solve`` arguments at the first ``slots`` point
+    slots."""
+    cam, frames, x, iters, kind = event_levels
+    pts = tuple(x[k][:slots].contiguous() for k in EVENT_POINTS)
+    return (x["state"], frames[lvl].contiguous(), cam, *pts, iters[lvl],
+            loss_kind or kind, x["loss_scale"], 1e-6, False)
+
+
+# chip_smoke's tolerances of one launch against the plain version (the
+# sums' order; the damped solve's weakly determined directions)
+EVENT_SUM_TOL = chip_smoke.EVENT_SUM_TOL
+EVENT_STEP_TOL = chip_smoke.EVENT_STEP_TOL
+
+
+def _check_level(args):
+    """``chip_smoke.event_pass_gaps`` held: the energies, H, g and the
+    final residuals within ``EVENT_SUM_TOL``, the state after a pass within
+    ``EVENT_STEP_TOL``, lambda, the count and done as the plain pass's, two
+    launches of each mode bitwise."""
+    import json
+    gaps = chip_smoke.event_pass_gaps(args)[0]
+    msg = json.dumps(gaps)
+    assert gaps["bitwise"] and gaps["lambda_equal"], msg
+    assert gaps["count_equal"] and gaps["done_equal"], msg
+    assert max(gaps[k] for k in ("E0", "E1", "H", "b", "residuals")) \
+        <= EVENT_SUM_TOL, msg
+    assert gaps["state"] <= EVENT_STEP_TOL, msg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [256, 2048])
+@pytest.mark.parametrize("lvl", range(EVENT_LEVELS))
+def test_event_pass_matches_plain_per_level(event_levels, lvl, slots):
+    """Each level's frame, at 256 and 2,048 slots: the start energy and
+    the candidate's within ``EVENT_SUM_TOL`` relative, H and g within it of
+    their terms' scale (``chip_smoke.coarse_system_gaps``), the final
+    residuals within it of theirs (``chip_smoke.event_residual_scale``),
+    the state after one pass within ``EVENT_STEP_TOL``, lambda, the count
+    and done equal; two launches of each mode bitwise (the sums' order is
+    fixed, no float atomics)."""
+    _check_level(_event_call(event_levels, lvl, slots))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,norm_event", [("cauchy", False),
+                                             ("none", False),
+                                             ("huber", True)])
+def test_event_pass_options_match_plain(event_levels, kind, norm_event):
+    """The robust losses the kernel takes as template flags, and the
+    normalized-event cost, at level 0 and 2,048 slots, as above."""
+    args = list(_event_call(event_levels, 0, 2048, kind))
+    args[-1] = norm_event
+    _check_level(tuple(args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lvl", range(EVENT_LEVELS))
+def test_fused_event_lm_solve_is_the_plain_solve_on_the_card(event_levels,
+                                                             lvl):
+    """A whole level to its cap on the kernel, every pass against the plain
+    pass from the same carry (``chip_smoke.event_forced_passes``): the
+    state within ``EVENT_STEP_TOL``, the energy within ``EVENT_SUM_TOL``,
+    lambda, the accept test, done and the count equal at every pass. Then
+    ``_lm_solve`` (the kernel) and ``_lm_solve_plain`` run apart: the same
+    passes, the final energies within ``chip_smoke.EVENT_SOLVE_TOL`` (the
+    two trajectories part along the LM's weak directions, as the plain
+    pass parts from itself under another summation order); two runs of
+    the kernel bitwise."""
+    args = _event_call(event_levels, lvl, 2048)
+    forced = chip_smoke.event_forced_passes(args)
+    assert forced["agree"], forced
+    assert forced["state"] <= EVENT_STEP_TOL, forced
+    assert forced["energy"] <= EVENT_SUM_TOL, forced
+    assert "a" in forced["passes"], forced
+    got = et._lm_solve(*args)
+    again = et._lm_solve(*args)
+    from torch.utils._pytree import tree_leaves
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(got), tree_leaves(again)))
+    want = et._lm_solve_plain(*args)
+    assert int(got.n_iter) == int(want.n_iter)
+    assert abs(float(got.energy - want.energy)) \
+        <= chip_smoke.EVENT_SOLVE_TOL * float(want.energy)
+
+
+@pytest.mark.cuda
+def test_fused_event_pyramid_is_the_plain_pyramid_on_the_card(event_levels,
+                                                              monkeypatch):
+    """The packet's whole coarse-to-fine solve, ``_pyramid_fused`` on the
+    kernel against the plain route, run apart: the same finest-level
+    passes, the final energies within ``chip_smoke.EVENT_SOLVE_TOL`` (the
+    reason above: three levels chain the state and the MAD scale of two
+    trajectories that part along the weak directions)."""
+    cam, frames, x, iters, kind = event_levels
+    args = (x["state"], frames, cam, *(x[k] for k in EVENT_POINTS), iters,
+            kind, x["loss_scale"], False)
+    got = et._pyramid_fused(*args)
+    monkeypatch.setattr(et, "_lm_solve", et._lm_solve_plain)
+    want = et._pyramid_fused(*args)
+    assert int(got.n_iter) == int(want.n_iter)
+    assert abs(float(got.energy - want.energy)) \
+        <= chip_smoke.EVENT_SOLVE_TOL * float(want.energy)
+
+
+@pytest.mark.cuda
+def test_event_pass_edge_slots(event_levels):
+    """Masked slots with far, finite junk and one whose projection is not
+    finite, and a live slot behind the camera: the launches match the
+    plain version as above. A live slot whose projection is not finite
+    makes both energies NaN, and the pass then refuses its step: the state
+    bitwise as given, the count advanced, lambda x4. A pass of a done carry
+    returns it bitwise."""
+    from slam_eds_tpu_torch.ops.kernels import event_pass as ep
+    st, frame, cam, nc, grad, idp, w, mask, *rest = _event_call(
+        event_levels, 0, 256)
+    nc, grad, idp, w, mask = (t.clone() for t in (nc, grad, idp, w, mask))
+    mask[:3] = torch.tensor([False, False, True])
+    idp[:3] = torch.tensor([-0.5, -1e-5, -0.5])
+    grad[0], nc[0], w[0] = 1e3, 3.0, 5.0
+    args = (st, frame, cam, nc, grad, idp, w, mask, *rest)
+    _check_level(args)
+
+    mask[1] = True
+    level = ep.Level(frame, cam, nc, grad, idp, w, mask, rest[1], rest[2],
+                     rest[3], rest[4])
+    init = level.run("init", tuple(x.contiguous() for x in st))
+    assert torch.isnan(init[0][ep.S_E])
+    f, it, done = level.run("lm", carry=init)
+    assert torch.equal(f[:ep.S_LAM], init[0][:ep.S_LAM])
+    assert float(f[ep.S_LAM]) == float(init[0][ep.S_LAM] * 4.0)
+    assert int(it) == 1 and not bool(done)
+
+    mask[1] = False
+    level = ep.Level(frame, cam, nc, grad, idp, w, mask, rest[1], rest[2],
+                     rest[3], rest[4])
+    f0 = torch.randn(ep.STATE, device=frame.device)
+    carry = (f0, torch.full((), 7, dtype=torch.int32, device=frame.device),
+             torch.ones((), dtype=torch.bool, device=frame.device))
+    out = level.run("lm", carry=carry)
+    assert all(torch.equal(a, b) for a, b in zip(out, carry))
+
+
+@pytest.mark.cuda
+def test_captured_event_lm_runs_one_launch_a_pass(event_levels,
+                                                  monkeypatch):
+    """One level's ``_lm_solve`` captured: its WHILE body holds two graph
+    nodes, the kernel and the pass tail; bitwise its eager run; the
+    kernel's launches run are one an LM pass that ran (``n_iter``) and two
+    for the level (``graphs.launch_ledger``); its slots count every pass
+    the cap allows."""
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.ops.kernels import event_pass as ep
+    st, frame, cam, *pts, cap, kind, loss, tol, ne = _event_call(
+        event_levels, 0, 2048)
+    cap = 40
+
+    def run(x):
+        return et._lm_solve(x["state"], x["frame"], cam, *x["pts"], cap,
+                            kind, x["loss"], 1e-3, ne)
+    x = {"state": st, "frame": frame, "pts": list(pts), "loss": loss}
+    counted = []
+
+    def nodes(stream, orig=graphs.capture_nodes):
+        counted.append(orig(stream))
+        return counted[-1]
+    monkeypatch.setattr(graphs, "capture_nodes", nodes)
+    cache = graphs.GraphCache()
+    cache.run("event_lm", run, x)
+    assert counted[0] == 2, counted
+    before = graphs.launch_ledger()
+    got = graphs.copy_out(cache.run("event_lm", run, x))
+    ran = graphs.ledger_delta(before, graphs.launch_ledger())["event_pass"]
+    want = run(_contiguous(x))
+    from torch.utils._pytree import tree_leaves
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(got), tree_leaves(want)))
+    assert 1 <= int(got.n_iter) < cap
+    assert ran["run"] == int(got.n_iter) + 2
+    assert ran["slots"] == cap + 2
+    assert ep.event_pass in graphs.COUNTED
+
+
+@pytest.mark.cuda
+def test_event_pass_wrapper_rejects_what_the_kernel_does_not_take(
+        event_levels):
+    from slam_eds_tpu_torch.ops.kernels import event_pass as ep
+    st, frame, cam, *pts, _, kind, loss, tol, ne = _event_call(
+        event_levels, 0, 256)
+    with pytest.raises(ValueError, match="CUDA"):
+        ep.Level(frame.cpu(), cam, *(p.cpu() for p in pts), kind,
+                 loss.cpu(), tol, ne)
+    with pytest.raises(TypeError):
+        ep.Level(frame.double(), cam, *pts, kind, loss, tol, ne)
+    with pytest.raises(ValueError):
+        ep.Level(frame, cam, pts[0][:, :1].contiguous(), *pts[1:], kind,
+                 loss, tol, ne)
+    with pytest.raises(ValueError):
+        ep.Level(frame, cam, *pts, kind, loss.double(), tol, ne)

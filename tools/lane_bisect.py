@@ -6,8 +6,9 @@ frames of the bench_e2e sequence, 65,536-event packets) with the package
 imported from ``--tree`` (a checkout of this repository, the current one by
 default), builds the batched event lanes as the smoke's ``batched`` phase
 does (``chip_smoke.event_lanes``: the tracker state B times against the
-finest event frames of the last B packets), then for each lane runs
-``event_tracker.optimize`` on the lane's inputs alone and
+finest event frames of the last B packets), then for each lane runs the
+plain pass on the lane's inputs alone (``event_tracker._lm_solve_plain``,
+what the lanes run; ``optimize`` in a tree without it) and
 ``eval.batched_event_solves`` (one ``torch.vmap``) on all lanes, each for
 ``--iterations`` LM passes, recording every aten op's outputs with
 ``tools/history_bisect.py``'s op recorder. The batched run's outputs are
@@ -183,9 +184,14 @@ def main():
     batched = rec.ops
     for b in range(B):
         with Recorder(dev) as rec:
-            want = et.optimize(pipe.tracker_state, efs[b], pipe.cam, *pts,
-                               max_iterations=args.iterations,
-                               loss_scale=pipe.loss_scale)
+            if hasattr(et, "_lm_solve_plain"):
+                want = et._lm_solve_plain(
+                    pipe.tracker_state, efs[b], pipe.cam, *pts,
+                    args.iterations, "huber", pipe.loss_scale, 1e-6, False)
+            else:
+                want = et.optimize(pipe.tracker_state, efs[b], pipe.cam,
+                                   *pts, max_iterations=args.iterations,
+                                   loss_scale=pipe.loss_scale)
         parting, compared = first_parting(rec.ops, batched, b, B)
         lane = ev._lane(got, b)
         print(json.dumps({
