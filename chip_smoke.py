@@ -253,8 +253,8 @@ not count more. Phases, one output line each:
 10. history -- phases 3 and 9 agree: the same usable string and counts, and
                every usable packet's pose within 1e-6
 10a. eager -- the frame cell and the event cell run again eagerly
-               (``capture=False``, on a card on the captured programs'
-               layout: ``graphs.contiguous``) to their horizons and held to
+               (``graphs.eagerly()``, on the captured programs' layout:
+               ``graphs.contiguous``) to their horizons and held to
                phase 6's and phase 9's captured runs by the per-frame
                checks (a), (b) and (d), each packet's pose within 1e-6 to
                H: where they first part at all, and whether they are
@@ -4433,7 +4433,7 @@ def first_parted(gaps):
 
 
 def phase_eager(dev, frame_record, event_last):
-    """The frame cell and the event cell run eagerly (``capture=False``:
+    """The frame cell and the event cell run eagerly (``graphs.eagerly()``:
     the same functions on the captured programs' layout, loops masked and
     retries as host ``if``s) to their horizons, each held to its captured
     run (the frame cell of phase 6, the event cell's last run) frame by
@@ -4442,6 +4442,7 @@ def phase_eager(dev, frame_record, event_last):
     with its pose within POSE_TOL. Where they first part at all
     (positions, poses) is printed beside, and whether they are bitwise
     equal to H."""
+    from slam_eds_tpu_torch import graphs
     from slam_eds_tpu_torch.config import EDSConfig
     from slam_eds_tpu_torch.io.dataset import SyntheticSequence
     from slam_eds_tpu_torch.models.pipeline import (EDSPipeline,
@@ -4455,17 +4456,18 @@ def phase_eager(dev, frame_record, event_last):
     frames = [seq.frame(k)[:2]
               for k in range(min(H_frame + 1, PIPE_FRAMES))]
     t0 = time.perf_counter()
-    eager, walls, _ = frame_cell_record(
-        FrameOnlyPipeline(cam, EDSConfig(), device=dev, capture=False),
-        frames)
+    with graphs.eagerly():
+        eager, walls, _ = frame_cell_record(
+            FrameOnlyPipeline(cam, EDSConfig(), device=dev), frames)
     frame_s = time.perf_counter() - t0
     frame = held_per_frame("frame cell, eager against captured", eager,
                            frame_record, FRAME_POSITION_TOL, H=H_frame,
                            hold=("counts", "positions"))
     t0 = time.perf_counter()
-    run = run_event_cell(dev, eds_config(), pipe=EDSPipeline(
-        cam, eds_config(), device=dev, capture=False),
-        stop=min(H_event + 1, PIPE_FRAMES))
+    with graphs.eagerly():
+        run = run_event_cell(dev, eds_config(), pipe=EDSPipeline(
+            cam, eds_config(), device=dev),
+            stop=min(H_event + 1, PIPE_FRAMES))
     event_s = time.perf_counter() - t0
     event = held_per_frame("event cell, eager against captured",
                            run["by_frame"], event_last["by_frame"],

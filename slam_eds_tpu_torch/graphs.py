@@ -6,6 +6,12 @@ Here the same read-free functions are captured once as a CUDA graph
 (``torch.cuda.CUDAGraph``) and replayed, so a step costs one launch of the
 graph instead of the host launching every operation.
 
+``run(key, fn, inputs)`` runs every step of the pipelines and alone
+chooses how: eagerly on CPU tensors, as the captured program of ``key``
+(``CACHE``) on CUDA tensors, and inside ``eagerly()`` eagerly on the card
+on the static buffers' layout (``contiguous``), for the checks that hold a
+replay against its eager run.
+
 ``GraphCache.run(key, fn, inputs)``:
 
 * ``inputs`` is a pytree (tuples, NamedTuples, lists, dicts) of CUDA
@@ -28,16 +34,17 @@ graph instead of the host launching every operation.
 * A replay returns the graph's own output buffers, which the next replay
   of the same graph overwrites: a caller copies out what it keeps
   (``copy_out``).
-* The kernel wrappers count launches in Python, which a replay does not
-  run: the cache notes each kernel's launch slots during the capture (and
-  takes them back off, the capture launched nothing) and adds them again on
-  every replay. Outside a branch a slot is a launch on the card; inside
-  one (see below) it is a launch that runs only where the branch is taken
-  or the loop's pass runs, so the counts are an upper bound of the
-  launches run; ``launch_ledger()`` gives both, the launches run from
-  counts the conditional nodes keep on the device. The warm-up's launches
-  are real and counted too; ``GraphCache.warmups`` keeps their running
-  total per kernel, for a caller that counts launches per step.
+* The kernel wrappers count launches in Python (``counters``: every
+  counter the kernels made, ``ops/kernels/build.COUNTERS``), which a
+  replay does not run: the cache notes each kernel's launch slots during
+  the capture (and takes them back off, the capture launched nothing) and
+  adds them again on every replay. Outside a branch a slot is a launch on
+  the card; inside one (see below) it is a launch that runs only where the
+  branch is taken or the loop's pass runs, so the counts are an upper
+  bound of the launches run; ``launch_ledger()`` gives both, the launches
+  run from counts the conditional nodes keep on the device. The warm-up's
+  launches are real and counted too; ``GraphCache.warmups`` keeps their
+  running total per kernel, for a caller that counts launches per step.
 * ``sync_check(mode)`` runs every input copy and replay under
   ``torch.cuda.set_sync_debug_mode(mode)``: with ``"error"`` a hidden
   synchronisation inside a replayed step raises. (A warm-up is an eager
@@ -48,10 +55,8 @@ graph instead of the host launching every operation.
   events, one after the input copy and one after the replay, time the
   replay on the device.
 
-``CACHE`` is the process's cache, which the pipelines use. A capture or
+``CACHE`` is the process's cache, which ``run`` uses. A capture or
 replay failure raises; nothing falls back to the eager loop.
-On the CPU nothing is captured: the callers run their functions eagerly
-(``GraphCache.run`` needs CUDA tensors).
 
 Branches and loops on the device (``while_loop``, ``cond``): where JAX
 keeps a ``lax.while_loop`` or a ``lax.cond`` on the device, a captured
@@ -60,7 +65,7 @@ built with nvcc at first use). The same Python code runs everywhere:
 
 * ``while_loop(done_fn, body_fn, carry, n)`` runs at most ``n`` passes of a
   loop whose body masks itself (a pass whose carry is done returns it).
-  Eagerly (the CPU, ``capture=False``, ``torch.vmap``) every pass runs,
+  Eagerly (the CPU, ``eagerly()``, ``torch.vmap``) every pass runs,
   masked; while a graph is captured, the loop is one WHILE node whose body
   is the pass, captured once and ended by the ``pass_tail`` kernel (it
   writes the carry back, advances the pass index and sets the node's
@@ -94,18 +99,14 @@ import weakref
 import torch
 from torch.utils import _pytree as pytree
 
-from .ops.kernels.build import build_library
-from .ops.kernels.coarse_pass import coarse_pass
-from .ops.kernels.event_pass import event_pass
-from .ops.kernels.pattern_sample import pattern_sample, pattern_sample_lanes
-from .ops.kernels.lu_solve import SMALL_SOLVE_BY_N, small_solve
-from .ops.kernels.rasterize import rasterize_bilinear
+from .ops.kernels import build
+from .ops.kernels.build import counted, load_library
 from .telemetry import TRACE
 
-_COND_LIB = None
 IF, WHILE = 0, 1
 
 
+@counted
 def set_condition(parent, body, kind, pred, taken=None, counter=None):
     """Add a conditional node (``kind`` ``IF`` on the bool ``pred``,
     ``WHILE`` on ``~pred``) to the graph ``parent`` (a stream) captures,
@@ -125,9 +126,7 @@ def set_condition(parent, body, kind, pred, taken=None, counter=None):
     return handle.value
 
 
-set_condition.launches = 0
-
-
+@counted
 def pass_tail(stream, handle, records, n_leaves, counter, cap, done, taken,
               nbytes):
     """Launch the last kernel of a WHILE body on ``stream``: the carry
@@ -145,13 +144,8 @@ def pass_tail(stream, handle, records, n_leaves, counter, cap, done, taken,
     pass_tail.launches += 1
 
 
-pass_tail.launches = 0
-
-# the launch counters a replay has to advance
-COUNTED = (pattern_sample, pattern_sample_lanes, rasterize_bilinear,
-           small_solve, set_condition, pass_tail, coarse_pass, event_pass)
-
 _SYNC_MODE = 0
+_EAGER = False
 
 
 @contextlib.contextmanager
@@ -168,6 +162,20 @@ def sync_check(mode="error"):
 
 
 @contextlib.contextmanager
+def eagerly():
+    """Run every step ``run`` is given eagerly, also on the card, while the
+    context is open: the checks that hold a captured program against its
+    eager run."""
+    global _EAGER
+    prev = _EAGER
+    _EAGER = True
+    try:
+        yield
+    finally:
+        _EAGER = prev
+
+
+@contextlib.contextmanager
 def _sync_mode():
     if not _SYNC_MODE:
         yield
@@ -181,12 +189,13 @@ def _sync_mode():
 
 
 def counters():
-    """The launch counters a replay has to advance: ``COUNTED``, then the
-    small solve's per number of unknowns, each made at the small solve's
-    first launch at that size. The tuple only
-    grows at its end, so a list of counts taken earlier is a prefix, its
-    missing counts 0 (``_sub``, ``_add``)."""
-    return (*COUNTED, *SMALL_SOLVE_BY_N.values())
+    """The launch counters a replay has to advance: every counter the
+    kernels have made (``build.COUNTERS``: the entry points as their
+    modules are imported, the small solve's per number of unknowns at its
+    first launch at that size). The tuple only grows at its end, so a list
+    of counts taken earlier is a prefix, its missing counts 0 (``_sub``,
+    ``_add``)."""
+    return tuple(build.COUNTERS)
 
 
 def _counts():
@@ -271,31 +280,20 @@ _OPEN_BODIES = []
 _CAPTURE = {}
 
 
+_COND_FUNCTIONS = {
+    "graph_node_begin": ([ctypes.c_void_p] * 2
+                         + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                         + [ctypes.c_void_p] * 3),
+    "graph_pass_tail": [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int],
+    "graph_capture_nodes": [ctypes.c_void_p] * 2,
+    "graph_node_end": [ctypes.c_void_p],
+    "graph_stream_create": [ctypes.c_void_p]}
+
+
 def _cond_lib():
-    global _COND_LIB
-    if _COND_LIB is None:
-        built = build_library("graph_cond", ["graph_cond.cu"])
-        lib = built.lib
-        lib.graph_node_begin.argtypes = ([ctypes.c_void_p] * 2
-                                         + [ctypes.c_int, ctypes.c_void_p,
-                                            ctypes.c_int]
-                                         + [ctypes.c_void_p] * 3)
-        lib.graph_node_begin.restype = ctypes.c_int
-        lib.graph_pass_tail.argtypes = [
-            ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int]
-        lib.graph_pass_tail.restype = ctypes.c_int
-        lib.graph_capture_nodes.argtypes = [ctypes.c_void_p] * 2
-        lib.graph_capture_nodes.restype = ctypes.c_int
-        lib.graph_node_end.argtypes = [ctypes.c_void_p]
-        lib.graph_node_end.restype = ctypes.c_int
-        lib.graph_stream_create.argtypes = [ctypes.c_void_p]
-        lib.graph_stream_create.restype = ctypes.c_int
-        lib.graph_cond_error_string.argtypes = [ctypes.c_int]
-        lib.graph_cond_error_string.restype = ctypes.c_char_p
-        _COND_LIB = built
-    return _COND_LIB
+    return load_library("graph_cond", ["graph_cond.cu"], _COND_FUNCTIONS)
 
 
 def _driver_version():
@@ -444,9 +442,18 @@ def _write(dst, src):
     torch._foreach_copy_(pytree.tree_leaves(dst), pytree.tree_leaves(src))
 
 
+def _buffer(x):
+    """A copy of the tensor ``x`` in the layout of a captured program's
+    buffers, whatever ``x``'s: contiguous. A product or a reduction may take
+    another algorithm (and round otherwise) on a transposed operand, so a
+    replay must not depend on the layout of the call that captured it, and
+    an eager run that is to compute what the replay does runs on this
+    layout too (``contiguous``)."""
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _buffers(carry):
-    return pytree.tree_map(
-        lambda x: x.clone(memory_format=torch.contiguous_format), carry)
+    return pytree.tree_map(_buffer, carry)
 
 
 def _overlaps(a, others):
@@ -543,23 +550,17 @@ def _signature(leaves):
 
 
 class CapturedProgram:
-    """``fn`` captured on static copies of one call's inputs."""
+    """``fn`` captured on static copies (``_buffer``) of one call's inputs,
+    given flat: ``leaves`` of the tree ``spec``."""
 
-    def __init__(self, fn, inputs):
-        leaves, self.spec = pytree.tree_flatten(inputs)
+    def __init__(self, fn, leaves, spec):
         for x in leaves:
             if not (x is None or (torch.is_tensor(x) and x.is_cuda)):
                 raise TypeError("a captured program's inputs must be CUDA "
                                 f"tensors or None, got {type(x).__name__}")
-        # contiguous buffers, whatever the layout of this first call's
-        # inputs: a product or a reduction may take another algorithm (and
-        # round otherwise) on a transposed operand, and a replay must not
-        # depend on which call captured the program
-        full = [None if x is None
-                else x.clone(memory_format=torch.contiguous_format)
-                for x in leaves]
+        full = [None if x is None else _buffer(x) for x in leaves]
         self.static = [x for x in full if x is not None]
-        static_tree = pytree.tree_unflatten(full, self.spec)
+        static_tree = pytree.tree_unflatten(full, spec)
         prepare_branches(self.static[0].device)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -605,8 +606,10 @@ class CapturedProgram:
             k.launches = n
         self.replays = 0
 
-    def __call__(self, inputs):
-        leaves = [x for x in pytree.tree_leaves(inputs) if x is not None]
+    def __call__(self, leaves):
+        """Replay on the inputs' ``leaves`` (flat, ``None``s kept), copied
+        into the static buffers."""
+        leaves = [x for x in leaves if x is not None]
         if len(leaves) != len(self.static):
             raise ValueError("inputs do not match the captured program")
         timed = TRACE.on
@@ -635,28 +638,37 @@ class GraphCache:
         self.programs = {}
         # warm-up launches per counter (``counters``), over every capture,
         # and the host seconds the warm-ups and captures took
-        self.warmups = {k.__name__: 0 for k in COUNTED}
+        self._warmups = []
         self.capture_s = 0.0
 
-    def run(self, key, fn, inputs):
-        leaves, spec = pytree.tree_flatten(inputs)
+    @property
+    def warmups(self):
+        """{kernel: its launches in every warm-up so far}, for every
+        counter (``counters``)."""
+        return {k.__name__: n for k, n in itertools.zip_longest(
+            counters(), self._warmups, fillvalue=0)}
+
+    def run(self, key, fn, inputs, flat=None):
+        """``fn(inputs)`` as the captured program of ``key`` (captured at
+        the key's first call); ``flat`` is ``pytree.tree_flatten(inputs)``
+        where the caller has it."""
+        leaves, spec = flat or pytree.tree_flatten(inputs)
+        # the spec's string: a faster key than the spec itself (its hash and
+        # equality walk the tree in Python)
         full_key = (key, str(spec), _signature(leaves))
         prog = self.programs.get(full_key)
         if prog is None:
             name = program_name(key)
             t0 = time.perf_counter()
             with TRACE.span(f"capture.{name}"):
-                prog = CapturedProgram(fn, inputs)
+                prog = CapturedProgram(fn, leaves, spec)
             prog.capture_s = time.perf_counter() - t0
             prog.span = f"replay.{name}"
             self.capture_s += prog.capture_s
             self.programs[full_key] = prog
-            for k, n in zip(counters(), prog.warmup_launches):
-                if n:
-                    self.warmups[k.__name__] = \
-                        self.warmups.get(k.__name__, 0) + n
+            self._warmups = _add(self._warmups, prog.warmup_launches)
         with TRACE.span(prog.span):
-            return prog(inputs)
+            return prog(leaves)
 
     def replays(self) -> int:
         return sum(p.replays for p in self.programs.values())
@@ -686,10 +698,26 @@ def program_name(key) -> str:
     return str(key[0] if isinstance(key, tuple) else key)
 
 
-# the process's cache, which every pipeline uses, as jit's trace cache is
-# the process's: a program is captured once per process (a capture with its
+# the process's cache, which ``run`` uses, as jit's trace cache is the
+# process's: a program is captured once per process (a capture with its
 # warm-up takes about a second on the card), not once per pipeline
 CACHE = GraphCache()
+
+
+def run(key, fn, inputs):
+    """``fn(inputs)``, a step of the pipelines: eagerly where the inputs'
+    first tensor is on the CPU; on the card the captured program of ``key``
+    (``CACHE``), whose outputs the next replay overwrites (``copy_out``
+    what is kept); inside ``eagerly()`` eagerly on the card too, on the
+    static buffers' layout (``contiguous``). ``fn``'s closure holds only
+    what ``key`` names."""
+    flat = pytree.tree_flatten(inputs)
+    first = next(x for x in flat[0] if torch.is_tensor(x))
+    if not first.is_cuda:
+        return fn(inputs)
+    if _EAGER:
+        return fn(contiguous(inputs))
+    return CACHE.run(key, fn, inputs, flat)
 
 
 def copy_out(tree):
@@ -698,10 +726,8 @@ def copy_out(tree):
 
 
 def contiguous(tree):
-    """``tree`` with every tensor in the layout a captured program's static
-    buffers have (``CapturedProgram``): contiguous, copied where it is
-    not. A function run eagerly on it computes what its captured program
-    does; on a transposed operand a product may take another algorithm and
-    round otherwise."""
+    """``tree`` with every tensor copied into the layout a captured
+    program's static buffers have (``_buffer``): a function run eagerly on
+    it computes what its captured program does."""
     return pytree.tree_map(
-        lambda x: x.contiguous() if torch.is_tensor(x) else x, tree)
+        lambda x: _buffer(x) if torch.is_tensor(x) else x, tree)

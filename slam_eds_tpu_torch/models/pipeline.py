@@ -51,7 +51,7 @@ from .event_frame import create_event_frame
 from .window import WindowManager
 from ..telemetry import TRACE, Telemetry, traced
 from .. import graphs
-from ..graphs import CACHE, copy_out
+from ..graphs import copy_out
 
 
 TRACK_REFINEMENTS = ("none", "klt", "klt_pyr", "model_klt", "epiline")
@@ -70,10 +70,6 @@ class FrameOnlyPipeline:
     # optional PhotometricCalib: its response-derivative table weights the
     # pixel selector's gradient maps
     photometric: object = None
-    # on a card, run the frame track and the BA call as captured CUDA
-    # graphs (``graphs``); False runs the same functions eagerly (the
-    # stage-by-stage profile)
-    capture: bool = True
 
     def __post_init__(self):
         if self.cfg.tracker.bootstrap not in BOOTSTRAPS:
@@ -112,7 +108,7 @@ class FrameOnlyPipeline:
         bgrad = (None if self.photometric is None
                  else self.photometric.b_grad_table())
         return WindowManager(self.cam, self.cfg, device=self.device,
-                             photometric_bgrad=bgrad, capture=self.capture)
+                             photometric_bgrad=bgrad)
 
     # ------------------------------------------------------------------
     @traced("reset")
@@ -242,8 +238,7 @@ class FrameOnlyPipeline:
             self._boot_time = time
             return False
         self._init_state, done = ci.track_frame(
-            self._init_state, pyr, self.cam, counters=self.telemetry.counters,
-            capture=self.capture)
+            self._init_state, pyr, self.cam, counters=self.telemetry.counters)
         if not done:
             return False
         T_10, uv0, idp0, okm = ci.extract_result(self._init_state)
@@ -689,9 +684,6 @@ class EDSPipeline:
     cfg: EDSConfig = field(default_factory=EDSConfig)
     device: str = "cuda"
     photometric: object = None
-    # on a card, run the packet step (and the frame backend's track and BA)
-    # as captured CUDA graphs; False runs the same functions eagerly
-    capture: bool = True
 
     def __post_init__(self):
         if self.cfg.tracker.track_refinement not in TRACK_REFINEMENTS:
@@ -699,8 +691,7 @@ class EDSPipeline:
                              f"{self.cfg.tracker.track_refinement!r}")
         self.frame_pipe = FrameOnlyPipeline(self.cam, self.cfg,
                                             device=self.device,
-                                            photometric=self.photometric,
-                                            capture=self.capture)
+                                            photometric=self.photometric)
         self.device = self.frame_pipe.device
         self.kf: Optional[kfm.KeyFrame] = None
         self.depth: Optional[df.DepthFilterState] = None
@@ -977,19 +968,13 @@ class EDSPipeline:
                                          device=self.device)}
 
     def _run_packet(self, x, lim, iters, statics):
-        """The packet step (``gate_ladder``): replayed as its captured
-        program on the card (``capture``), run eagerly otherwise. Returns
-        (the tail's outputs, the rungs run as a device scalar)."""
+        """The packet step (``gate_ladder``) through ``graphs.run``; its
+        outputs are the program's own (``_adopt`` copies what it keeps).
+        Returns (the tail's outputs, the rungs run as a device scalar)."""
         cam = self.cam
 
         def program(x):
             return gate_ladder(x, cam, iters, lim, statics)
-        if self.device.type == "cuda" and self.capture:
-            key = ("event_packet", tuple(cam), tuple(iters),
-                   tuple(sorted(lim.items())), tuple(sorted(statics.items())))
-            return CACHE.run(key, program, x)
-        if self.device.type == "cuda":
-            # eagerly on the captured program's layout (``graphs.
-            # contiguous``)
-            x = graphs.contiguous(x)
-        return program(x)
+        key = ("event_packet", tuple(cam), tuple(iters),
+               tuple(sorted(lim.items())), tuple(sorted(statics.items())))
+        return graphs.run(key, program, x)

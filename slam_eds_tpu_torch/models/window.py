@@ -5,8 +5,8 @@ activation, marginalization policy and coarse-template refresh.
 Control decisions (which slot, how many points) run in host numpy as in the
 JAX module, with its host reads; numerical work is torch on the window's
 device. Every program the JAX module jits with fixed shapes is a captured
-CUDA graph on the card (``graphs.CACHE``, through ``WindowManager._program``;
-eagerly on the CPU and with ``capture=False``): ``_track_frame_compiled``
+CUDA graph on the card (``graphs.run``, through ``WindowManager._program``;
+eagerly on the CPU and in ``graphs.eagerly()``): ``_track_frame_compiled``
 (``track_frame_program``: the relative-pose prefix, the coarse LM, the
 world pose), the BA call (``ba_program``), the keyframe pyramid,
 ``all_pairs``, ``trace_on`` per slot pair, the activation GN
@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 from .. import graphs
-from ..graphs import CACHE, copy_out
 from ..config import EDSConfig
 from ..telemetry import traced
 from ..utils.cameras import Pinhole
@@ -196,8 +195,6 @@ class WindowManager:
     # maps are weighted by bg(I)^2 per level (setting_gammaWeightsPixelSelect)
     photometric_bgrad: object = None
     marg_count: int = 0
-    # on a card, track_frame and optimize replay captured CUDA graphs
-    capture: bool = True
 
     def __post_init__(self):
         F = self.cfg.caps.max_window_frames
@@ -517,22 +514,10 @@ class WindowManager:
         return n
 
     # ------------------------------------------------------------------
-    def _captured(self) -> bool:
-        return self.device.type == "cuda" and self.capture
-
     def _program(self, key, fn, x):
-        """``fn(x)``: on a card the captured program of ``key`` (``fn``'s
-        closure holds only what ``key`` names), whose outputs are copied out
-        (the next replay overwrites them), else eagerly."""
-        if not self._captured():
-            if self.device.type == "cuda":
-                # eagerly on the captured program's layout: the event
-                # tracker's pose seeds the track transposed
-                # (``SE3.inverse``), and a product on it rounds otherwise
-                # on the card
-                x = graphs.contiguous(x)
-            return fn(x)
-        return copy_out(CACHE.run(key, fn, x))
+        """``fn(x)`` as the step ``key`` (``graphs.run``), its outputs
+        copied out (the next replay overwrites them)."""
+        return graphs.copy_out(graphs.run(key, fn, x))
 
     def ba_inputs(self, iterations: Optional[int] = None):
         """(x, kw) of the BA call at the window's state: ``ba_program``'s

@@ -416,23 +416,17 @@ def track_frame_program(x, *, cam, iterations: int):
 
 
 def track_frame(state: InitState, pyr_new, cam, iterations: int = 30,
-                counters=None, capture: bool = False
-                ) -> tuple[InitState, bool]:
+                counters=None) -> tuple[InitState, bool]:
     """One new frame through the coarse-to-fine initializer
-    (``track_frame_program``; with ``capture`` on a card, its captured
-    program through ``graphs.CACHE``, keyed on the camera and
-    ``iterations``, the level shapes being in the key already). Returns
+    (``track_frame_program`` through ``graphs.run``, keyed on the camera
+    and ``iterations``, the level shapes being in the key already). Returns
     (state', initialized): initialized once the solution has stayed snapped
     for SNAPPED_THRESHOLD frames. One host read per frame, of the snap
     flags (``counters["init_host_reads"]`` when given)."""
-    x = {"state": state, "pyr": list(pyr_new)}
-    if capture and state.T_10.R.is_cuda:
-        state, flags = graphs.copy_out(graphs.CACHE.run(
-            ("coarse_init_track", tuple(cam), iterations),
-            lambda x: track_frame_program(x, cam=cam, iterations=iterations),
-            x))
-    else:
-        state, flags = track_frame_program(x, cam=cam, iterations=iterations)
+    state, flags = graphs.copy_out(graphs.run(
+        ("coarse_init_track", tuple(cam), iterations),
+        lambda x: track_frame_program(x, cam=cam, iterations=iterations),
+        {"state": state, "pyr": list(pyr_new)}))
     if counters is not None:
         counters["init_host_reads"] += 1
     is_snapped, at, fid = flags.tolist()

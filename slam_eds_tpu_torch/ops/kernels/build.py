@@ -11,9 +11,14 @@
 Each goes into ``slam_eds_tpu_torch/_build/`` (listed in ``.gitignore``),
 keyed by a hash of the sources, the headers they may include (every
 ``csrc/*.cuh`` for a CUDA library) and the flags, and is loaded with
-``ctypes``.
+``ctypes``. ``load_library`` builds a CUDA library once per process and
+declares its functions.
 Nothing here runs at import time; a missing compiler or a failed compile
 raises.
+
+The kernels' launch counters: an entry point made with ``counted`` (its
+``launches`` attribute) or a ``LaunchCount`` joins ``COUNTERS`` when it is
+made, which ``graphs.counters`` reads.
 """
 from __future__ import annotations
 
@@ -99,3 +104,55 @@ def build_host_library(name: str, sources) -> BuiltLibrary:
     """A host library built with the host C++ compiler, linked with zlib
     and pthreads."""
     return _build(name, sources, find_host_compiler(), HOST_FLAGS, HOST_LIBS)
+
+
+# the library of each name that ``load_library`` has loaded
+_LOADED = {}
+
+
+def load_library(name: str, sources, functions, layout=None) -> BuiltLibrary:
+    """The CUDA library ``name`` (``build_library``), built and declared at
+    its first call in the process: ``functions`` maps each function to its
+    ``argtypes`` (every one returns an int, 0 or an error code), and
+    ``<name>_error_string`` turns a code into its message. ``layout``
+    (what, {function: value}) names constants the library returns that
+    must equal this side's: the first call raises where they do not."""
+    built = _LOADED.get(name)
+    if built is None:
+        built = build_library(name, sources)
+        lib = built.lib
+        what, want = layout or ("", {})
+        for fn, argtypes in {**functions, **dict.fromkeys(want, [])}.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        got = tuple(getattr(lib, fn)() for fn in want)
+        if got != tuple(want.values()):
+            raise RuntimeError(f"{sources[0]}'s {what} {got} are not "
+                               f"{tuple(want.values())}")
+        _LOADED[name] = built
+    return built
+
+
+# every launch counter in the order it was made; the list only grows at its
+# end (``graphs.counters``)
+COUNTERS = []
+
+
+class LaunchCount:
+    """A launch counter that is not an entry point (one size of a kernel):
+    a ``__name__`` and ``launches``, as a ``counted`` entry point has."""
+
+    def __init__(self, name):
+        self.__name__ = name
+        self.launches = 0
+        COUNTERS.append(self)
+
+
+def counted(fn):
+    """Make the entry point ``fn`` a launch counter: ``fn.launches`` from 0,
+    which the caller advances at each launch."""
+    fn.launches = 0
+    COUNTERS.append(fn)
+    return fn

@@ -31,9 +31,8 @@ import ctypes
 import numpy as np
 import torch
 
-from .build import build_library
+from .build import counted, load_library
 
-_LIB = None
 THREADS = 256
 MAX_SLOTS = 64 * THREADS       # the grid's 64 blocks
 SUMS = 49                      # float sums and counts a block leaves
@@ -66,25 +65,13 @@ def load():
     """Build (at first use) and load the kernel library; returns the
     BuiltLibrary record. Raises where its layout constants are not this
     module's."""
-    global _LIB
-    if _LIB is None:
-        built = build_library("coarse_pass", ["coarse_pass.cu"])
-        lib = built.lib
-        lib.coarse_pass_launch.argtypes = [ctypes.POINTER(_Args),
-                                           ctypes.c_void_p]
-        lib.coarse_pass_launch.restype = ctypes.c_int
-        lib.coarse_pass_error_string.argtypes = [ctypes.c_int]
-        lib.coarse_pass_error_string.restype = ctypes.c_char_p
-        layout = (lib.coarse_pass_max_slots, lib.coarse_pass_sums,
-                  lib.coarse_pass_state_floats)
-        for fn in layout:
-            fn.argtypes, fn.restype = [], ctypes.c_int
-        got = tuple(fn() for fn in layout)
-        if got != (MAX_SLOTS, SUMS, STATE):
-            raise RuntimeError(f"coarse_pass.cu's slots, sums and state "
-                               f"{got} are not {(MAX_SLOTS, SUMS, STATE)}")
-        _LIB = built
-    return _LIB
+    return load_library(
+        "coarse_pass", ["coarse_pass.cu"],
+        {"coarse_pass_launch": [ctypes.POINTER(_Args), ctypes.c_void_p]},
+        layout=("slots, sums and state",
+                {"coarse_pass_max_slots": MAX_SLOTS,
+                 "coarse_pass_sums": SUMS,
+                 "coarse_pass_state_floats": STATE}))
 
 
 # per device: the blocks' partial sums and the last-block ticket, made
@@ -222,6 +209,7 @@ class Level:
         return out if mode != "final" else (out[0], out[2])
 
 
+@counted
 def coarse_pass(args: _Args, device):
     """Launch the kernel with ``args`` on ``device``'s current stream."""
     lib = load().lib
@@ -232,6 +220,3 @@ def coarse_pass(args: _Args, device):
         raise RuntimeError(f"coarse_pass kernel launch failed: "
                            f"{lib.coarse_pass_error_string(rc).decode()}")
     coarse_pass.launches += 1
-
-
-coarse_pass.launches = 0

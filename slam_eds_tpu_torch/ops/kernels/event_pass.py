@@ -28,9 +28,8 @@ import ctypes
 import numpy as np
 import torch
 
-from .build import build_library
+from .build import counted, load_library
 
-_LIB = None
 MAX_SLOTS = 32 * 2048          # the cluster's 2,048 threads, 32 slots each
 STATE = 15                     # the LM carry's floats
 # what an "lm" launch leaves on request (``Level.run(..., system=True)``):
@@ -62,25 +61,14 @@ def load():
     """Build (at first use) and load the kernel library; returns the
     BuiltLibrary record. Raises where its layout constants are not this
     module's."""
-    global _LIB
-    if _LIB is None:
-        built = build_library("event_pass", ["event_pass.cu"])
-        lib = built.lib
-        lib.event_pass_launch.argtypes = [ctypes.POINTER(_Args), ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_void_p]
-        lib.event_pass_launch.restype = ctypes.c_int
-        lib.event_pass_error_string.argtypes = [ctypes.c_int]
-        lib.event_pass_error_string.restype = ctypes.c_char_p
-        layout = (lib.event_pass_max_slots, lib.event_pass_state_floats,
-                  lib.event_pass_system_floats)
-        for fn in layout:
-            fn.argtypes, fn.restype = [], ctypes.c_int
-        got = tuple(fn() for fn in layout)
-        if got != (MAX_SLOTS, STATE, SYSTEM):
-            raise RuntimeError(f"event_pass.cu's slots, state and system "
-                               f"{got} are not {(MAX_SLOTS, STATE, SYSTEM)}")
-        _LIB = built
-    return _LIB
+    return load_library(
+        "event_pass", ["event_pass.cu"],
+        {"event_pass_launch": [ctypes.POINTER(_Args), ctypes.c_int,
+                               ctypes.c_int, ctypes.c_void_p]},
+        layout=("slots, state and system",
+                {"event_pass_max_slots": MAX_SLOTS,
+                 "event_pass_state_floats": STATE,
+                 "event_pass_system_floats": SYSTEM}))
 
 
 def check_level(frame, norm_coord, grad, idp, weights, mask):
@@ -199,6 +187,7 @@ class Level:
         return (*out, sys_out) if system else out
 
 
+@counted
 def event_pass(args: _Args, loss: int, norm_event: bool, device):
     """Launch the kernel with ``args`` on ``device``'s current stream."""
     lib = load().lib
@@ -210,6 +199,3 @@ def event_pass(args: _Args, loss: int, norm_event: bool, device):
         raise RuntimeError(f"event_pass kernel launch failed: "
                            f"{lib.event_pass_error_string(rc).decode()}")
     event_pass.launches += 1
-
-
-event_pass.launches = 0

@@ -30,9 +30,8 @@ import ctypes
 
 import torch
 
-from .build import build_library
+from .build import LaunchCount, counted, load_library
 
-_LIB = None
 MAX_N = 32
 
 
@@ -44,15 +43,6 @@ def reciprocal_route(n: int) -> bool:
     divide. The rule is that torch version's, kept for bit parity with
     ``solve_ex`` on each system alone (``utils.linalg``)."""
     return 9 <= n <= 32
-
-
-class LaunchCount:
-    """A launch counter of one size of a kernel, kept beside the kernel's
-    own and counted by ``graphs.launch_ledger`` as a kernel is."""
-
-    def __init__(self, name):
-        self.__name__ = name
-        self.launches = 0
 
 
 # {n: the small solve's launch counter at n}, in the order of first launch
@@ -103,22 +93,16 @@ def small_solve_reference(A, b):
     return y
 
 
+_SOLVE_ARGS = ([ctypes.c_void_p] * 3
+               + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                  ctypes.c_void_p])
+_FUNCTIONS = {"small_solve_f32": _SOLVE_ARGS, "small_solve_f64": _SOLVE_ARGS}
+
+
 def load():
     """Build (at first use) and load the kernel library; returns the
     BuiltLibrary record."""
-    global _LIB
-    if _LIB is None:
-        built = build_library("lu_solve", ["lu_solve.cu"])
-        for name in ("small_solve_f32", "small_solve_f64"):
-            fn = getattr(built.lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 3
-                           + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                              ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        built.lib.lu_solve_error_string.argtypes = [ctypes.c_int]
-        built.lib.lu_solve_error_string.restype = ctypes.c_char_p
-        _LIB = built
-    return _LIB
+    return load_library("lu_solve", ["lu_solve.cu"], _FUNCTIONS)
 
 
 def small_solve_cuda(A, b):
@@ -155,6 +139,7 @@ def small_solve_cuda(A, b):
     return x
 
 
+@counted
 def small_solve(A, b):
     """Device dispatch: CPU tensors -> ``small_solve_reference``; CUDA
     tensors -> the kernel (raises on failure)."""
@@ -164,8 +149,6 @@ def small_solve(A, b):
         return small_solve_cuda(A, b)
     raise ValueError(f"small_solve: unsupported device {b.device}")
 
-
-small_solve.launches = 0
 
 
 @torch.library.custom_op("slam_eds_tpu_torch::small_solve",

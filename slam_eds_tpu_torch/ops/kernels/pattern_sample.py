@@ -23,9 +23,7 @@ import ctypes
 
 import torch
 
-from .build import build_library
-
-_LIB = None
+from .build import counted, load_library
 
 
 def _planes_view(planes):
@@ -104,22 +102,15 @@ def _lanes_view(planes):
     return planes
 
 
+_FUNCTIONS = {"pattern_sample_launch": (
+    [ctypes.c_void_p] + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 5
+    + [ctypes.c_longlong] + [ctypes.c_void_p] * 7)}
+
+
 def load():
     """Build (at first use) and load the kernel library; returns the
     BuiltLibrary record."""
-    global _LIB
-    if _LIB is None:
-        built = build_library("pattern_sample", ["pattern_sample.cu"])
-        fn = built.lib.pattern_sample_launch
-        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4
-                       + [ctypes.c_int] * 5 + [ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 7)
-        fn.restype = ctypes.c_int
-        err = built.lib.pattern_sample_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _LIB = built
-    return _LIB
+    return load_library("pattern_sample", ["pattern_sample.cu"], _FUNCTIONS)
 
 
 def _launch(pl, sB, u, v, lanes):
@@ -188,6 +179,7 @@ def pattern_sample_lanes_cuda(planes, u, v):
     return out
 
 
+@counted
 def pattern_sample(planes, u, v):
     """Device dispatch: CPU tensors -> ``pattern_sample_reference``; CUDA
     tensors -> the kernel (raises on failure)."""
@@ -198,6 +190,7 @@ def pattern_sample(planes, u, v):
     raise ValueError(f"pattern_sample: unsupported device {u.device}")
 
 
+@counted
 def pattern_sample_lanes(planes, u, v):
     """Device dispatch of the lane axis: CPU tensors ->
     ``pattern_sample_lanes_reference``; CUDA tensors -> the kernel."""
@@ -207,9 +200,6 @@ def pattern_sample_lanes(planes, u, v):
         return pattern_sample_lanes_cuda(planes, u, v)
     raise ValueError(f"pattern_sample_lanes: unsupported device {u.device}")
 
-
-pattern_sample.launches = 0
-pattern_sample_lanes.launches = 0
 
 
 # ---------------------------------------------------------------------------

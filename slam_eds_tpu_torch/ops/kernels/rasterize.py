@@ -25,9 +25,8 @@ from typing import NamedTuple
 
 import torch
 
-from .build import build_library
+from .build import counted, load_library
 
-_LIB = None
 _GEOMETRY = {}             # (H, W) -> RasterGeometry, chosen at first use
 
 # the most dynamic shared memory a block may use on the card (sm_90)
@@ -96,26 +95,20 @@ def rasterize_bilinear_reference(xs, ys, values, height: int, width: int):
     return out.reshape(height, width)
 
 
+_FUNCTIONS = {
+    "rasterize_launch": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                         + [ctypes.c_int] * 5
+                         + [ctypes.c_longlong, ctypes.c_int]
+                         + [ctypes.c_void_p] * 2),
+    "rasterize_max_active_clusters": [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_longlong,
+                                      ctypes.POINTER(ctypes.c_int)]}
+
+
 def load():
     """Build (at first use) and load the kernel library; returns the
     BuiltLibrary record."""
-    global _LIB
-    if _LIB is None:
-        built = build_library("rasterize", ["rasterize.cu"])
-        fn = built.lib.rasterize_launch
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int]
-                       + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-        occ = built.lib.rasterize_max_active_clusters
-        occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)]
-        occ.restype = ctypes.c_int
-        err = built.lib.rasterize_error_string
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _LIB = built
-    return _LIB
+    return load_library("rasterize", ["rasterize.cu"], _FUNCTIONS)
 
 
 def _check(lib, rc, what):
@@ -192,6 +185,7 @@ def rasterize_bilinear_cuda(xs, ys, values, height: int, width: int):
     return out
 
 
+@counted
 def rasterize_bilinear(xs, ys, values, height: int, width: int):
     """Device dispatch: CPU tensors -> ``rasterize_bilinear_reference``;
     CUDA tensors -> the kernel (raises on failure)."""
@@ -201,5 +195,3 @@ def rasterize_bilinear(xs, ys, values, height: int, width: int):
         return rasterize_bilinear_cuda(xs, ys, values, height, width)
     raise ValueError(f"rasterize_bilinear: unsupported device {xs.device}")
 
-
-rasterize_bilinear.launches = 0

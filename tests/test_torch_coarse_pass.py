@@ -12,7 +12,7 @@
   bitwise ``track_level_plain``, masked or with the passes after the stop
   skipped, and read-free.
 * The wrapper raises on what the kernel does not take, and its launches
-  are counted with the other kernels' (``graphs.COUNTED``).
+  are counted with the other kernels' (``graphs.counters()``).
 
 The kernel itself against the plain version runs on the card:
 ``tests/test_torch_kernels_cuda.py``.
@@ -271,7 +271,7 @@ def test_wrapper_launches_on_a_card_only():
 
 
 def test_coarse_pass_is_counted():
-    assert cp.coarse_pass in graphs.COUNTED
+    assert cp.coarse_pass in graphs.counters()
     assert cp.coarse_pass.__name__ == "coarse_pass"
     assert "coarse_pass" in graphs.launch_ledger()
 

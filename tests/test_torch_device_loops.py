@@ -21,8 +21,15 @@ same functions run on a card without a synchronisation and can be captured.
 * One packet step whose live count changes between two calls of the same
   program: each call agrees with JAX's fused step at that count, so a count
   frozen into the program would show.
+* The seam the steps run through (``graphs.run``): on CPU tensors it runs
+  the step eagerly and captures nothing, ``graphs.eagerly()`` gives back
+  the mode it found, and every kernel module's launch counters are in the
+  registry ``graphs.counters()`` reads; the kernels' shared ctypes loader
+  (``build.load_library``) declares a library once and checks its layout.
 """
 import hashlib
+import importlib
+import pkgutil
 
 import numpy as np
 import jax.numpy as jnp
@@ -43,6 +50,7 @@ from slam_eds_tpu.utils import image as jimage
 from slam_eds_tpu.utils.cameras import Pinhole as JPinhole
 from slam_eds_tpu.utils.lie import SE3 as JSE3
 
+from slam_eds_tpu_torch import graphs
 from slam_eds_tpu_torch.config import load_config
 from slam_eds_tpu_torch.models import keyframe as tkf
 from slam_eds_tpu_torch.models import pipeline as tpl
@@ -107,6 +115,99 @@ def test_the_counter_counts_reads():
     assert reads.n == 4
     bool(x[0])
     assert reads.n == 4
+
+
+# ---------------------------------------------------------------------------
+# the seam: graphs.run, graphs.eagerly, the launch counters
+# ---------------------------------------------------------------------------
+
+def test_run_is_eager_on_the_cpu():
+    x = {"a": torch.arange(6.0).reshape(2, 3).t(), "b": None}
+    seen = []
+
+    def fn(y):
+        seen.append(y)
+        return y["a"] * 2.0
+    before = dict(graphs.CACHE.programs)
+    with no_host_reads():
+        out = graphs.run(("cpu_step",), fn, x)
+    assert seen == [x] and seen[0]["a"] is x["a"]   # not copied
+    assert torch.equal(out, x["a"] * 2.0)
+    assert graphs.CACHE.programs == before
+
+
+def test_eagerly_restores_the_mode_it_found():
+    assert not graphs._EAGER
+    with graphs.eagerly():
+        assert graphs._EAGER
+        with pytest.raises(RuntimeError, match="inside"):
+            with graphs.eagerly():
+                raise RuntimeError("inside")
+        assert graphs._EAGER
+    assert not graphs._EAGER
+    with pytest.raises(RuntimeError, match="outside"):
+        with graphs.eagerly():
+            raise RuntimeError("outside")
+    assert not graphs._EAGER
+
+
+@pytest.mark.parametrize("slots", [6, 5])
+def test_load_library_declares_once_and_checks_the_layout(monkeypatch,
+                                                          slots):
+    """A library is built and declared at its first load only; its layout
+    constants must be this side's, else the load raises naming them."""
+    import ctypes
+    import types
+    from slam_eds_tpu_torch.ops.kernels import build
+    lib = types.SimpleNamespace(
+        demo_launch=lambda *a: 0, demo_error_string=lambda rc: b"bad",
+        demo_slots=lambda: slots, demo_state=lambda: 7)
+    made = []
+
+    def fake_build(name, sources):
+        made.append((name, sources))
+        return build.BuiltLibrary(lib, None, 0.0, "")
+    monkeypatch.setattr(build, "build_library", fake_build)
+    monkeypatch.setattr(build, "_LOADED", {})
+
+    def load():
+        return build.load_library(
+            "demo", ["demo.cu"], {"demo_launch": [ctypes.c_void_p]},
+            layout=("slots and state", {"demo_slots": 6, "demo_state": 7}))
+    if slots != 6:
+        with pytest.raises(RuntimeError, match=r"demo.cu's slots and "
+                           r"state \(5, 7\) are not \(6, 7\)"):
+            load()
+        return
+    assert load().lib is lib and load().lib is lib
+    assert made == [("demo", ["demo.cu"])]
+    assert lib.demo_launch.argtypes == [ctypes.c_void_p]
+    assert lib.demo_launch.restype is ctypes.c_int
+    assert lib.demo_slots.argtypes == [] and lib.demo_state.restype is \
+        ctypes.c_int
+    assert lib.demo_error_string.restype is ctypes.c_char_p
+
+
+KERNEL_MODULES = sorted(
+    f"slam_eds_tpu_torch.ops.kernels.{m.name}" for m in
+    pkgutil.iter_modules(importlib.import_module(
+        "slam_eds_tpu_torch.ops.kernels").__path__) if m.name != "build")
+
+
+@pytest.mark.parametrize("module", [*KERNEL_MODULES,
+                                    "slam_eds_tpu_torch.graphs"])
+def test_every_kernel_counter_is_registered(module):
+    """Each launch counter a module defines (an entry point with
+    ``launches``) joined the registry when the module was imported, under
+    its own name, and is in the ledger."""
+    mod = importlib.import_module(module)
+    entry = [v for v in vars(mod).values() if callable(v)
+             and hasattr(v, "launches") and v.__module__ == module]
+    assert entry
+    ledger = graphs.launch_ledger()
+    for k in entry:
+        assert any(c is k for c in graphs.counters())
+        assert k.__name__ in ledger
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@
   bitwise ``_lm_solve_plain``, masked or with the passes after the stop
   skipped, read-free, and chained over a pyramid's levels.
 * The wrapper raises on what the kernel does not take, and its launches
-  are counted with the other kernels' (``graphs.COUNTED``).
+  are counted with the other kernels' (``graphs.counters()``).
 
 The kernel itself against the plain version runs on the card:
 ``tests/test_torch_kernels_cuda.py``.
@@ -219,7 +219,7 @@ def test_wrapper_launches_on_a_card_only(scene):
 
 
 def test_event_pass_is_counted():
-    assert ep.event_pass in graphs.COUNTED
+    assert ep.event_pass in graphs.counters()
     assert ep.event_pass.__name__ == "event_pass"
     assert "event_pass" in graphs.launch_ledger()
 

@@ -73,6 +73,13 @@ kernel).
 ``parallel.dryrun.dryrun_multichip(2, "cuda")`` runs with two spawned ranks
 sharing the card over gloo and holds itself to the JAX dry run's bounds.
 
+The seam the steps go through (``graphs.run``): at the end of the smoke's
+frame and event cells the window's ``track_frame`` and ``ba`` programs,
+and the ``dso`` initializer's ``coarse_init_track`` on a strided pyramid,
+run eagerly in ``graphs.eagerly()`` are bitwise their replays; the launch
+ledger over a warm run of each cell is ``PARENT_LEDGER``, read at the
+commit before the seam.
+
 Tolerances: the sampler kernel is built without multiply-add contraction and
 follows the plain version term by term, so ``ok`` is identical and values
 agree within 1e-4 (0-255 planes); linearize/ba_iterate on the card against
@@ -499,7 +506,7 @@ def test_graph_replays_count_kernel_launches(card):
     first = cache.run("t", fn, x)       # warm-up, capture, then a replay
     n1 = (ps.pattern_sample.launches, rz.rasterize_bilinear.launches)
     assert n1 == (n0[0] + 2, n0[1] + 2)
-    assert cache.warmups == {**{k.__name__: 0 for k in graphs.COUNTED},
+    assert cache.warmups == {**{k.__name__: 0 for k in graphs.counters()},
                              "pattern_sample": 1, "rasterize_bilinear": 1}
     with graphs.sync_check("error"):
         for k in range(3):
@@ -1232,7 +1239,7 @@ def test_captured_coarse_track_runs_one_launch_a_pass(coarse_levels,
     assert ran["run"] == passes + 3 * COARSE_LEVELS
     assert ran["slots"] == (3 + ct.CUTOFF_DOUBLINGS) * COARSE_LEVELS \
         + sum(iters)
-    assert cp.coarse_pass in graphs.COUNTED
+    assert cp.coarse_pass in graphs.counters()
 
 
 # ---------------------------------------------------------------------------
@@ -1459,7 +1466,7 @@ def test_captured_event_lm_runs_one_launch_a_pass(event_levels,
     assert 1 <= int(got.n_iter) < cap
     assert ran["run"] == int(got.n_iter) + 2
     assert ran["slots"] == cap + 2
-    assert ep.event_pass in graphs.COUNTED
+    assert ep.event_pass in graphs.counters()
 
 
 @pytest.mark.cuda
@@ -1478,3 +1485,169 @@ def test_event_pass_wrapper_rejects_what_the_kernel_does_not_take(
                  loss, tol, ne)
     with pytest.raises(ValueError):
         ep.Level(frame, cam, *pts, kind, loss.double(), tol, ne)
+
+
+# ---------------------------------------------------------------------------
+# the seam between the pipelines and the card (graphs.run, graphs.eagerly)
+# ---------------------------------------------------------------------------
+
+def _cell_pipe(dev, cell, frames, packets):
+    """The smoke's frame cell (``FrameOnlyPipeline``, the default config)
+    or event cell (``EDSPipeline``, 65,536-event packets) over ``frames``,
+    each packet fed after its frame."""
+    from slam_eds_tpu_torch.config import EDSConfig
+    from slam_eds_tpu_torch.models.pipeline import (EDSPipeline,
+                                                    FrameOnlyPipeline)
+    cam = chip_smoke.smoke_camera()
+    if cell == "frame":
+        pipe = FrameOnlyPipeline(cam, EDSConfig(), device=dev)
+        for t, img in frames:
+            pipe.process_frame(img, t)
+        return pipe
+    pipe = EDSPipeline(cam, chip_smoke.eds_config(), device=dev)
+    for k, (t, img) in enumerate(frames):
+        pipe.process_frame(img, t)
+        if k + 1 < len(frames) and pipe.kf is not None:
+            pipe.process_events(packets[k])
+    return pipe
+
+
+def seam_cells(dev):
+    """Each cell over the smoke's 32 frames twice, each time in a new
+    pipeline (the first run warms and captures every program, the second
+    only replays): {cell: (the second run's pipeline, its launch ledger
+    delta without the counters that did not move, its per-frame poses,
+    the last frame's image)}.
+    Uses only what the pipelines, ``graphs`` and the smoke have long
+    offered, so that an older checkout reads the same numbers."""
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    cam = chip_smoke.smoke_camera()
+    seq = SyntheticSequence(cam, num_frames=chip_smoke.PIPE_FRAMES,
+                            motion_scale=0.22, micro_steps=2, device=dev)
+    frame_cell = [seq.frame(k)[:2] for k in range(chip_smoke.PIPE_FRAMES)]
+    _, _, event_frames, packets = chip_smoke.eds_inputs(dev)
+    out = {}
+    for cell, frames in (("frame", frame_cell), ("event", event_frames)):
+        _cell_pipe(dev, cell, frames, packets)
+        before = graphs.launch_ledger()
+        pipe = _cell_pipe(dev, cell, frames, packets)
+        delta = graphs.ledger_delta(before, graphs.launch_ledger())
+        fp = pipe if cell == "frame" else pipe.frame_pipe
+        poses = [torch.cat([T.R.reshape(-1), T.t]) for T in fp.poses]
+        if cell == "event":
+            poses += [torch.cat([T.R.reshape(-1), T.t])
+                      for T in pipe.event_pose_list]
+        out[cell] = (pipe, {k: v for k, v in delta.items()
+                            if v != {"slots": 0, "run": 0}},
+                     torch.stack(poses).cpu().numpy(), frames[-1][1])
+    return out
+
+
+# ``seam_cells``' launch ledger deltas read at the commit before the steps
+# went through ``graphs.run`` (ec6db4d; torch 2.11, CUDA 12.8, an H100)
+PARENT_LEDGER = {
+    "frame": {
+        "coarse_pass": {"slots": 12212, "run": 3793},
+        "pass_tail": {"slots": 11492, "run": 3073},
+        "pattern_sample": {"slots": 63, "run": 63},
+        "set_condition": {"slots": 525, "run": 525},
+        "small_solve": {"slots": 54, "run": 54},
+        "small_solve_n7": {"slots": 54, "run": 54},
+    },
+    "event": {
+        "coarse_pass": {"slots": 9088, "run": 2198},
+        "event_pass": {"slots": 4140, "run": 1422},
+        "pass_tail": {"slots": 12166, "run": 2909},
+        "pattern_sample": {"slots": 63, "run": 60},
+        "rasterize_bilinear": {"slots": 30, "run": 30},
+        "set_condition": {"slots": 723, "run": 517},
+        "small_solve": {"slots": 54, "run": 51},
+        "small_solve_n7": {"slots": 54, "run": 51},
+    },
+}
+
+
+@pytest.fixture(scope="module")
+def seam():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from slam_eds_tpu_torch.device import set_numerics
+    set_numerics()
+    return seam_cells(torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["frame", "event"])
+def test_window_programs_run_eagerly_are_bitwise_their_replays(seam, cell):
+    """At the end of each cell the window's ``track_frame`` (from the
+    pipeline's last pose: the event tracker's seeds it transposed) and
+    ``ba`` programs: replayed through ``graphs.run``, and run eagerly in
+    ``graphs.eagerly()``, which captures and replays nothing. Under
+    ``torch.inference_mode``, as the pipelines run (their programs' buffers
+    are inference tensors)."""
+    from slam_eds_tpu_torch import graphs
+    from torch.utils._pytree import tree_leaves
+    pipe, _, _, img = seam[cell]
+    fp = pipe if cell == "frame" else pipe.frame_pipe
+    win = fp.window
+    x, static = win.track_inputs(img, fp._last_pose)
+    xb, kw = win.ba_inputs()
+    for name, step in (("track_frame", lambda: win.run_track(x, static)),
+                       ("ba", lambda: win.run_ba(xb, kw))):
+        programs, replays = len(graphs.CACHE.programs), \
+            graphs.CACHE.replays()
+        with torch.inference_mode():
+            got = step()
+        assert graphs.CACHE.replays() == replays + 1, name
+        with graphs.eagerly(), torch.inference_mode():
+            want = step()
+        assert graphs.CACHE.replays() == replays + 1, name
+        assert len(graphs.CACHE.programs) == programs, name
+        for a, b in zip(tree_leaves(got), tree_leaves(want)):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_coarse_init_track_run_eagerly_is_bitwise_its_replay(card):
+    """The ``dso`` initializer's ``track_frame`` (``coarse_init_track``) on
+    the smoke's frames, the new frame's pyramid in a strided layout: its
+    replay and its eager run in ``graphs.eagerly()`` (both on contiguous
+    copies) give the same bits and the same verdict."""
+    from slam_eds_tpu_torch import graphs
+    from slam_eds_tpu_torch.config import EDSConfig
+    from slam_eds_tpu_torch.io.dataset import SyntheticSequence
+    from slam_eds_tpu_torch.ops import coarse_init as ci
+    from slam_eds_tpu_torch.utils import image as image_ops
+    from torch.utils._pytree import tree_leaves
+    cam = chip_smoke.smoke_camera()
+    seq = SyntheticSequence(cam, num_frames=6, motion_scale=0.22,
+                            micro_steps=2, device=card)
+    levels = EDSConfig().initializer.pyr_levels
+
+    def pyr(k):
+        return image_ops.build_pyramid(seq.frame(k)[1], levels)[0]
+    state = ci.set_first(pyr(0))
+    for k in range(1, 4):
+        state, _ = ci.track_frame(state, pyr(k), cam)
+    strided = [p.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+               for p in pyr(4)]
+    assert not strided[0].is_contiguous()
+    replays = graphs.CACHE.replays()
+    got = ci.track_frame(state, strided, cam)
+    assert graphs.CACHE.replays() == replays + 1
+    with graphs.eagerly():
+        want = ci.track_frame(state, strided, cam)
+    assert graphs.CACHE.replays() == replays + 1
+    assert got[1] == want[1]
+    for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["frame", "event"])
+def test_launch_ledger_over_a_cell_is_the_parents(seam, cell):
+    """Every kernel's launch slots and launches run over a whole warm run
+    of each cell are what they were before the pipelines' steps went
+    through ``graphs.run`` (``PARENT_LEDGER``)."""
+    assert seam[cell][1] == PARENT_LEDGER[cell]

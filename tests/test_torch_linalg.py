@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from slam_eds_tpu_torch import graphs
+from slam_eds_tpu_torch.ops.kernels import build
 from slam_eds_tpu_torch.ops.kernels import lu_solve as lu
 from slam_eds_tpu_torch.utils.linalg import solve
 
@@ -168,14 +169,16 @@ def test_small_solve_dispatch_and_checks():
 
 def test_launch_ledger_counts_the_small_solve_per_size(monkeypatch):
     """A size's counter is made at the small solve's first launch at that
-    size and joins the ledger then: a delta across its making counts it
-    from 0, and leaves every other counter as it was."""
+    size and joins the registry (``build.COUNTERS``), and so the ledger,
+    then: a delta across its making counts it from 0, and leaves every
+    other counter as it was."""
     before = graphs.launch_ledger()
     assert "small_solve" in before
     assert [k for k in before if k.startswith("small_solve_n")] == [
         c.__name__ for c in lu.SMALL_SOLVE_BY_N.values()]
     n = next(m for m in range(1, lu.MAX_N + 1)
              if m not in lu.SMALL_SOLVE_BY_N)
+    monkeypatch.setattr(build, "COUNTERS", list(build.COUNTERS))
     count = lu.LaunchCount(f"small_solve_n{n}")
     monkeypatch.setitem(lu.SMALL_SOLVE_BY_N, n, count)
     count.launches += 3
